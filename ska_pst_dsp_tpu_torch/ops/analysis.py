@@ -1,0 +1,116 @@
+"""Oversampled polyphase analysis filterbank (SKA-Low style), composed.
+
+Counterpart of :mod:`ska_pst_dsp_tpu.ops.analysis` (analysis.py:52-173):
+the reference's per-block ``circshift`` commutes with the phase fold and
+becomes a per-bin phase ramp under the DFT, so
+
+    out[k, q] = block * FFT(folded_k)[q] * exp(-2j*pi*q*(step*(k+block0) % block)/block)
+
+(upper sideband). The ramp is periodic in k with period
+``block / gcd(step, block)`` (= nu for every integral geometry), so a table
+of that many rows, indexed by ``(k + block0) % period``, is the whole ramp.
+
+:func:`analysis_core` is also the plain version of the fused analysis
+kernel (:mod:`.kernels.analysis_fused`). The zero-padded (SKA-Mid) variant
+is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple, Union
+
+import numpy as np
+import torch
+
+from ska_pst_dsp_tpu.utils import geometry
+from ska_pst_dsp_tpu.utils.rational import Rational
+
+from . import cfft
+from .framing import frame
+
+
+def _phase_ramp(block: int, step: int, nblocks: int, k0: int) -> Tuple[np.ndarray, np.ndarray]:
+    """ramp[k, q] = exp(-2j*pi * q * (step*(k+k0) mod block) / block) as
+    (re, im) float32."""
+    k = np.arange(nblocks) + k0
+    shift = (step * k) % block
+    q = np.arange(block)
+    ang = -2.0 * np.pi * q[None, :] * shift[:, None] / block
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+def _prep_filter(filt, block: int, reverse: bool = False) -> np.ndarray:
+    """Zero-pad taps to a multiple of block (pad_filter.m:9-13) and reshape
+    to (phases, block) with f2d[m, j] = f[m*block + j]."""
+    filt = np.asarray(filt, dtype=np.float64).ravel()
+    fl = geometry.padded_filter_length(filt.size, block)
+    f = np.zeros(fl, dtype=np.float64)
+    f[: filt.size] = filt
+    if reverse:
+        f = f[::-1]
+    return f.reshape(fl // block, block).astype(np.float32)
+
+
+def ramp_period(block: int, step: int) -> int:
+    """Rows of the derotation ramp before it repeats."""
+    return block // math.gcd(step, block)
+
+
+def ramp_table(block: int, step: int) -> np.ndarray:
+    """(period, block) complex64 ramp; row r serves every spectrum k with
+    (k + block0) % period == r."""
+    rr, ri = _phase_ramp(block, step, ramp_period(block, step), 0)
+    return rr + 1j * ri
+
+
+def stream(x) -> Tuple[torch.Tensor, bool]:
+    """(n_pol, n_dat) complex64 tensor from a (n_pol, [1,] n_dat) complex
+    tensor/array or (re, im) pair, and whether it came as a pair."""
+    z, pair = cfft.as_complex(x)
+    if z.ndim == 3:
+        z = z[:, 0, :]
+    return z, pair
+
+
+def analysis_core(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
+                  step: int, block0: int = 0) -> torch.Tensor:
+    """(n_pol, n_dat) complex64 -> time-major (n_pol, nblocks, block),
+    nblocks = (n_dat - phases*block) // step.
+
+    f2d: (phases, block) float32; ramp: (period, block) complex64, both on
+    x's device."""
+    n_pol = x.shape[0]
+    phases, block = f2d.shape
+    fl = phases * block
+    nblocks = (x.shape[-1] - fl) // step
+    frames = frame(x, fl, step, nblocks).reshape(n_pol, nblocks, phases, block)
+    folded = (frames * f2d).sum(dim=-2)
+    spec = cfft.fft(folded)
+    rows = (torch.arange(nblocks, device=x.device) + block0) % ramp.shape[0]
+    return spec * ramp[rows] * block
+
+
+def polyphase_analysis(x, filt, block: int, os_factor: Union[Rational, str],
+                       *, block0: int = 0):
+    """Single-stage oversampled analysis PFB (SKA-Low / "Bunton" style).
+
+    Args:
+      x: (n_pol, 1, n_dat) or (n_pol, n_dat) complex stream, or an
+        (re, im) float32 pair.
+      filt: prototype lowpass FIR coefficients.
+      block: number of output channels (= FFT length).
+      os_factor: oversampling ratio nu/de.
+      block0: absolute index of the first output spectrum (for streamed
+        calls; 0 for one-shot).
+
+    Returns (n_pol, block, nblocks), nblocks = (n_dat - padded_taps)//step;
+    a complex64 tensor for complex input, an (re, im) pair for pair input.
+    """
+    z, pair = stream(x)
+    os_factor = Rational.coerce(os_factor)
+    step = geometry.analysis_step(block, os_factor)
+    f2d = torch.as_tensor(_prep_filter(filt, block), device=z.device)
+    ramp = torch.as_tensor(ramp_table(block, step), device=z.device)
+    out = analysis_core(z, f2d, ramp, step, block0).transpose(1, 2)
+    return cfft.same_kind(out, pair)

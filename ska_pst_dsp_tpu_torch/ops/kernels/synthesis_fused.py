@@ -1,0 +1,178 @@
+"""Fused Golden-inversion frontend kernel and the epilogue dispatch.
+
+Counterpart of :mod:`ska_pst_dsp_tpu.ops.pallas.synthesis_fused`. The CUDA
+kernel (``csrc/synthesis_fused.cu``) reads each overlap-save frame of a
+tile of channels once, tapers it, runs the L-point FFT in shared memory
+and writes only the kept, derippled passband bins, already in assembled
+spectrum order (n_pol, n_blocks, n_chan, FN_width). Its plain version is
+:func:`ska_pst_dsp_tpu_torch.ops.synthesis.frontend`.
+
+The epilogue follows the JAX package's dispatch: the fused epilogue
+(:mod:`.ifft_fused`) where :func:`.ifft_fused.plan_ifft` applies (low); a
+geometry that needs the out-of-core epilogue (mid's 1.8M-point IFFT, not
+ported yet) raises ``NotImplementedError`` for a CUDA tensor; otherwise the
+composed epilogue.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from ska_pst_dsp_tpu.utils import geometry
+from ska_pst_dsp_tpu.utils.rational import Rational
+
+from .. import cfft
+from ..synthesis import epilogue, frontend, synthesis_constants
+from . import _build, radix, require, stream_of, twiddles
+from .ifft_fused import fused_big_ifft, plan_ifft
+
+
+def synthesis_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
+                    perm: torch.Tensor, L: int, keep: int, kpos: int,
+                    n_blocks: int) -> torch.Tensor:
+    """(n_pol, n_dat, n_chan) complex64, any strides -> (n_pol, n_blocks,
+    n_chan, FN_width). Output channel c reads input channel perm[c]
+    (int32); kept bin j is raw DFT bin (kpos + j) mod L times dr[j]. A CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel."""
+    if x_tc.device.type == "cpu":
+        return frontend(x_tc, t_taper, dr, perm, L, keep, kpos, n_blocks)
+    if x_tc.device.type != "cuda":
+        raise ValueError(f"synthesis_fused runs on cuda or cpu, not {x_tc.device}")
+    dev = x_tc.device
+    if x_tc.dtype != torch.complex64 or x_tc.ndim != 3:
+        raise TypeError("x must be a (n_pol, n_dat, n_chan) complex64 tensor")
+    t_taper = require(t_taper, "t_taper", torch.float32, dev)
+    dr = require(dr, "dr", torch.float32, dev)
+    perm = require(perm, "perm", torch.int32, dev)
+    n_pol, n_dat, n_chan = x_tc.shape
+    fnw = dr.shape[0]
+    if t_taper.shape != (L,) or perm.shape != (n_chan,) or fnw > L:
+        raise ValueError("t_taper must be (L,), perm (n_chan,), FN_width <= L")
+    if n_blocks <= 0 or (n_blocks - 1) * keep + L > n_dat:
+        raise ValueError(
+            f"{n_blocks} overlap-save blocks of {L} at hop {keep} do not fit "
+            f"in {n_dat} samples"
+        )
+    r, q, logq = radix(L)
+    out = torch.empty((n_pol, n_blocks, n_chan, fnw), dtype=torch.complex64,
+                      device=dev)
+    tab = twiddles(L, -1, dev)
+    sp, st, sc = x_tc.stride()
+    with torch.cuda.device(dev):
+        status = _build.library().synthesis_fused_launch(
+            x_tc.data_ptr(), out.data_ptr(), t_taper.data_ptr(), dr.data_ptr(),
+            perm.data_ptr(), tab.data_ptr(), sp, st, sc, n_pol, n_chan,
+            n_blocks, L, r, q, logq, keep, kpos, fnw, stream_of(x_tc),
+        )
+    _build.check(status, "synthesis_fused")
+    synthesis_fused.launches += 1
+    return out
+
+
+synthesis_fused.launches = 0
+
+
+def _needs_ifft_big(n: int, lo: int) -> bool:
+    """True where the JAX package runs its out-of-core epilogue
+    (ops/pallas/ifft_big.py plan_big_ifft): n1 = the largest divisor of n
+    that is <= 512, a multiple of 128, and q <= 512 (a multiple of 128)
+    dividing n2 = n/n1 with n2/q <= 8."""
+    if (n - 2 * lo) <= 0:
+        return False
+    n1 = max((d for d in range(1, 513) if n % d == 0), default=1)
+    n2 = n // n1
+    if n1 == 1 or n1 % 128 or lo % n2 or (n - 2 * lo) % n2:
+        return False
+    if (n1 - 1) * (n2 - 1) >= 2 ** 24:
+        return False
+    return any(n2 % q == 0 and n2 // q <= 8 for q in range(128, min(512, n2) + 1, 128))
+
+
+def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
+                    perm: torch.Tensor, elem: Optional[torch.Tensor],
+                    geom: geometry.SynthesisGeometry, *, spans_nyquist: bool,
+                    valid_len: Optional[int] = None) -> torch.Tensor:
+    """Frontend kernel + epilogue on a (n_pol, n_dat, n_chan) view; the
+    first ``valid_len`` samples (default all) are data. Returns
+    (n_pol, 1, n_blocks * output_keep) complex64."""
+    n_pol, n_dat, _ = x_tc.shape
+    L = geom.input_fft_length
+    if n_dat < L:
+        raise ValueError(
+            f"fused synthesis needs at least one frame: n_dat={n_dat} < L={L}"
+        )
+    n_blocks = geom.n_blocks(n_dat if valid_len is None else valid_len)
+    fn = synthesis_fused(
+        x_tc, t_taper, dr, perm, L, geom.input_keep,
+        (L // 2 + geom.discard) % L, n_blocks,
+    )
+    n = geom.output_fft_length
+    flat = fn.reshape(n_pol, n_blocks, n)
+    lo = geom.output_overlap
+    roll = geom.fn_width // 2 if spans_nyquist else 0
+    gain = geom.os_factor.de / geom.os_factor.nu
+    plan = plan_ifft(n, lo)
+    if plan is not None:
+        out = fused_big_ifft(flat, elem, shape_key=(n, *plan, lo, roll, gain),
+                             n_valid=n_blocks)
+    elif _needs_ifft_big(n, lo) and flat.is_cuda:
+        raise NotImplementedError(
+            f"the out-of-core {n}-point epilogue (ifft_big) has no CUDA "
+            "kernel yet"
+        )
+    else:
+        out = epilogue(flat, elem, lo, roll, gain, n_blocks)
+    return out.reshape(n_pol, 1, -1)
+
+
+def polyphase_synthesis_fused(
+    x,
+    input_fft_length: int,
+    os_factor: Union[Rational, str],
+    *,
+    spans_nyquist: bool = True,
+    input_overlap: Optional[int] = None,
+    deripple_coeff: Optional[np.ndarray] = None,
+    sample_offset: int = 0,
+    temporal_taper: Union[str, np.ndarray, None] = "no_window",
+    spectral_taper: Union[str, np.ndarray, None] = "no_window",
+    combine: int = 1,
+    spectral_filter=None,
+    time_major_in: bool = False,
+    valid_len: Optional[int] = None,
+):
+    """Drop-in for :func:`..synthesis.polyphase_synthesis` with the
+    frontend and epilogue fused. Same arguments, same in/out kinds.
+
+    ``time_major_in=True`` takes x as (n_pol, n_dat, n_chan), the fused
+    analysis' output layout; ``valid_len`` marks the first ``valid_len``
+    samples as data."""
+    os_factor = Rational.coerce(os_factor)
+    z, pair = cfft.as_complex(x)
+    x_tc = z if time_major_in else z.transpose(1, 2)
+    if sample_offset:
+        x_tc = x_tc[:, sample_offset:, :]
+    n_chan = x_tc.shape[2]
+    L = input_fft_length
+    if input_overlap is None:
+        input_overlap = L // 8
+    geom = geometry.SynthesisGeometry(n_chan, L, input_overlap, os_factor)
+    c = synthesis_constants(
+        n_chan, L, os_factor, input_overlap, spans_nyquist=spans_nyquist,
+        deripple_coeff=deripple_coeff, temporal_taper=temporal_taper,
+        spectral_taper=spectral_taper, combine=combine,
+        spectral_filter=spectral_filter,
+    )
+    dev = z.device
+    out = fused_inversion(
+        x_tc,
+        torch.as_tensor(c["t_taper"], device=dev),
+        torch.as_tensor(c["dr"], device=dev),
+        torch.as_tensor(c["perm"], device=dev),
+        None if c["elem"] is None else torch.as_tensor(c["elem"], device=dev),
+        geom, spans_nyquist=spans_nyquist, valid_len=valid_len,
+    )
+    return cfft.same_kind(out, pair)

@@ -1,0 +1,196 @@
+"""Golden FFT-based PFB inversion, composed.
+
+Counterpart of :mod:`ska_pst_dsp_tpu.ops.synthesis` (synthesis.py:37-236).
+The inversion splits at the same boundary as the fused kernels:
+
+* :func:`frontend` — overlap-save frames (hop ``input_keep``) of the
+  combine-permuted channels, temporal taper, L-point forward FFT, and the
+  fftshifted passband keep + deripple as a selection of raw bins
+  ``(kpos + j) mod L``; output in assembled spectrum order
+  (n_pol, n_blocks, n_chan, FN_width);
+* :func:`epilogue` — the backward FFT of each assembled block with the
+  spectral taper / filter, the DC-centering roll by FN_width/2 when the
+  channels span the Nyquist zone (polyphase_synthesis.m:265-278), the
+  overlap discard and the de/nu gain.
+
+Both are also the plain versions of the fused kernels
+(:mod:`.kernels.synthesis_fused`, :mod:`.kernels.ifft_fused`). The spectral
+taper and filter reach the epilogue as one complex factor ``elem``
+pre-rolled by +roll, the contract of the fused epilogue, so
+``epilogue(X) = IFFT(roll(X * elem, -roll))[lo:N-lo] * gain``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from ska_pst_dsp_tpu.utils import geometry, windows
+from ska_pst_dsp_tpu.utils.rational import Rational
+
+from . import cfft
+from .framing import frame
+
+
+def combine_channel_permutation(n_chan: int, combine: int) -> np.ndarray:
+    """Input-channel index feeding each output slot when the n_chan fine
+    channels span ``combine`` coarse channels (polyphase_synthesis.m:198-238):
+    half-coarse-channel shift, DSB-monotonic reorder, and half-band swaps
+    within the output and coarse channels."""
+    chan = np.arange(n_chan)
+    if combine <= 1:
+        return chan
+    fcpc = n_chan // combine  # fine channels per coarse channel
+    fine = (chan + fcpc // 2) % n_chan
+    coarse = fine // fcpc
+    fine = fine - coarse * fcpc
+    coarse = (coarse + combine // 2) % combine
+    fine = (fine + fcpc // 2) % fcpc
+    return coarse * fcpc + fine
+
+
+def _window(spec, length: int, overlap: int) -> np.ndarray:
+    if isinstance(spec, str) or spec is None:
+        return windows.build(spec or "no_window", length, overlap)
+    return np.asarray(spec, dtype=np.float32)
+
+
+def synthesis_constants(
+    n_chan: int,
+    input_fft_length: int,
+    os_factor: Union[Rational, str],
+    input_overlap: int,
+    *,
+    spans_nyquist: bool = True,
+    deripple_coeff: Optional[np.ndarray] = None,
+    temporal_taper: Union[str, np.ndarray, None] = "no_window",
+    spectral_taper: Union[str, np.ndarray, None] = "no_window",
+    combine: int = 1,
+    monotonic: bool = False,
+    spectral_filter=None,
+) -> Dict[str, Optional[np.ndarray]]:
+    """Host constants of the inversion, under the JAX package's names:
+    ``t_taper`` (L,) float32, ``dr`` (FN_width,) float32 deripple (ones
+    when disabled), ``perm`` (n_chan,) int32, and ``elem`` — the spectral
+    taper times the spectral filter, pre-rolled by +roll, complex64, or
+    None when both are identity."""
+    os_factor = Rational.coerce(os_factor)
+    L = input_fft_length
+    geom = geometry.SynthesisGeometry(n_chan, L, input_overlap, os_factor)
+    fnw = geom.fn_width
+    t_vec = _window(temporal_taper, L, input_overlap)
+    s_vec = _window(spectral_taper, n_chan * fnw, input_overlap)
+
+    if deripple_coeff is not None:
+        from ska_pst_dsp_tpu.design.fir import deripple_response
+
+        dr = deripple_response(deripple_coeff, n_chan, fnw // 2).astype(np.float32)
+    else:
+        dr = np.ones(fnw, dtype=np.float32)
+
+    perm = (
+        np.arange(n_chan) if monotonic
+        else combine_channel_permutation(n_chan, combine)
+    ).astype(np.int32)
+
+    elem = None
+    if spectral_filter is not None or not np.all(s_vec == 1.0):
+        e = np.asarray(s_vec, dtype=np.float64).astype(np.complex128)
+        if spectral_filter is not None:
+            if isinstance(spectral_filter, tuple):
+                sf_r, sf_i = spectral_filter
+            else:
+                sf = np.asarray(spectral_filter)
+                sf_r, sf_i = sf.real, sf.imag
+            sf_r = np.asarray(sf_r, dtype=np.float32)
+            sf_i = np.asarray(sf_i, dtype=np.float32)
+            if sf_r.shape != (n_chan * fnw,) or sf_i.shape != (n_chan * fnw,):
+                raise ValueError(
+                    f"spectral_filter must have shape ({n_chan * fnw},), "
+                    f"got re {sf_r.shape} / im {sf_i.shape}"
+                )
+            e = e * (sf_r.astype(np.float64) + 1j * sf_i.astype(np.float64))
+        roll = fnw // 2 if spans_nyquist else 0
+        elem = np.roll(e, roll).astype(np.complex64)
+    return {"t_taper": t_vec, "dr": dr, "perm": perm, "elem": elem}
+
+
+def frontend(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
+             perm: torch.Tensor, L: int, keep: int, kpos: int,
+             n_blocks: int) -> torch.Tensor:
+    """(n_pol, n_dat, n_chan) complex64 view -> (n_pol, n_blocks, n_chan,
+    FN_width): output channel c reads input channel perm[c]; kept bin j is
+    raw DFT bin (kpos + j) mod L times dr[j]."""
+    xs = x_tc.index_select(-1, perm).transpose(1, 2)  # (P, C, T)
+    frames = frame(xs, L, keep, n_blocks).transpose(1, 2)  # (P, nb, C, L)
+    spec = cfft.fft(frames * t_taper)
+    sel = (kpos + torch.arange(dr.shape[0], device=x_tc.device)) % L
+    return spec[..., sel] * dr
+
+
+def epilogue(flat: torch.Tensor, elem: Optional[torch.Tensor], lo: int,
+             roll: int, gain: float, n_valid: int) -> torch.Tensor:
+    """(n_pol, B >= n_valid, N) assembled spectra -> (n_pol, n_valid,
+    N - 2*lo): IFFT(roll(X * elem, -roll))[lo:N-lo] * gain."""
+    n = flat.shape[-1]
+    z = flat[:, :n_valid]
+    if elem is not None:
+        z = z * elem
+    z = torch.roll(z, -roll, dims=-1)
+    return cfft.ifft(z)[..., lo:n - lo] * gain
+
+
+def polyphase_synthesis(
+    x,
+    input_fft_length: int,
+    os_factor: Union[Rational, str],
+    *,
+    spans_nyquist: bool = True,
+    input_overlap: Optional[int] = None,
+    deripple_coeff: Optional[np.ndarray] = None,
+    sample_offset: int = 0,
+    temporal_taper: Union[str, np.ndarray, None] = "no_window",
+    spectral_taper: Union[str, np.ndarray, None] = "no_window",
+    combine: int = 1,
+    monotonic: bool = False,
+    spectral_filter=None,
+):
+    """Invert an oversampled PFB: fine channels -> original baseband stream.
+
+    Same arguments as :func:`ska_pst_dsp_tpu.ops.polyphase_synthesis`:
+    ``x`` is (n_pol, n_chan, n_dat) complex or an (re, im) pair; returns
+    (n_pol, 1, n_blocks*output_keep) of the same kind.
+    """
+    os_factor = Rational.coerce(os_factor)
+    z, pair = cfft.as_complex(x)
+    if sample_offset:
+        z = z[:, :, sample_offset:]
+    n_pol, n_chan, n_dat = z.shape
+    L = input_fft_length
+    if input_overlap is None:
+        input_overlap = L // 8
+    geom = geometry.SynthesisGeometry(n_chan, L, input_overlap, os_factor)
+    c = synthesis_constants(
+        n_chan, L, os_factor, input_overlap, spans_nyquist=spans_nyquist,
+        deripple_coeff=deripple_coeff, temporal_taper=temporal_taper,
+        spectral_taper=spectral_taper, combine=combine, monotonic=monotonic,
+        spectral_filter=spectral_filter,
+    )
+    dev = z.device
+    n_blocks = geom.n_blocks(n_dat)
+    fn = frontend(
+        z.transpose(1, 2),
+        torch.as_tensor(c["t_taper"], device=dev),
+        torch.as_tensor(c["dr"], device=dev),
+        torch.as_tensor(c["perm"], device=dev),
+        L, geom.input_keep, (L // 2 + geom.discard) % L, n_blocks,
+    )
+    elem = None if c["elem"] is None else torch.as_tensor(c["elem"], device=dev)
+    out = epilogue(
+        fn.reshape(n_pol, n_blocks, geom.output_fft_length), elem,
+        geom.output_overlap, geom.fn_width // 2 if spans_nyquist else 0,
+        os_factor.de / os_factor.nu, n_blocks,
+    )
+    return cfft.same_kind(out.reshape(n_pol, 1, -1), pair)

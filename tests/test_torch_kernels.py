@@ -1,0 +1,369 @@
+"""The port's kernel modules (ska_pst_dsp_tpu_torch.ops.kernels).
+
+On the CPU each wrapper runs its plain PyTorch version; that is held to the
+JAX package's Pallas function in interpret mode, as tests/test_pallas.py
+runs it, at that file's tolerances (8e-6 * scale analysis, 1.2e-5 * scale
+synthesis and epilogue).
+
+The CUDA kernels cannot run here, so their decomposition is emulated in
+numpy: the same host tables (twiddle_table, ramp_table), the same index
+maps (strided loads, dft_rq_pos, the four-step t = k2 + n2*k1) and the
+same split of each DFT (radix r, then radix-2 DIF) as csrc/*.cu, checked
+against np.fft and the plain versions. An index bug then shows here before
+the card. Tests marked ``cuda`` compare each kernel with its plain version
+on a card and skip without one; this module imports JAX only inside the
+tests that need it, so on a machine with a card and no JAX they run with
+``python -m pytest --noconftest tests/test_torch_kernels.py -m cuda``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ska_pst_dsp_tpu.design import fir
+from ska_pst_dsp_tpu.utils import geometry
+from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp_tpu_torch.ops import synthesis as tsynth
+from ska_pst_dsp_tpu_torch.ops.analysis import _prep_filter, analysis_core, ramp_table
+from ska_pst_dsp_tpu_torch.ops.kernels import radix, twiddle_table
+from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import (
+    K_TILE, analysis_fused, polyphase_analysis_fused, smem_bytes,
+)
+from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import fused_big_ifft, plan_ifft
+from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import (
+    _needs_ifft_big, polyphase_synthesis_fused, synthesis_fused,
+)
+
+OS = Rational(4, 3)
+N_CHAN, L, OV = 256, 256, 48
+GEOM = geometry.SynthesisGeometry(N_CHAN, L, OV, OS)
+KPOS = (L // 2 + GEOM.discard) % L
+N, LO, ROLL = GEOM.output_fft_length, GEOM.output_overlap, GEOM.fn_width // 2
+GAIN = OS.de / OS.nu
+ANALYSIS_TOL = 8e-6
+SYNTHESIS_TOL = 1.2e-5
+
+
+@pytest.fixture(scope="module")
+def filt():
+    return fir.design_pfb_fir_filter(N_CHAN, OS, 12)
+
+
+@pytest.fixture(scope="module")
+def pallas():
+    """The JAX package's Pallas functions, imported here so that the card
+    tests run where JAX is not installed (pytest --noconftest -m cuda)."""
+    from ska_pst_dsp_tpu.ops.pallas import (
+        analysis_fused, ifft_big, ifft_fused, synthesis_fused,
+    )
+
+    return analysis_fused, synthesis_fused, ifft_fused, ifft_big
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _noise(shape, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(
+        np.complex64
+    )
+
+
+def _rel_err(got, ref):
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+# ---------------------------------------------------------------------------
+# numpy emulation of csrc/dft_smem.cuh and the three kernels
+# ---------------------------------------------------------------------------
+
+def _bitrev(v, bits):
+    v = np.asarray(v)
+    out = np.zeros_like(v)
+    for b in range(bits):
+        out |= ((v >> b) & 1) << (bits - 1 - b)
+    return out
+
+
+def _pos(k, n):
+    r, q, logq = radix(n)
+    k = np.asarray(k)
+    return (k % r) * q + _bitrev(k // r, logq)
+
+
+def emu_dft_rq(x, tab, tstride):
+    """dft_rq_inplace on rows of x (complex64), in the kernel's order."""
+    rows, n = x.shape
+    r, q, _ = radix(n)
+    y = x.astype(np.complex64)
+    if r > 1:
+        v = y.reshape(rows, r, q)  # v[:, i, col] = row[col + q*i]
+        col = np.arange(q)
+        out = np.empty_like(v)
+        for kr in range(r):
+            acc = v[:, 0, :].copy()
+            for i in range(1, r):
+                acc = acc + v[:, i, :] * tab[((i * kr) % r) * q * tstride]
+            out[:, kr, :] = acc * tab[((col * kr) % n) * tstride]
+        y = out.reshape(rows, n)
+    h = q // 2
+    while h >= 1:
+        s = y.reshape(rows, r, q // (2 * h), 2, h)
+        a, c = s[..., 0, :], s[..., 1, :]
+        w = tab[np.arange(h) * (n // (2 * h)) * tstride]
+        y = np.stack([a + c, (a - c) * w], axis=-2).reshape(rows, n)
+        h //= 2
+    return y
+
+
+def emu_analysis(x, f2d, ramp, step, block0, k_tile):
+    """analysis_fused_kernel: span staging, register fold, FFT, ramp."""
+    n_pol, n_dat = x.shape
+    phases, block = f2d.shape
+    nblocks = (n_dat - phases * block) // step
+    tab = twiddle_table(block, -1)
+    span = (k_tile - 1) * step + phases * block
+    j = np.arange(block)
+    out = np.zeros((n_pol, nblocks, block), np.complex64)
+    for p in range(n_pol):
+        for k0 in range(0, nblocks, k_tile):
+            buf = np.zeros(span, np.complex64)
+            seg = x[p, k0 * step: k0 * step + span]
+            buf[: seg.size] = seg
+            acc = np.zeros((k_tile, block), np.complex64)
+            for m in range(phases):
+                idx = np.arange(k_tile)[:, None] * step + m * block + j[None, :]
+                acc = acc + f2d[m][None, :] * buf[idx]
+            rows = emu_dft_rq(acc, tab, 1)
+            kk = np.arange(k0, min(k0 + k_tile, nblocks))
+            row = (kk + block0) % ramp.shape[0]
+            out[p, kk] = rows[kk - k0][:, _pos(j, block)] * ramp[row] * np.float32(block)
+    return out
+
+
+def emu_frontend(flat, strides, shape, taper, dr, perm, keep, kpos, n_blocks):
+    """synthesis_frontend_kernel: strided loads of a flat buffer."""
+    sp, st, sc = strides
+    n_pol, _, n_chan = shape
+    n_l = taper.size
+    t = np.arange(n_l)
+    j = np.arange(dr.size)
+    out = np.zeros((n_pol, n_blocks, n_chan, dr.size), np.complex64)
+    for p in range(n_pol):
+        for b in range(n_blocks):
+            idx = p * sp + (b * keep + t)[:, None] * st + perm[None, :] * sc
+            rows = (flat[idx] * taper[:, None]).T  # one row per channel
+            y = emu_dft_rq(rows, twiddle_table(n_l, -1), 1)
+            out[p, b] = y[:, _pos((kpos + j) % n_l, n_l)] * dr
+    return out
+
+
+def emu_epilogue(X, elem, n, n2, n1, lo, roll, gain, n_valid):
+    """ifft_inner_kernel then ifft_outer_kernel through the A scratch."""
+    tab = twiddle_table(n, 1)
+    n_pol = X.shape[0]
+    k1_lo, n1_keep = lo // n2, (n - 2 * lo) // n2
+    m1 = np.arange(n1)
+    k2 = np.arange(n2)
+    k1 = k1_lo + np.arange(n1_keep)
+    out = np.zeros((n_pol, n_valid, n - 2 * lo), np.complex64)
+    for p in range(n_pol):
+        for b in range(n_valid):
+            w = X[p, b] if elem is None else X[p, b] * elem
+            cols = w.reshape(n2, n1).T  # cols[m1, m2] = W[m2*n1 + m1]
+            y = emu_dft_rq(cols, tab, n // n2)
+            a = (y[:, _pos(k2, n2)] * tab[(m1[:, None] * k2[None, :]) % n]).T
+            z = emu_dft_rq(a, tab, n // n1)  # rows k2 of A[k2*n1 + m1]
+            t = k2[:, None] + n2 * k1[None, :]
+            v = z[:, _pos(k1, n1)] * np.conj(tab[(roll * t) % n])
+            out[p, b, (t - lo).ravel()] = (v * np.float32(gain / n)).ravel()
+    return out
+
+
+class TestDecomposition:
+    @pytest.mark.parametrize("n", [8, 96, 128, 256, 384])
+    @pytest.mark.parametrize("sign", [-1, 1])
+    def test_dft_rq_matches_numpy(self, n, sign):
+        x = _noise((5, n), n)
+        y = emu_dft_rq(x, twiddle_table(n, sign), 1)[:, _pos(np.arange(n), n)]
+        ref = np.fft.fft(x) if sign < 0 else np.fft.ifft(x) * n
+        assert _rel_err(y, ref) < 2e-6
+
+    def test_strided_table(self):
+        # the epilogue reads its 128- and 384-point twiddles from one
+        # 49152-point table at strides n/n2 and n/n1
+        tab = twiddle_table(N, 1)
+        x = _noise((3, 384), 9)
+        y = emu_dft_rq(x, tab, N // 384)[:, _pos(np.arange(384), 384)]
+        assert _rel_err(y, np.fft.ifft(x) * 384) < 2e-6
+
+    def test_radix_split(self):
+        assert radix(256) == (1, 256, 8)
+        assert radix(384) == (3, 128, 7)
+        with pytest.raises(ValueError, match="odd factors"):
+            radix(448)
+
+    def test_twiddle_table_exact_phase(self):
+        tab = twiddle_table(49152, 1)
+        m = np.arange(49152)
+        ref = np.exp(2j * np.pi * m / 49152)
+        assert np.abs(tab - ref).max() < 1e-7
+
+    def test_analysis_emulation(self, filt):
+        step = geometry.analysis_step(N_CHAN, OS)
+        f2d = _prep_filter(filt, N_CHAN)
+        ramp = ramp_table(N_CHAN, step)
+        assert smem_bytes(N_CHAN, step, f2d.shape[0]) == 74_240
+        x = _noise((2, 3328 + 191 * 70 + 17), 10)
+        for block0 in (0, 7):
+            got = emu_analysis(x, f2d, ramp, step, block0, K_TILE)
+            ref = analysis_core(torch.as_tensor(x), torch.as_tensor(f2d),
+                                torch.as_tensor(ramp), step, block0).numpy()
+            assert _rel_err(got, ref) < ANALYSIS_TOL
+
+    @pytest.mark.parametrize("combine", [1, 16])
+    def test_frontend_emulation(self, filt, combine):
+        c = tsynth.synthesis_constants(N_CHAN, L, OS, OV, deripple_coeff=filt,
+                                       temporal_taper="tukey", combine=combine)
+        x = _noise((2, N_CHAN, 700), 11)  # channel-major: strides (C*T, 1, T)
+        n_blocks = GEOM.n_blocks(700)
+        got = emu_frontend(x.ravel(), (N_CHAN * 700, 1, 700), (2, 700, N_CHAN),
+                           c["t_taper"], c["dr"], c["perm"], GEOM.input_keep,
+                           KPOS, n_blocks)
+        ref = tsynth.frontend(
+            torch.as_tensor(x).transpose(1, 2), torch.as_tensor(c["t_taper"]),
+            torch.as_tensor(c["dr"]), torch.as_tensor(c["perm"]), L,
+            GEOM.input_keep, KPOS, n_blocks,
+        ).numpy()
+        assert _rel_err(got, ref) < SYNTHESIS_TOL
+
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_epilogue_emulation(self, with_elem):
+        n2, n1 = plan_ifft(N, LO)
+        X = _noise((1, 3, N), 12)
+        elem = _noise((N,), 13) if with_elem else None
+        got = emu_epilogue(X, elem, N, n2, n1, LO, ROLL, GAIN, 2)
+        ref = tsynth.epilogue(torch.as_tensor(X),
+                              None if elem is None else torch.as_tensor(elem),
+                              LO, ROLL, GAIN, 2).numpy()
+        assert _rel_err(got, ref) < SYNTHESIS_TOL
+
+
+class TestPlainVsPallas:
+    def test_analysis_time_major_keep_padding(self, filt, pallas):
+        jax_analysis_fused = pallas[0].polyphase_analysis_fused
+        x = _noise((2, 60_000), 14)
+        pair = (np.ascontiguousarray(x.real), np.ascontiguousarray(x.imag))
+        (jr, ji), jnb = jax_analysis_fused(pair, filt, N_CHAN, OS, time_major=True,
+                                           keep_padding=True, interpret=True)
+        (gr, gi), nb = polyphase_analysis_fused(
+            (torch.as_tensor(pair[0]), torch.as_tensor(pair[1])), filt, N_CHAN, OS,
+            time_major=True, keep_padding=True,
+        )
+        assert nb == jnb and gr.shape == (2, nb, N_CHAN)
+        ref = np.asarray(jr)[:, :nb] + 1j * np.asarray(ji)[:, :nb]
+        assert _rel_err(gr.numpy() + 1j * gi.numpy(), ref) < ANALYSIS_TOL
+
+    def test_analysis_channel_major_complex(self, filt, pallas):
+        jax_analysis_fused = pallas[0].polyphase_analysis_fused
+        x = _noise((1, 1, 30_000), 15)
+        got = polyphase_analysis_fused(x, filt, N_CHAN, OS).numpy()
+        ref = np.asarray(jax_analysis_fused(x, filt, N_CHAN, OS, interpret=True))
+        assert _rel_err(got, ref) < ANALYSIS_TOL
+        with pytest.raises(ValueError, match="keep_padding"):
+            polyphase_analysis_fused(x, filt, N_CHAN, OS, keep_padding=True)
+
+    def test_synthesis_time_major_valid_len(self, filt, pallas):
+        jax_synthesis_fused = pallas[1].polyphase_synthesis_fused
+        # a tail-padded time-major stream: only the first valid_len rows count
+        x = _noise((2, 1200 + 40, N_CHAN), 16)
+        pair = (np.ascontiguousarray(x.real), np.ascontiguousarray(x.imag))
+        kw = dict(input_overlap=OV, deripple_coeff=filt, temporal_taper="tukey",
+                  time_major_in=True, valid_len=1200)
+        jr, ji = jax_synthesis_fused(pair, L, OS, interpret=True, **kw)
+        gr, gi = polyphase_synthesis_fused(
+            (torch.as_tensor(pair[0]), torch.as_tensor(pair[1])), L, OS, **kw
+        )
+        assert _rel_err(gr.numpy() + 1j * gi.numpy(),
+                        np.asarray(jr) + 1j * np.asarray(ji)) < SYNTHESIS_TOL
+
+    def test_synthesis_channel_major_combine(self, filt, pallas):
+        jax_synthesis_fused = pallas[1].polyphase_synthesis_fused
+        x = _noise((1, N_CHAN, 1200), 17)
+        kw = dict(input_overlap=OV, deripple_coeff=filt, temporal_taper="tukey",
+                  combine=16, spectral_taper="tukey")
+        ref = np.asarray(jax_synthesis_fused(x, L, OS, interpret=True, **kw))
+        got = polyphase_synthesis_fused(x, L, OS, **kw).numpy()
+        assert _rel_err(got, ref) < SYNTHESIS_TOL
+
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_fused_big_ifft(self, with_elem, pallas):
+        import jax.numpy as jnp
+
+        jax_fused_big_ifft = pallas[2].fused_big_ifft
+        plan = plan_ifft(N, LO)
+        assert plan == pallas[2].plan_ifft(N, LO) == (128, 384)
+        rng = np.random.default_rng(18)
+        fr, fi = (rng.standard_normal((2, 3, N)).astype(np.float32) for _ in range(2))
+        er, ei = (rng.standard_normal(N).astype(np.float32) for _ in range(2))
+        key = (N, *plan, LO, ROLL, GAIN)
+        jr, ji = jax_fused_big_ifft(
+            jnp.asarray(fr), jnp.asarray(fi),
+            *((jnp.asarray(er), jnp.asarray(ei)) if with_elem else (None, None)),
+            shape_key=key, has_elem=with_elem, n_valid=2, interpret=True,
+        )
+        gr, gi = fused_big_ifft(
+            (torch.as_tensor(fr), torch.as_tensor(fi)),
+            (torch.as_tensor(er), torch.as_tensor(ei)) if with_elem else None,
+            shape_key=key, n_valid=2,
+        )
+        assert _rel_err(gr.numpy() + 1j * gi.numpy(),
+                        np.asarray(jr) + 1j * np.asarray(ji)) < SYNTHESIS_TOL
+
+    @pytest.mark.parametrize("n,lo", [(49152, 9216), (1_835_008, 458_752),
+                                      (12288, 1536), (3 * 7 * 512, 0)])
+    def test_epilogue_dispatch_matches_jax(self, n, lo, pallas):
+        assert plan_ifft(n, lo) == pallas[2].plan_ifft(n, lo)
+        assert _needs_ifft_big(n, lo) == (pallas[3].plan_big_ifft(n, lo) is not None)
+
+
+@pytest.mark.cuda
+class TestOnCard:
+    """Each kernel against its plain version on the card, at small shapes
+    (chip_smoke.py does the same at the main path's shapes)."""
+
+    def test_analysis(self, cuda, filt):
+        step = geometry.analysis_step(N_CHAN, OS)
+        x = torch.as_tensor(_noise((2, 100_000), 19), device=cuda)
+        f2d = torch.as_tensor(_prep_filter(filt, N_CHAN), device=cuda)
+        ramp = torch.as_tensor(ramp_table(N_CHAN, step), device=cuda)
+        before = analysis_fused.launches
+        got = analysis_fused(x, f2d, ramp, step, 3)
+        assert analysis_fused.launches == before + 1
+        ref = analysis_core(x, f2d, ramp, step, 3)
+        assert _rel_err(got.cpu(), ref.cpu()) < ANALYSIS_TOL
+
+    def test_frontend(self, cuda, filt):
+        c = tsynth.synthesis_constants(N_CHAN, L, OS, OV, deripple_coeff=filt,
+                                       temporal_taper="tukey", combine=16)
+        x = torch.as_tensor(_noise((2, N_CHAN, 1200), 20), device=cuda).transpose(1, 2)
+        args = [torch.as_tensor(c[k], device=cuda) for k in ("t_taper", "dr", "perm")]
+        nb = GEOM.n_blocks(1200)
+        got = synthesis_fused(x, *args, L, GEOM.input_keep, KPOS, nb)
+        ref = tsynth.frontend(x, *args, L, GEOM.input_keep, KPOS, nb)
+        assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
+
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_epilogue(self, cuda, with_elem):
+        X = torch.as_tensor(_noise((2, 3, N), 21), device=cuda)
+        elem = torch.as_tensor(_noise((N,), 22), device=cuda) if with_elem else None
+        got = fused_big_ifft(X, elem, shape_key=(N, 128, 384, LO, ROLL, GAIN), n_valid=2)
+        ref = tsynth.epilogue(X, elem, LO, ROLL, GAIN, 2)
+        assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
