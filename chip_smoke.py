@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the SKA-Low PFB round trip on one GPU.
+"""Drive the PyTorch/CUDA port of the SKA-Low and SKA-Mid PFB round trips
+on one GPU.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -21,17 +22,35 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    with verify.util.DomainPerformance; max spurious <= -60 dB.
 6. dada: fine channels -> io.dada save/load -> fused inversion, equal to the
    direct inversion.
-7. no fallback: a mid geometry (1.8M-point epilogue) on CUDA raises
-   NotImplementedError.
-8. timing: the kernel chain and the plain chain (CUDA events, warm-up,
+7. SKA-Mid (``mid_round_trip``: 4096 ch, OS 8/7, the 100353-tap
+   zero-padded analysis, L=512 / overlap 128, 1,835,008-point epilogue) at
+   bench.py's size, 2 pol x 4,587,520 samples:
+   a. kernels: the padded fold and channel DFT (1e-5 * scale,
+      tests/test_pallas.py:268), the frontend at mid shapes (1.2e-5), both
+      out-of-core IFFT launches and their pair, with and without ``elem``
+      (1e-4, tests/test_pallas.py:423), each against its plain version,
+      with both times;
+   b. slice: one forward through the module: every mid launch counter
+      rises, the output (2, 1, 4 * 917504) is finite and matches the plain
+      chain (1.2e-5 * scale);
+   c. oracle: one inversion block against the fp64 numpy oracle (max
+      1e-6, mean 2e-7 * scale; tests/test_mid_production.py:144-145);
+   d. purity: the tone at 4288/2^19 peaks in bin 4288 and the impulse on
+      the block seam at offset - (output_overlap - 1), both <= -60 dB;
+   e. no fallback: one forward with the plain versions and ``torch.fft``
+      patched to raise;
+   f. timing: the mid kernel chain and plain chain, as in phase 8.
+8. timing: the low kernel chain and the plain chain (CUDA events, warm-up,
    median of repetitions), in Msamples/s with the card's name and limit.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel (one
+per pallas_call of the JAX package); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -39,6 +58,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -48,8 +68,12 @@ SEED = 0
 ANALYSIS_TOL = 8e-6
 SYNTHESIS_TOL = 1.2e-5
 ORACLE_TOL = 3e-6
+PADDED_TOL = 1e-5
+BIG_IFFT_TOL = 1e-4
+MID_ORACLE_MAX, MID_ORACLE_MEAN = 1e-6, 2e-7
 PURITY_DB = -60.0
 REPS = 10
+PALLAS = "ska_pst_dsp_tpu/ops/pallas/"
 
 
 def log(phase: str, msg: str) -> None:
@@ -89,6 +113,47 @@ def noise(shape, seed):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal(shape, dtype=np.float32)
             + 1j * rng.standard_normal(shape, dtype=np.float32)).astype(np.complex64)
+
+
+def compare(name, err, tol, ms, plain_ms):
+    check(err[1] <= tol, f"{name}: max|err|/scale {err[1]:.3g} > {tol}")
+    log("kernels", f"{name}: max|err| {err[0]:.3g}, /scale {err[1]:.3g} "
+        f"(tol {tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+
+def wrappers():
+    """Every kernel wrapper, by the name of its kernels-line entry."""
+    from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import analysis_fused
+    from ska_pst_dsp_tpu_torch.ops.kernels.analysis_padded_fused import padded_fold_fused
+    from ska_pst_dsp_tpu_torch.ops.kernels.chan_dft_fused import chan_dft_ramp
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import ifft_big_inner, ifft_big_outer
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import fused_big_ifft
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import synthesis_fused
+
+    return {"analysis_fused": analysis_fused, "synthesis_fused": synthesis_fused,
+            "ifft_fused": fused_big_ifft, "analysis_padded_fused": padded_fold_fused,
+            "chan_dft_fused": chan_dft_ramp, "ifft_big_inner": ifft_big_inner,
+            "ifft_big_outer": ifft_big_outer}
+
+
+def counted_forward(torch, model, x):
+    """One forward with every launch count set to 0 just before it: its
+    output and the counts just after."""
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    out = model(x)
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in ws.items()}
+
+
+def kernel_entry(name, source, replaces, err, tol, ms, plain_ms):
+    """Check one kernel against its plain version; its JSON entry."""
+    compare(name, err, tol, ms, plain_ms)
+    return {"name": name, "route": "cuda",
+            "source": f"ska_pst_dsp_tpu_torch/csrc/{source}.cu",
+            "replaces": PALLAS + replaces, "max_abs_err": err[0],
+            "max_rel_err": err[1], "tol": tol, "ms": ms, "plain_ms": plain_ms}
 
 
 def main() -> int:
@@ -143,19 +208,8 @@ def main() -> int:
     x = torch.as_tensor(noise((2, N_DAT), SEED), device=dev)
     kernels = []
 
-    def compare(name, err, tol, ms, plain_ms):
-        check(err[1] <= tol, f"{name}: max|err|/scale {err[1]:.3g} > {tol}")
-        log("kernels", f"{name}: max|err| {err[0]:.3g}, /scale {err[1]:.3g} "
-            f"(tol {tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-
     def record(name, replaces, err, tol, ms, plain_ms):
-        compare(name, err, tol, ms, plain_ms)
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"ska_pst_dsp_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "max_abs_err": err[0], "max_rel_err": err[1],
-            "tol": tol, "ms": ms, "plain_ms": plain_ms,
-        })
+        kernels.append(kernel_entry(name, name, replaces, err, tol, ms, plain_ms))
 
     def a_kernel():
         return analysis_fused(x, model.f2d, model.ramp, model.step)
@@ -165,7 +219,7 @@ def main() -> int:
 
     chan = a_plain()
     record("analysis_fused",
-           "ska_pst_dsp_tpu/ops/pallas/analysis_fused.py:307",
+           "analysis_fused.py:307",
            rel_err(a_kernel(), chan), ANALYSIS_TOL,
            time_ms(torch, a_kernel), time_ms(torch, a_plain))
 
@@ -174,7 +228,7 @@ def main() -> int:
     fargs = (chan, model.t_taper, model.dr, model.perm, L, g.input_keep, kpos, nb)
     fn = plain_synth.frontend(*fargs)
     record("synthesis_fused",
-           "ska_pst_dsp_tpu/ops/pallas/synthesis_fused.py:244",
+           "synthesis_fused.py:244",
            rel_err(synthesis_fused(*fargs), fn), SYNTHESIS_TOL,
            time_ms(torch, lambda: synthesis_fused(*fargs)),
            time_ms(torch, lambda: plain_synth.frontend(*fargs)))
@@ -199,22 +253,15 @@ def main() -> int:
                         time_ms(torch, e_plain)))
     compare("ifft_fused with elem", *results[0][:1], SYNTHESIS_TOL, *results[0][1:])
     worst = max((r[0] for r in results), key=lambda err: err[1])
-    record("ifft_fused", "ska_pst_dsp_tpu/ops/pallas/ifft_fused.py:268",
+    record("ifft_fused", "ifft_fused.py:268",
            worst, SYNTHESIS_TOL, *results[1][1:])
     del fn, flat
 
     # 4. the slice at full size through the module, then the oracle prefix
-    wrappers = {"analysis_fused": analysis_fused, "synthesis_fused": synthesis_fused,
-                "ifft_fused": fused_big_ifft}
-    for w in wrappers.values():
-        w.launches = 0
-    out = model(x)
-    torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
+    out, launches = counted_forward(torch, model, x)
     log("slice", f"launch counts over one forward of 2 x 2^23: {launches}")
-    for k, count in launches.items():
-        check(count > 0, f"{k} was not launched by the main path")
     for entry in kernels:
+        check(launches[entry["name"]] > 0, f"{entry['name']} was not launched by the main path")
         entry["launches"] = launches[entry["name"]]
     n_out = g.n_blocks(geometry.analysis_nblocks(N_DAT, 3073, N_CHAN, OS_FACTOR)) * g.output_keep
     check(tuple(out.shape) == (2, 1, n_out), f"output shape {tuple(out.shape)}")
@@ -286,31 +333,208 @@ def main() -> int:
     log("dada", f"channels {tuple(loaded.shape)} via DADA, inverted: vs direct "
         f"max|err|/scale {derr[1]:.3g}")
 
-    # 7. no hidden fallback for the epilogue that has no kernel yet
-    mid = torch.zeros((1, 512, 4096), dtype=torch.complex64, device=dev)
-    try:
-        polyphase_synthesis_fused(mid, 512, "8/7", input_overlap=128, time_major_in=True)
-    except NotImplementedError as e:
-        log("fallback", f"mid geometry on CUDA raises NotImplementedError: {e}")
-    else:
-        raise AssertionError("mid geometry on CUDA did not raise")
+    # 7. SKA-Mid
+    mid_entries, mid_front = run_mid(torch, dev, smi)
+    next(k for k in kernels if k["name"] == "synthesis_fused").update(mid_front)
+    kernels.extend(mid_entries)
 
     # 8. timing: kernel chain vs plain chain, interleaved
-    msps = {}
-    for name in ("plain", "kernels", "kernels", "plain"):
-        fn_ = model.reference if name == "plain" else model
-        ms = time_ms(torch, lambda: fn_(x))
-        msps.setdefault(name, []).append((ms, 2 * N_DAT / (ms * 1e3)))
-    for name, runs in msps.items():
-        log("timing", f"{name} chain, 2 x 2^23 samples: "
-            + ", ".join(f"{ms:.3f} ms = {r:.1f} Msamples/s" for ms, r in runs)
-            + f" (median of {REPS}, {kind}, {smi})")
+    chain_timing(torch, model, x, "timing", "2 x 2^23 samples", smi)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)
     return 0
+
+
+def chain_timing(torch, model, x, phase, what, smi):
+    """The kernel chain and the plain chain in turns (plain, kernels,
+    kernels, plain), each the median of REPS CUDA-event timings."""
+    msps = {}
+    for name in ("plain", "kernels", "kernels", "plain"):
+        fn_ = model.reference if name == "plain" else model
+        ms = time_ms(torch, lambda: fn_(x))
+        msps.setdefault(name, []).append((ms, x.numel() / (ms * 1e3)))
+    for name, runs in msps.items():
+        log(phase, f"{name} chain, {what}: "
+            + ", ".join(f"{ms:.3f} ms = {r:.1f} Msamples/s" for ms, r in runs)
+            + f" (median of {REPS}; {smi})")
+
+
+def run_mid(torch, dev, smi):
+    """Phase 7: the SKA-Mid slice. Returns the JSON entries of its four new
+    kernels and the frontend's mid numbers."""
+    from ska_pst_dsp_tpu import oracle
+    from ska_pst_dsp_tpu.utils import windows
+    from ska_pst_dsp_tpu.utils.config import load_config
+    from ska_pst_dsp_tpu_torch.entry import mid_round_trip
+    from ska_pst_dsp_tpu_torch.ops import synthesis as ps
+    from ska_pst_dsp_tpu_torch.ops.analysis import chan_dft_core, padded_fold
+    from ska_pst_dsp_tpu_torch.ops.kernels.analysis_padded_fused import padded_fold_fused
+    from ska_pst_dsp_tpu_torch.ops.kernels.chan_dft_fused import chan_dft_ramp
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import (
+        fused_big_ifft_oc, ifft_big_inner, ifft_big_outer, plan_big_ifft,
+    )
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import synthesis_fused
+
+    model = mid_round_trip(dev)
+    g = model.geom
+    L, ov, step = g.input_fft_length, g.input_overlap, model.step
+    n_dat = (2 * ov + 4 * g.input_keep) * step  # bench.py's mid size
+    x = torch.as_tensor(noise((2, n_dat), SEED), device=dev)
+    entries = []
+
+    # a. each kernel against its plain version at production shapes
+    fold_args = (x, model.f2d_rev, step)
+    fold = padded_fold(*fold_args)
+    entries.append(kernel_entry(
+        "analysis_padded_fused", "analysis_padded_fused", "analysis_padded_fused.py:257",
+        rel_err(padded_fold_fused(*fold_args), fold), PADDED_TOL,
+        time_ms(torch, lambda: padded_fold_fused(*fold_args)),
+        time_ms(torch, lambda: padded_fold(*fold_args))))
+    cargs = (fold, model.chan_const, 0, model.delay)
+    chan = chan_dft_core(*cargs)
+    entries.append(kernel_entry(
+        "chan_dft_fused", "chan_dft_fused", "chan_dft_fused.py:190",
+        rel_err(chan_dft_ramp(*cargs), chan), PADDED_TOL,
+        time_ms(torch, lambda: chan_dft_ramp(*cargs)),
+        time_ms(torch, lambda: chan_dft_core(*cargs))))
+    del fold, cargs
+
+    nb = g.n_blocks(chan.shape[1])
+    fargs = (chan, model.t_taper, model.dr, model.perm, L, g.input_keep,
+             (L // 2 + g.discard) % L, nb)
+    fn = ps.frontend(*fargs)
+    front_err = rel_err(synthesis_fused(*fargs), fn)
+    front_ms = (time_ms(torch, lambda: synthesis_fused(*fargs)),
+                time_ms(torch, lambda: ps.frontend(*fargs)))
+    compare("synthesis_fused at mid", front_err, SYNTHESIS_TOL, *front_ms)
+    mid_front = {"mid_max_abs_err": front_err[0], "mid_max_rel_err": front_err[1],
+                 "mid_ms": front_ms[0], "mid_plain_ms": front_ms[1]}
+    del chan, fargs
+
+    n, lo, roll = g.output_fft_length, g.output_overlap, g.fn_width // 2
+    gain = model.os_factor.de / model.os_factor.nu
+    plan = plan_big_ifft(n, lo)
+    check(plan == (7, 512, 512), f"plan_big_ifft({n}, {lo}) = {plan}")
+    n2, n1 = plan[0] * plan[1], plan[2]
+    flat = fn.reshape(2, nb, n)
+    del fn
+    elem = torch.as_tensor(np.roll(windows.build("tukey", n, ov), roll)
+                           .astype(np.complex64), device=dev)
+    key = (n, *plan, lo, roll, gain)
+    errs, times = {}, {}
+    for e in (elem, None):  # the main path's epilogue has no elem: last
+        a = ps.big_ifft_inner(flat, e, n2, n1)
+        runs = {
+            "ifft_big_inner": (lambda: ifft_big_inner(flat, e, n2, n1),
+                               lambda: ps.big_ifft_inner(flat, e, n2, n1)),
+            "ifft_big_outer": (lambda: ifft_big_outer(a, lo, roll, gain),
+                               lambda: ps.big_ifft_outer(a, lo, roll, gain)),
+            "ifft_big pair": (lambda: fused_big_ifft_oc(flat, e, shape_key=key),
+                              lambda: ps.epilogue(flat, e, lo, roll, gain, nb)),
+        }
+        for name, (kern, plain) in runs.items():
+            err = rel_err(kern(), plain())
+            times[name] = (time_ms(torch, kern), time_ms(torch, plain))
+            compare(f"{name} {'no elem' if e is None else 'with elem'}", err,
+                    BIG_IFFT_TOL, *times[name])
+            errs[name] = max(errs.get(name, err), err, key=lambda v: v[1])
+        del a, runs
+    del flat, elem
+    for name, line in (("ifft_big_inner", 388), ("ifft_big_outer", 524)):
+        entries.append(kernel_entry(name, "ifft_big", f"ifft_big.py:{line}", errs[name],
+                                    BIG_IFFT_TOL, *times[name]))
+
+    # b. the slice through the module
+    out, launches = counted_forward(torch, model, x)
+    log("mid-slice", f"launch counts over one forward of 2 x {n_dat}: {launches}")
+    for entry in entries:
+        check(launches[entry["name"]] > 0, f"{entry['name']} was not launched by the mid path")
+        entry["launches"] = launches[entry["name"]]
+    check(launches["synthesis_fused"] > 0, "synthesis_fused was not launched by the mid path")
+    mid_front["mid_launches"] = launches["synthesis_fused"]
+    shape = (2, 1, 4 * g.output_keep)
+    check(tuple(out.shape) == shape, f"mid output shape {tuple(out.shape)} != {shape}")
+    check(bool(torch.isfinite(torch.view_as_real(out)).all()), "non-finite mid output")
+    err = rel_err(out, model.reference(x))
+    check(err[1] <= SYNTHESIS_TOL, f"mid kernel chain vs plain chain {err[1]:.3g}")
+    log("mid-slice", f"output {tuple(out.shape)} finite; vs plain chain max|err| "
+        f"{err[0]:.3g}, /scale {err[1]:.3g} (tol {SYNTHESIS_TOL})")
+    del out
+
+    # c. one inversion block against the fp64 oracle (test_mid_production.py:114-145)
+    filt = load_config("mid").load_fir_filter_coeff()
+    nfine = 2 * ov + g.input_keep
+    rng = np.random.default_rng(7)
+    xo = (rng.standard_normal(nfine * step)
+          + 1j * rng.standard_normal(nfine * step)).astype(np.complex64)[None, None]
+    got = model(torch.as_tensor(xo[:, 0], device=dev)).cpu().numpy()[0, 0]
+    ch = oracle.polyphase_analysis_padded(xo.astype(np.complex128), filt, model.n_chan,
+                                          model.os_factor)
+    ref = oracle.polyphase_synthesis(
+        ch, L, model.os_factor, input_overlap=ov, deripple_coeff=filt,
+        temporal_taper=windows.tukey_window(L, ov).astype(np.float64),
+    )[0, 0]
+    check(got.shape == ref.shape, f"mid oracle shapes {got.shape} vs {ref.shape}")
+    d = np.abs(got.astype(np.complex128) - ref) / np.abs(ref).max()
+    check(d.max() <= MID_ORACLE_MAX and d.mean() <= MID_ORACLE_MEAN,
+          f"mid kernel chain vs fp64 oracle: max {d.max():.3g}, mean {d.mean():.3g}")
+    log("mid-oracle", f"one block ({nfine * step} samples) vs fp64 oracle: max|err|/scale "
+        f"{d.max():.3g} (tol {MID_ORACLE_MAX}), mean {d.mean():.3g} (tol {MID_ORACLE_MEAN})")
+
+    # d. purity through the kernels (test_mid_production.py:66-112)
+    freq = 4288 / 2 ** 19  # channel 33.5 of 4096: an exact bin of a 2^19 FFT
+    tone = np.exp(2j * np.pi * freq * np.arange(nfine * step)).astype(np.complex64)
+    inv = model(torch.as_tensor(tone[None], device=dev)).cpu().numpy()[0, 0]
+    spec = np.abs(np.fft.fft(inv[:2 ** 19])) ** 2
+    pk = int(spec.argmax())
+    check(pk == 4288, f"mid tone peak in bin {pk}, expected 4288")
+    peak = spec[pk]
+    spec[pk - 1: pk + 2] = 0.0
+    tone_db = 10 * np.log10(spec.max() / peak)
+    shift = g.output_overlap - 1
+    offset = shift + g.output_keep  # on the seam of two inversion blocks
+    imp = np.zeros((2 * ov + 2 * g.input_keep) * step, np.complex64)
+    imp[offset] = 1.0
+    inv = model(torch.as_tensor(imp[None], device=dev)).cpu().numpy()[0, 0]
+    p = np.abs(inv) ** 2
+    pk = int(p.argmax())
+    check(pk == offset - shift, f"mid impulse at {pk}, expected {offset - shift}")
+    leak = p.copy()
+    leak[pk - 1: pk + 2] = 0.0
+    imp_db = 10 * np.log10(leak.max() / p[pk])
+    log("mid-purity", f"tone 4288/2^19: peak bin 4288, max spurious {tone_db:.2f} dB; "
+        f"impulse on the block seam: peak at offset - {shift}, leakage {imp_db:.2f} dB")
+    check(max(tone_db, imp_db) <= PURITY_DB, f"mid purity {max(tone_db, imp_db):.2f} dB")
+
+    # e. no fallback: the plain versions and torch.fft raise during a forward
+    def boom(*args, **kwargs):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    plain = ("padded_fold", "chan_dft_core", "frontend", "epilogue",
+             "big_ifft_inner", "big_ifft_outer", "analysis_core")
+    with contextlib.ExitStack() as stack:
+        patched = 0
+        for mod_name, mod in list(sys.modules.items()):
+            if mod_name.startswith("ska_pst_dsp_tpu_torch"):
+                for name in plain:
+                    if hasattr(mod, name):
+                        stack.enter_context(mock.patch.object(mod, name, boom))
+                        patched += 1
+        for name in ("fft", "ifft", "fftn", "ifftn", "rfft", "irfft", "fft2", "ifft2"):
+            stack.enter_context(mock.patch.object(torch.fft, name, boom))
+        out = model(x)
+        torch.cuda.synchronize()
+    check(bool(torch.isfinite(torch.view_as_real(out)).all()), "no-fallback forward")
+    log("mid-fallback", f"forward completed with {patched} plain-version names and "
+        "torch.fft patched to raise")
+    del out
+
+    # f. timing
+    chain_timing(torch, model, x, "mid-timing", f"2 x {n_dat} samples", smi)
+    return entries, mid_front
 
 
 def model_filter():

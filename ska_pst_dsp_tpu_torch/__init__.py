@@ -3,7 +3,7 @@
 A second package beside :mod:`ska_pst_dsp_tpu` (the JAX reference). Module
 names mirror the JAX package so each counterpart is easy to find; the data
 are ``torch.complex64`` tensors on an explicit device, and the fused kernels
-of the SKA-Low round trip are hand-written CUDA C++ for Hopper
+of the SKA-Low and SKA-Mid round trips are hand-written CUDA C++ for Hopper
 (``csrc/``, built on first use by :mod:`.ops.kernels._build`).
 
 The JAX package's host-only modules (``utils``, ``design.fir``, ``io.dada``,

@@ -1,1 +1,1 @@
-from .round_trip import PFBRoundTrip  # noqa: F401
+from .round_trip import PaddedPFBRoundTrip, PFBRoundTrip  # noqa: F401

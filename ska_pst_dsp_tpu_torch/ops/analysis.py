@@ -11,8 +11,16 @@ becomes a per-bin phase ramp under the DFT, so
 of that many rows, indexed by ``(k + block0) % period``, is the whole ramp.
 
 :func:`analysis_core` is also the plain version of the fused analysis
-kernel (:mod:`.kernels.analysis_fused`). The zero-padded (SKA-Mid) variant
-is not ported yet.
+kernel (:mod:`.kernels.analysis_fused`).
+
+The zero-padded (SKA-Mid) variant (analysis.py:99-125, 176-205) folds the
+time-reversed filter against the ``padded_taps`` samples before each
+output step, then reverses, runs ``block^2 * IFFT``, derotates with the
+same ramp schedule and advances the stream by the group delay.
+:func:`padded_fold` and :func:`chan_dft_core` are the plain versions of its
+two kernels (:mod:`.kernels.analysis_padded_fused`,
+:mod:`.kernels.chan_dft_fused`); the second replaces reverse-then-IFFT by
+a forward FFT times :func:`padded_chan_const`.
 """
 
 from __future__ import annotations
@@ -114,3 +122,65 @@ def polyphase_analysis(x, filt, block: int, os_factor: Union[Rational, str],
     ramp = torch.as_tensor(ramp_table(block, step), device=z.device)
     out = analysis_core(z, f2d, ramp, step, block0).transpose(1, 2)
     return cfft.same_kind(out, pair)
+
+
+def padded_fold(x: torch.Tensor, f2d_rev: torch.Tensor, step: int) -> torch.Tensor:
+    """(n_pol, n_dat) complex64 -> time-major (n_pol, n_dat // step, block):
+    g[p, k, j] = sum_m f2d_rev[m, j] * x[p, k*step - fl + m*block + j],
+    fl = phases*block, with x zero before the stream start."""
+    phases, block = f2d_rev.shape
+    fl = phases * block
+    n_pol, n_dat = x.shape
+    nblocks = n_dat // step
+    xs = torch.cat([x.new_zeros((n_pol, fl)), x], dim=-1)
+    frames = frame(xs, fl, step, nblocks).reshape(n_pol, nblocks, phases, block)
+    return (frames * f2d_rev).sum(dim=-2)
+
+
+def padded_chan_const(block: int, step: int) -> np.ndarray:
+    """(nu, block) complex64: ``block * exp(-2j*pi*q/block)`` times the ramp
+    row. Reversing a fold row and taking ``block^2 * IFFT`` equals its
+    forward FFT times the first factor (analysis_padded_fused.py:303-312),
+    so row ``(k + block0) % nu`` turns FFT(g_k) into output spectrum k."""
+    rr, ri = _phase_ramp(block, step, ramp_period(block, step), 0)
+    q = np.arange(block)
+    pr = block * np.cos(-2.0 * np.pi * q / block)
+    pi = block * np.sin(-2.0 * np.pi * q / block)
+    rr, ri = rr.astype(np.float64), ri.astype(np.float64)
+    return ((rr * pr - ri * pi) + 1j * (rr * pi + ri * pr)).astype(np.complex64)
+
+
+def chan_dft_core(g: torch.Tensor, const: torch.Tensor, block0: int = 0,
+                  delay: int = 0) -> torch.Tensor:
+    """(n_pol, nb, block) fold rows -> FFT(g) * const[(k + block0) % nu],
+    then rolled back by ``delay`` spectra along k (modulo nb, as
+    ``jnp.roll``)."""
+    rows = (torch.arange(g.shape[1], device=g.device) + block0) % const.shape[0]
+    out = cfft.fft(g) * const[rows]
+    return torch.roll(out, -delay, dims=1) if delay else out
+
+
+def polyphase_analysis_padded(x, filt, block: int,
+                              os_factor: Union[Rational, str], *,
+                              block0: int = 0, apply_delay: bool = True):
+    """Zero-padded oversampled analysis PFB (SKA-Mid / "Gunaratne" style).
+
+    Output block k is computed from samples x[k*step - padded_taps : k*step]
+    (zero before the stream start), then the stream is advanced by
+    ceil((taps-1)/2/step) spectra to cancel the filter group delay;
+    ``apply_delay=False`` leaves the raw timeline. Returns
+    (n_pol, block, n_dat // step), same in/out kinds as
+    :func:`polyphase_analysis`."""
+    z, pair = stream(x)
+    os_factor = Rational.coerce(os_factor)
+    step = geometry.analysis_step(block, os_factor)
+    f2d_rev = torch.as_tensor(_prep_filter(filt, block, reverse=True), device=z.device)
+    g = padded_fold(z, f2d_rev, step)
+    spec = cfft.ifft(g.flip(-1)) * float(block * block)
+    ramp = torch.as_tensor(ramp_table(block, step), device=z.device)
+    rows = (torch.arange(g.shape[1], device=z.device) + block0) % ramp.shape[0]
+    out = spec * ramp[rows]
+    if apply_delay:
+        delay = geometry.padded_sample_delay_shift(np.asarray(filt).size, block, os_factor)
+        out = torch.roll(out, -delay, dims=1)
+    return cfft.same_kind(out.transpose(1, 2), pair)

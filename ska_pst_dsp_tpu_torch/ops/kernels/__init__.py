@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels of the fused SKA-Low round trip.
+"""Hand-written CUDA kernels of the fused SKA-Low and SKA-Mid round trips.
 
 Counterpart of :mod:`ska_pst_dsp_tpu.ops.pallas`. Each kernel module holds a
 wrapper that launches its kernel for a CUDA tensor and runs the plain
@@ -8,7 +8,10 @@ goes up by one each time the kernel is launched:
 
 * :mod:`.analysis_fused`  — fold + DFT + derotation ramp;
 * :mod:`.synthesis_fused` — inversion frontend, and the epilogue dispatch;
-* :mod:`.ifft_fused`      — the inversion's backward-FFT epilogue.
+* :mod:`.ifft_fused`      — the inversion's backward-FFT epilogue;
+* :mod:`.analysis_padded_fused` — the zero-padded (SKA-Mid) analysis fold;
+* :mod:`.chan_dft_fused`  — mid's channel DFT + derotation constant;
+* :mod:`.ifft_big`        — mid's out-of-core epilogue (two launches).
 
 The sources live in ``ska_pst_dsp_tpu_torch/csrc/``; :mod:`._build` compiles
 them on first use. This module holds the host-side helpers the wrappers
@@ -23,9 +26,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
+#: shared memory one thread block may use on the H100 (bytes)
+SMEM_LIMIT = 232_448
+
 #: odd factors the kernels are instantiated for (n = r * 2^k): the low
-#: path's DFT lengths are 256, 128 and 384 = 3 * 128
-RADICES = (1, 3)
+#: path's DFT lengths are 256, 128 and 384 = 3 * 128; mid's are 4096, 512
+#: and 3584 = 7 * 512 (its 1,835,008-point IFFT is 7 * 2^18)
+RADICES = (1, 3, 7)
 
 
 def radix(n: int) -> Tuple[int, int, int]:

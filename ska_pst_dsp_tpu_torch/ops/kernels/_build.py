@@ -4,7 +4,8 @@ All ``csrc/*.cu`` files compile into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), at first use,
 into ``ska_pst_dsp_tpu_torch/_build/`` under a name keyed on a hash of the
 sources and flags: a source change rebuilds, an unchanged tree reuses the
-library. Each C entry launches on the stream it is given and returns
+library. Each source compiles in its own ``nvcc`` process, all started
+together, and one more links the objects. Each C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises on anything but success.
 """
 
@@ -24,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -37,6 +38,10 @@ SIGNATURES = {
     "analysis_fused_launch": [_P] * 5 + [_I, _L] + [_I] * 8 + [_L, _P],
     "synthesis_fused_launch": [_P] * 6 + [_L] * 3 + [_I] * 10 + [_P],
     "ifft_fused_launch": [_P] * 5 + [_L] * 2 + [_I] * 14 + [_F, _P],
+    "padded_fold_launch": [_P] * 3 + [_I, _L] + [_I] * 6 + [_P],
+    "chan_dft_launch": [_P] * 4 + [_I] * 7 + [_L, _I, _P],
+    "ifft_big_inner_launch": [_P] * 4 + [_L] * 2 + [_I] * 8 + [_P],
+    "ifft_big_outer_launch": [_P] * 3 + [_I] * 10 + [_L, _L, _F, _P],
 }
 
 
@@ -66,22 +71,29 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for obj, src in zip(objs, srcs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for c in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            _check_nvcc(cmd, proc.returncode, log)
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+        _check_nvcc(cmd, res.returncode, res.stdout)
+        os.replace(lib, out)
     return out
+
+
+def _check_nvcc(cmd, returncode: int, log: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{log}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,10 +22,8 @@ from ska_pst_dsp_tpu.utils.rational import Rational
 
 from .. import cfft
 from ..analysis import _prep_filter, analysis_core, ramp_table, stream
-from . import _build, radix, require, stream_of, twiddles
+from . import SMEM_LIMIT, _build, radix, require, stream_of, twiddles
 
-#: shared memory one thread block may use on the H100 (bytes)
-_SMEM_LIMIT = 232_448
 #: consecutive spectra per thread block (csrc/analysis_fused.cu K)
 K_TILE = 32
 
@@ -61,7 +59,7 @@ def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
         raise ValueError(f"ramp must be (period, {block}), got {tuple(ramp.shape)}")
     if block0 < 0:
         raise ValueError(f"block0 must be >= 0, got {block0}")
-    if smem_bytes(block, step, phases) > _SMEM_LIMIT:
+    if smem_bytes(block, step, phases) > SMEM_LIMIT:
         raise ValueError(
             f"analysis span of {phases} phases x {block} at step {step} does "
             "not fit in shared memory"

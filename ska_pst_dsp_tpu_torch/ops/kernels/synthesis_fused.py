@@ -7,11 +7,11 @@ and writes only the kept, derippled passband bins, already in assembled
 spectrum order (n_pol, n_blocks, n_chan, FN_width). Its plain version is
 :func:`ska_pst_dsp_tpu_torch.ops.synthesis.frontend`.
 
-The epilogue follows the JAX package's dispatch: the fused epilogue
-(:mod:`.ifft_fused`) where :func:`.ifft_fused.plan_ifft` applies (low); a
-geometry that needs the out-of-core epilogue (mid's 1.8M-point IFFT, not
-ported yet) raises ``NotImplementedError`` for a CUDA tensor; otherwise the
-composed epilogue.
+The epilogue follows the JAX package's dispatch (synthesis_fused.py:419-427):
+the fused epilogue (:mod:`.ifft_fused`) where :func:`.ifft_fused.plan_ifft`
+applies (low); else the out-of-core pair (:mod:`.ifft_big`) where
+:func:`.ifft_big.plan_big_ifft` applies (mid's 1.8M-point IFFT); otherwise
+the composed epilogue.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from ska_pst_dsp_tpu.utils.rational import Rational
 from .. import cfft
 from ..synthesis import epilogue, frontend, synthesis_constants
 from . import _build, radix, require, stream_of, twiddles
+from .ifft_big import fused_big_ifft_oc, plan_big_ifft
 from .ifft_fused import fused_big_ifft, plan_ifft
 
 
@@ -75,22 +76,6 @@ def synthesis_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
 synthesis_fused.launches = 0
 
 
-def _needs_ifft_big(n: int, lo: int) -> bool:
-    """True where the JAX package runs its out-of-core epilogue
-    (ops/pallas/ifft_big.py plan_big_ifft): n1 = the largest divisor of n
-    that is <= 512, a multiple of 128, and q <= 512 (a multiple of 128)
-    dividing n2 = n/n1 with n2/q <= 8."""
-    if (n - 2 * lo) <= 0:
-        return False
-    n1 = max((d for d in range(1, 513) if n % d == 0), default=1)
-    n2 = n // n1
-    if n1 == 1 or n1 % 128 or lo % n2 or (n - 2 * lo) % n2:
-        return False
-    if (n1 - 1) * (n2 - 1) >= 2 ** 24:
-        return False
-    return any(n2 % q == 0 and n2 // q <= 8 for q in range(128, min(512, n2) + 1, 128))
-
-
 def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
                     perm: torch.Tensor, elem: Optional[torch.Tensor],
                     geom: geometry.SynthesisGeometry, *, spans_nyquist: bool,
@@ -118,11 +103,8 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     if plan is not None:
         out = fused_big_ifft(flat, elem, shape_key=(n, *plan, lo, roll, gain),
                              n_valid=n_blocks)
-    elif _needs_ifft_big(n, lo) and flat.is_cuda:
-        raise NotImplementedError(
-            f"the out-of-core {n}-point epilogue (ifft_big) has no CUDA "
-            "kernel yet"
-        )
+    elif (big := plan_big_ifft(n, lo)) is not None:
+        out = fused_big_ifft_oc(flat, elem, shape_key=(n, *big, lo, roll, gain))
     else:
         out = epilogue(flat, elem, lo, roll, gain, n_blocks)
     return out.reshape(n_pol, 1, -1)

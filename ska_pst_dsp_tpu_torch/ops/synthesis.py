@@ -14,7 +14,10 @@ The inversion splits at the same boundary as the fused kernels:
   overlap discard and the de/nu gain.
 
 Both are also the plain versions of the fused kernels
-(:mod:`.kernels.synthesis_fused`, :mod:`.kernels.ifft_fused`). The spectral
+(:mod:`.kernels.synthesis_fused`, :mod:`.kernels.ifft_fused`,
+:mod:`.kernels.ifft_big`); :func:`big_ifft_inner` and
+:func:`big_ifft_outer` split the epilogue at the boundary of the two
+out-of-core kernels, as plain versions of each. The spectral
 taper and filter reach the epilogue as one complex factor ``elem``
 pre-rolled by +roll, the contract of the fused epilogue, so
 ``epilogue(X) = IFFT(roll(X * elem, -roll))[lo:N-lo] * gain``.
@@ -140,6 +143,38 @@ def epilogue(flat: torch.Tensor, elem: Optional[torch.Tensor], lo: int,
         z = z * elem
     z = torch.roll(z, -roll, dims=-1)
     return cfft.ifft(z)[..., lo:n - lo] * gain
+
+
+def _phase(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """exp(+2j*pi*idx/n) as complex64, the angle taken in float64 from the
+    exact integer idx mod n."""
+    ang = (idx % n).to(torch.float64) * (2.0 * np.pi / n)
+    return torch.polar(torch.ones_like(ang), ang).to(torch.complex64)
+
+
+def big_ifft_inner(flat: torch.Tensor, elem: Optional[torch.Tensor], n2: int,
+                   n1: int) -> torch.Tensor:
+    """First half of :func:`epilogue` in the four-step split N = n2*n1
+    (frequency f = n1*i2 + i1): (n_pol, B, N) -> (n_pol, B, n2, n1),
+    A[k2, i1] = sum_i2 (X*elem)[n1*i2 + i1] * exp(+2j*pi*i2*k2/n2)."""
+    z = flat if elem is None else flat * elem
+    return cfft.ifft(z.reshape(*z.shape[:-1], n2, n1), axis=-2) * float(n2)
+
+
+def big_ifft_outer(a: torch.Tensor, lo: int, roll: int, gain: float) -> torch.Tensor:
+    """Second half: (n_pol, B, n2, n1) -> (n_pol, B, N - 2*lo), time
+    t = k2 + n2*k1 in [lo, N - lo):
+    y = gain/N * exp(-2j*pi*roll*t/N) * sum_i1 A[k2, i1]
+        * exp(+2j*pi*i1*k2/N) * exp(+2j*pi*i1*k1/n1)."""
+    n_pol, n_b, n2, n1 = a.shape
+    n = n2 * n1
+    dev = a.device
+    k2 = torch.arange(n2, device=dev)
+    tw = _phase(k2[:, None] * torch.arange(n1, device=dev)[None, :], n)
+    y = cfft.ifft(a * tw) * float(n1)  # (..., k2, k1)
+    y = y[..., lo // n2:(n - lo) // n2].transpose(-1, -2).reshape(n_pol, n_b, n - 2 * lo)
+    t = torch.arange(lo, n - lo, device=dev)
+    return y * _phase(-roll * t, n) * (gain / n)
 
 
 def polyphase_synthesis(

@@ -3,7 +3,8 @@
 On the CPU each wrapper runs its plain PyTorch version; that is held to the
 JAX package's Pallas function in interpret mode, as tests/test_pallas.py
 runs it, at that file's tolerances (8e-6 * scale analysis, 1.2e-5 * scale
-synthesis and epilogue).
+synthesis and epilogue, 1e-5 * scale padded analysis, 1e-4 * scale
+out-of-core IFFT).
 
 The CUDA kernels cannot run here, so their decomposition is emulated in
 numpy: the same host tables (twiddle_table, ramp_table), the same index
@@ -24,14 +25,22 @@ from ska_pst_dsp_tpu.design import fir
 from ska_pst_dsp_tpu.utils import geometry
 from ska_pst_dsp_tpu.utils.rational import Rational
 from ska_pst_dsp_tpu_torch.ops import synthesis as tsynth
-from ska_pst_dsp_tpu_torch.ops.analysis import _prep_filter, analysis_core, ramp_table
+from ska_pst_dsp_tpu_torch.ops.analysis import (
+    _prep_filter, analysis_core, chan_dft_core, padded_chan_const, padded_fold,
+    ramp_table,
+)
 from ska_pst_dsp_tpu_torch.ops.kernels import radix, twiddle_table
+from ska_pst_dsp_tpu_torch.ops.kernels import analysis_padded_fused as apf
 from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import (
     K_TILE, analysis_fused, polyphase_analysis_fused, smem_bytes,
 )
+from ska_pst_dsp_tpu_torch.ops.kernels.chan_dft_fused import chan_dft_ramp
+from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import (
+    fused_big_ifft_oc, ifft_big_inner, ifft_big_outer, plan_big_ifft,
+)
 from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import fused_big_ifft, plan_ifft
 from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import (
-    _needs_ifft_big, polyphase_synthesis_fused, synthesis_fused,
+    polyphase_synthesis_fused, synthesis_fused,
 )
 
 OS = Rational(4, 3)
@@ -42,6 +51,8 @@ N, LO, ROLL = GEOM.output_fft_length, GEOM.output_overlap, GEOM.fn_width // 2
 GAIN = OS.de / OS.nu
 ANALYSIS_TOL = 8e-6
 SYNTHESIS_TOL = 1.2e-5
+PADDED_TOL = 1e-5    # tests/test_pallas.py:268, the padded analysis
+BIG_IFFT_TOL = 1e-4  # tests/test_pallas.py:423, the out-of-core IFFT
 
 
 @pytest.fixture(scope="module")
@@ -187,6 +198,69 @@ def emu_epilogue(X, elem, n, n2, n1, lo, roll, gain, n_valid):
     return out
 
 
+def emu_padded_fold(x, f2d_rev, step):
+    """padded_fold_kernel: per (K_TILE spectra, C_TILE columns) tile, stage
+    the W-row view's rows S*k0 - D*phases + [0, rows) (zeros outside the
+    stream) and fold row S*k + D*m + d, column c into output j = d*W + c."""
+    n_pol, n_dat = x.shape
+    phases, block = f2d_rev.shape
+    w, d_rows, s_rows = apf.fold_rows(block, step)
+    kt, ct = apf.K_TILE, apf.C_TILE
+    rows = s_rows * (kt - 1) + d_rows * phases
+    assert rows * ct * 8 == apf.smem_bytes(block, step, phases)
+    nblocks = n_dat // step
+    f3 = f2d_rev.reshape(phases, d_rows, w)
+    out = np.zeros((n_pol, nblocks, d_rows, w), np.complex64)
+    k, d = np.arange(kt)[:, None], np.arange(d_rows)[None, :]
+    for p in range(n_pol):
+        for k0 in range(0, nblocks, kt):
+            kv = min(kt, nblocks - k0)
+            for c0 in range(0, w, ct):
+                s = (s_rows * k0 - d_rows * phases + np.arange(rows))[:, None] * w \
+                    + c0 + np.arange(ct)[None, :]
+                ok = (s >= 0) & (s < n_dat)
+                buf = np.where(ok, x[p, np.clip(s, 0, n_dat - 1)], 0).astype(np.complex64)
+                acc = np.zeros((kt, d_rows, ct), np.complex64)
+                for m in range(phases):
+                    acc += f3[m, :, c0:c0 + ct][None] * buf[s_rows * k + d_rows * m + d]
+                out[p, k0:k0 + kv, :, c0:c0 + ct] = acc[:kv]
+    return out.reshape(n_pol, nblocks, block)
+
+
+def emu_chan_dft(g, const, block0, delay):
+    """chan_dft_kernel: per spectrum, the shared-memory DFT read through
+    dft_rq_pos, times its constant row, stored at row (k - delay) mod nb."""
+    n_pol, nb, block = g.shape
+    k = np.arange(nb)
+    y = emu_dft_rq(g.reshape(-1, block), twiddle_table(block, -1), 1)
+    y = y.reshape(n_pol, nb, block)[..., _pos(np.arange(block), block)]
+    out = np.empty_like(y)
+    out[:, (k - delay) % nb] = y * const[(k + block0) % const.shape[0]]
+    return out
+
+
+def emu_ifft_big(X, elem, n2, n1, lo, roll, gain):
+    """ifft_big_inner_kernel then ifft_big_outer_kernel through A[k2, i1]."""
+    n = n2 * n1
+    tab = twiddle_table(n, 1)
+    n_pol, n_b, _ = X.shape
+    k2, i1 = np.arange(n2), np.arange(n1)
+    k1 = lo // n2 + np.arange((n - 2 * lo) // n2)
+    a = np.zeros((n_pol, n_b, n2, n1), np.complex64)
+    out = np.zeros((n_pol, n_b, n - 2 * lo), np.complex64)
+    for p in range(n_pol):
+        for b in range(n_b):
+            w = X[p, b] if elem is None else X[p, b] * elem
+            cols = w.reshape(n2, n1).T  # cols[i1, i2] = W[n1*i2 + i1]
+            a[p, b] = emu_dft_rq(cols, tab, n // n2)[:, _pos(k2, n2)].T
+            rows = a[p, b] * tab[(k2[:, None] * i1[None, :]) % n]
+            z = emu_dft_rq(rows, tab, n // n1)
+            t = k2[:, None] + n2 * k1[None, :]
+            v = z[:, _pos(k1, n1)] * np.conj(tab[(roll * t) % n])
+            out[p, b, (t - lo).ravel()] = (v * np.float32(gain / n)).ravel()
+    return a, out
+
+
 class TestDecomposition:
     @pytest.mark.parametrize("n", [8, 96, 128, 256, 384])
     @pytest.mark.parametrize("sign", [-1, 1])
@@ -207,8 +281,18 @@ class TestDecomposition:
     def test_radix_split(self):
         assert radix(256) == (1, 256, 8)
         assert radix(384) == (3, 128, 7)
+        assert radix(3584) == (7, 512, 9)
         with pytest.raises(ValueError, match="odd factors"):
-            radix(448)
+            radix(320)
+
+    @pytest.mark.parametrize("n", [56, 896, 3584])
+    @pytest.mark.parametrize("sign", [-1, 1])
+    def test_dft_r7_matches_numpy(self, n, sign):
+        # 3584 = 7 * 512: mid's inner IFFT length (radix-7 step, then radix 2)
+        x = _noise((3, n), n + 1)
+        y = emu_dft_rq(x, twiddle_table(n, sign), 1)[:, _pos(np.arange(n), n)]
+        ref = np.fft.fft(x) if sign < 0 else np.fft.ifft(x) * n
+        assert _rel_err(y, ref) < 2e-6
 
     def test_twiddle_table_exact_phase(self):
         tab = twiddle_table(49152, 1)
@@ -254,6 +338,60 @@ class TestDecomposition:
                               None if elem is None else torch.as_tensor(elem),
                               LO, ROLL, GAIN, 2).numpy()
         assert _rel_err(got, ref) < SYNTHESIS_TOL
+
+    @pytest.mark.parametrize("block,os_f,wds", [(512, Rational(4, 3), (128, 4, 3)),
+                                                (1024, Rational(8, 7), (128, 8, 7))])
+    def test_padded_fold_emulation(self, block, os_f, wds):
+        step = geometry.analysis_step(block, os_f)
+        assert apf.fold_rows(block, step) == wds
+        f2d_rev = _prep_filter(fir.design_pfb_fir_filter(block, os_f, 4), block,
+                               reverse=True)
+        # 2.3 spectrum tiles: the first reads before the stream start, the
+        # last is ragged
+        x = _noise((2, (2 * apf.K_TILE + 9) * step + 11), 25)
+        got = emu_padded_fold(x, f2d_rev, step)
+        ref = padded_fold(torch.as_tensor(x), torch.as_tensor(f2d_rev), step).numpy()
+        assert _rel_err(got, ref) < PADDED_TOL
+
+    def test_padded_fold_mid_smem(self):
+        # mid: W = 512, D = 8, S = 7, 25 phases -> 417 staged rows x 32
+        assert apf.fold_rows(4096, 3584) == (512, 8, 7)
+        assert apf.smem_bytes(4096, 3584, 25) == 417 * 32 * 8 == 106_752
+
+    @pytest.mark.parametrize("block0,delay", [(0, 0), (5, 3), (3, 40)])
+    def test_chan_dft_emulation(self, block0, delay):
+        block, step = 1024, 896
+        const = padded_chan_const(block, step)
+        g = _noise((2, 37, block), 26)
+        got = emu_chan_dft(g, const, block0, delay)
+        ref = chan_dft_core(torch.as_tensor(g), torch.as_tensor(const), block0,
+                            delay).numpy()
+        assert _rel_err(got, ref) < PADDED_TOL
+
+    @pytest.mark.parametrize("pqn", [(7, 128, 128), (3, 512, 128)])
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_ifft_big_emulation(self, pqn, with_elem):
+        p, q, n1 = pqn
+        n2 = p * q
+        n, lo = n2 * n1, n2 * 8
+        X = _noise((1, 2, n), 27)
+        elem = _noise((n,), 28) if with_elem else None
+        a, got = emu_ifft_big(X, elem, n2, n1, lo, 224, 0.875)
+        xt = torch.as_tensor(X)
+        et = None if elem is None else torch.as_tensor(elem)
+        a_ref = tsynth.big_ifft_inner(xt, et, n2, n1)
+        assert _rel_err(a, a_ref.numpy()) < BIG_IFFT_TOL
+        assert _rel_err(got, tsynth.big_ifft_outer(a_ref, lo, 224, 0.875).numpy()) < BIG_IFFT_TOL
+        assert _rel_err(got, tsynth.epilogue(xt, et, lo, 224, 0.875, 2).numpy()) < BIG_IFFT_TOL
+
+    def test_big_ifft_halves_compose_to_epilogue(self):
+        # the two plain halves at the kernels' boundary equal the epilogue
+        n2, n1, lo = 896, 512, 114_688  # a reduced mid block: 458752 points
+        X = torch.as_tensor(_noise((2, 1, n2 * n1), 29))
+        elem = torch.as_tensor(_noise((n2 * n1,), 30))
+        got = tsynth.big_ifft_outer(tsynth.big_ifft_inner(X, elem, n2, n1), lo, 224, 0.875)
+        ref = tsynth.epilogue(X, elem, lo, 224, 0.875, 1)
+        assert _rel_err(got.numpy(), ref.numpy()) < 2e-6
 
 
 class TestPlainVsPallas:
@@ -331,7 +469,40 @@ class TestPlainVsPallas:
                                       (12288, 1536), (3 * 7 * 512, 0)])
     def test_epilogue_dispatch_matches_jax(self, n, lo, pallas):
         assert plan_ifft(n, lo) == pallas[2].plan_ifft(n, lo)
-        assert _needs_ifft_big(n, lo) == (pallas[3].plan_big_ifft(n, lo) is not None)
+        assert plan_big_ifft(n, lo) == pallas[3].plan_big_ifft(n, lo)
+
+    @pytest.mark.parametrize("n,lo", [(7 * 128 * 128, 7168), (3 * 512 * 128, 12288),
+                                      (458_752, 114_688), (1_835_008, 458_751),
+                                      (1_835_008, 917_504), (5 * 7 * 512, 0),
+                                      (2 ** 20, 2 ** 18), (6 * 512 * 512, 3 * 2 ** 17)])
+    def test_plan_big_ifft_sweep(self, n, lo, pallas):
+        assert plan_big_ifft(n, lo) == pallas[3].plan_big_ifft(n, lo)
+
+    @pytest.mark.parametrize("pqn", [(7, 128, 128), (3, 512, 128)])
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_fused_big_ifft_oc(self, pqn, with_elem, pallas):
+        # the plain epilogue reached through the out-of-core wrapper, against
+        # the Pallas pair in interpret mode at test_pallas.py's shapes
+        import jax.numpy as jnp
+
+        p, q, n1 = pqn
+        n, n2 = p * q * n1, p * q
+        key = (n, p, q, n1, n2 * 8, 224, 0.875)
+        rng = np.random.default_rng(24)
+        fr, fi = (rng.standard_normal((1, 2, n)).astype(np.float32) for _ in range(2))
+        er, ei = (rng.standard_normal(n).astype(np.float32) for _ in range(2))
+        jr, ji = pallas[3].fused_big_ifft_oc(
+            jnp.asarray(fr), jnp.asarray(fi),
+            *((jnp.asarray(er), jnp.asarray(ei)) if with_elem else (None, None)),
+            shape_key=key, has_elem=with_elem, interpret=True,
+        )
+        gr, gi = fused_big_ifft_oc(
+            (torch.as_tensor(fr), torch.as_tensor(fi)),
+            (torch.as_tensor(er), torch.as_tensor(ei)) if with_elem else None,
+            shape_key=key,
+        )
+        assert _rel_err(gr.numpy() + 1j * gi.numpy(),
+                        np.asarray(jr) + 1j * np.asarray(ji)) < BIG_IFFT_TOL
 
 
 @pytest.mark.cuda
@@ -367,3 +538,37 @@ class TestOnCard:
         got = fused_big_ifft(X, elem, shape_key=(N, 128, 384, LO, ROLL, GAIN), n_valid=2)
         ref = tsynth.epilogue(X, elem, LO, ROLL, GAIN, 2)
         assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
+
+    @pytest.mark.parametrize("block,os_f", [(512, Rational(4, 3)), (1024, Rational(8, 7))])
+    def test_padded_fold(self, cuda, block, os_f):
+        step = geometry.analysis_step(block, os_f)
+        f2d_rev = torch.as_tensor(_prep_filter(fir.design_pfb_fir_filter(block, os_f, 4),
+                                               block, reverse=True), device=cuda)
+        x = torch.as_tensor(_noise((2, 80 * step + 5), 31), device=cuda)
+        before = apf.padded_fold_fused.launches
+        got = apf.padded_fold_fused(x, f2d_rev, step)
+        assert apf.padded_fold_fused.launches == before + 1
+        ref = padded_fold(x, f2d_rev, step)
+        assert _rel_err(got.cpu(), ref.cpu()) < PADDED_TOL
+
+    def test_chan_dft(self, cuda):
+        const = torch.as_tensor(padded_chan_const(1024, 896), device=cuda)
+        g = torch.as_tensor(_noise((2, 37, 1024), 32), device=cuda)
+        before = chan_dft_ramp.launches
+        got = chan_dft_ramp(g, const, 5, 14)
+        assert chan_dft_ramp.launches == before + 1
+        ref = chan_dft_core(g, const, 5, 14)
+        assert _rel_err(got.cpu(), ref.cpu()) < PADDED_TOL
+
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_ifft_big(self, cuda, with_elem):
+        n2, n1, lo = 896, 512, 114_688
+        n = n2 * n1
+        X = torch.as_tensor(_noise((2, 2, n), 33), device=cuda)
+        elem = torch.as_tensor(_noise((n,), 34), device=cuda) if with_elem else None
+        before = (ifft_big_inner.launches, ifft_big_outer.launches)
+        got = fused_big_ifft_oc(X, elem, shape_key=(n, 7, 128, n1, lo, 224, 0.875))
+        assert (ifft_big_inner.launches, ifft_big_outer.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+        ref = tsynth.epilogue(X, elem, lo, 224, 0.875, 2)
+        assert _rel_err(got.cpu(), ref.cpu()) < BIG_IFFT_TOL

@@ -149,6 +149,11 @@ def test_port_imports_no_jax():
         "import ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused\n"
         "import ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused\n"
         "import ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused\n"
+        "import ska_pst_dsp_tpu_torch.ops.kernels.analysis_padded_fused\n"
+        "import ska_pst_dsp_tpu_torch.ops.kernels.chan_dft_fused\n"
+        "import ska_pst_dsp_tpu_torch.ops.kernels.ifft_big\n"
+        "from ska_pst_dsp_tpu_torch.entry import mid_round_trip\n"
+        "mid_round_trip('cpu')\n"
         "fn, args = entry('cpu', n_dat=60000)\n"
         "rr, ri = fn(*args)\n"
         "print(json.dumps({'jax': sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')),"
