@@ -29,7 +29,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       tests/test_pallas.py:268), the frontend at mid shapes (1.2e-5), both
       out-of-core IFFT launches and their pair, with and without ``elem``
       (1e-4, tests/test_pallas.py:423), each against its plain version,
-      with both times;
+      with both times; the pair also back to back and, from torch.profiler,
+      each launch's device time;
    b. slice: one forward through the module: every mid launch counter
       rises, the output (2, 1, 4 * 917504) is finite and matches the plain
       chain (1.2e-5 * scale);
@@ -52,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -74,6 +76,10 @@ MID_ORACLE_MAX, MID_ORACLE_MEAN = 1e-6, 2e-7
 PURITY_DB = -60.0
 REPS = 10
 PALLAS = "ska_pst_dsp_tpu/ops/pallas/"
+#: H100 SXM peaks the bounds are taken against (NVIDIA's data sheet, 700 W):
+#: HBM bytes/s and fp32 flop/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
 
 
 def log(phase: str, msg: str) -> None:
@@ -109,16 +115,77 @@ def time_ms(torch, fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def back_to_back_ms(torch, fn, calls: int = 20, windows: int = 5) -> float:
+    """Median over ``windows`` of the time per call of ``calls`` calls in a
+    row, timed with CUDA events: the host's work overlaps the card's."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def device_ms(torch, fn, match: str, calls: int = 5) -> dict:
+    """{kernel: device ms per call} over ``calls`` calls, from torch.profiler,
+    for the kernels whose name holds ``match``; {} where the profiler saw no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        if us and match in ev.key and not ev.key.startswith("cuda"):
+            name = ev.key.split("(")[0].removeprefix("void ")
+            out[name] = out.get(name, 0.0) + us / 1e3 / calls
+    return out
+
+
 def noise(shape, seed):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal(shape, dtype=np.float32)
             + 1j * rng.standard_normal(shape, dtype=np.float32)).astype(np.complex64)
 
 
-def compare(name, err, tol, ms, plain_ms):
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fft_flops(n: int, count: int) -> float:
+    """5 n log2 n per complex n-point transform, ``count`` transforms."""
+    return 5.0 * n * math.log2(n) * count
+
+
+def bound(n_bytes: int, flops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    work that moves n_bytes (each input read once, each output written once)
+    and does ``flops`` fp32 operations, the larger of the two times."""
+    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def compare(name, err, tol, ms, plain_ms, bnd=None, library_ms=None):
     check(err[1] <= tol, f"{name}: max|err|/scale {err[1]:.3g} > {tol}")
+    extra = "" if bnd is None else f", bound {bnd[0]:.4f} ms ({bnd[1]})"
+    if library_ms is not None:
+        extra += f", library {library_ms:.4f} ms"
     log("kernels", f"{name}: max|err| {err[0]:.3g}, /scale {err[1]:.3g} "
-        f"(tol {tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        f"(tol {tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{extra}")
 
 
 def wrappers():
@@ -147,13 +214,25 @@ def counted_forward(torch, model, x):
     return out, {k: w.launches for k, w in ws.items()}
 
 
-def kernel_entry(name, source, replaces, err, tol, ms, plain_ms):
-    """Check one kernel against its plain version; its JSON entry."""
-    compare(name, err, tol, ms, plain_ms)
+def kernel_entry(name, source, replaces, err, tol, ms, plain_ms, bnd, library_ms):
+    """Check one kernel against its plain version; its JSON entry. bnd is
+    (bound ms, what bounds it); library_ms the time of one torch call that
+    computes the same function (a yardstick the port never calls), or None."""
+    compare(name, err, tol, ms, plain_ms, bnd, library_ms)
     return {"name": name, "route": "cuda",
             "source": f"ska_pst_dsp_tpu_torch/csrc/{source}.cu",
             "replaces": PALLAS + replaces, "max_abs_err": err[0],
-            "max_rel_err": err[1], "tol": tol, "ms": ms, "plain_ms": plain_ms}
+            "max_rel_err": err[1], "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+
+
+def frames_fft_ms(torch, frame, x_tc, t_taper, perm, L, keep, nb):
+    """Library yardstick of the frontend: one torch.fft.fft of its tapered
+    frames, built beforehand."""
+    frames = (frame(x_tc.index_select(-1, perm).transpose(1, 2), L, keep, nb)
+              .transpose(1, 2) * t_taper).contiguous()
+    ms = time_ms(torch, lambda: torch.fft.fft(frames, dim=-1))
+    return ms, frames.shape[0] * frames.shape[1] * frames.shape[2]
 
 
 def main() -> int:
@@ -164,14 +243,15 @@ def main() -> int:
               "runs only on a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from ska_pst_dsp_tpu import oracle
-    from ska_pst_dsp_tpu.io import dada
-    from ska_pst_dsp_tpu.utils import geometry, windows
-    from ska_pst_dsp_tpu.utils.config import load_config
-    from ska_pst_dsp_tpu.verify.util import DomainPerformance
+    from ska_pst_dsp_tpu_torch import oracle
+    from ska_pst_dsp_tpu_torch.io import dada
+    from ska_pst_dsp_tpu_torch.utils import geometry, windows
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+    from ska_pst_dsp_tpu_torch.verify.util import DomainPerformance
     from ska_pst_dsp_tpu_torch.entry import L, N_CHAN, OS_FACTOR, OVERLAP, low_round_trip
     from ska_pst_dsp_tpu_torch.ops import synthesis as plain_synth
     from ska_pst_dsp_tpu_torch.ops.analysis import analysis_core
+    from ska_pst_dsp_tpu_torch.ops.framing import frame
     from ska_pst_dsp_tpu_torch.ops.kernels import _build
     from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import (
         analysis_fused, polyphase_analysis_fused,
@@ -208,8 +288,9 @@ def main() -> int:
     x = torch.as_tensor(noise((2, N_DAT), SEED), device=dev)
     kernels = []
 
-    def record(name, replaces, err, tol, ms, plain_ms):
-        kernels.append(kernel_entry(name, name, replaces, err, tol, ms, plain_ms))
+    def record(name, replaces, err, tol, ms, plain_ms, bnd, library_ms):
+        kernels.append(kernel_entry(name, name, replaces, err, tol, ms, plain_ms, bnd,
+                                    library_ms))
 
     def a_kernel():
         return analysis_fused(x, model.f2d, model.ramp, model.step)
@@ -218,20 +299,27 @@ def main() -> int:
         return analysis_core(x, model.f2d, model.ramp, model.step)
 
     chan = a_plain()
+    n_spec, phases = 2 * chan.shape[1], model.f2d.shape[0]
     record("analysis_fused",
            "analysis_fused.py:307",
            rel_err(a_kernel(), chan), ANALYSIS_TOL,
-           time_ms(torch, a_kernel), time_ms(torch, a_plain))
+           time_ms(torch, a_kernel), time_ms(torch, a_plain),
+           bound(nbytes(x, model.f2d, model.ramp, chan),
+                 n_spec * N_CHAN * (4 * phases + 6) + fft_flops(N_CHAN, n_spec)), None)
 
     nb = g.n_blocks(chan.shape[1])
     kpos = (L // 2 + g.discard) % L
     fargs = (chan, model.t_taper, model.dr, model.perm, L, g.input_keep, kpos, nb)
     fn = plain_synth.frontend(*fargs)
+    lib_ms, n_frames = frames_fft_ms(torch, frame, chan, model.t_taper, model.perm, L,
+                                     g.input_keep, nb)
     record("synthesis_fused",
            "synthesis_fused.py:244",
            rel_err(synthesis_fused(*fargs), fn), SYNTHESIS_TOL,
            time_ms(torch, lambda: synthesis_fused(*fargs)),
-           time_ms(torch, lambda: plain_synth.frontend(*fargs)))
+           time_ms(torch, lambda: plain_synth.frontend(*fargs)),
+           bound(nbytes(chan, model.t_taper, model.dr, model.perm, fn),
+                 fft_flops(L, n_frames) + 2 * L * n_frames), lib_ms)
     del chan
 
     n, lo, roll = g.output_fft_length, g.output_overlap, g.fn_width // 2
@@ -253,8 +341,11 @@ def main() -> int:
                         time_ms(torch, e_plain)))
     compare("ifft_fused with elem", *results[0][:1], SYNTHESIS_TOL, *results[0][1:])
     worst = max((r[0] for r in results), key=lambda err: err[1])
+    out_bytes = 2 * nb * (n - 2 * lo) * 8
     record("ifft_fused", "ifft_fused.py:268",
-           worst, SYNTHESIS_TOL, *results[1][1:])
+           worst, SYNTHESIS_TOL, *results[1][1:],
+           bound(nbytes(flat) + out_bytes, fft_flops(n, 2 * nb)),
+           time_ms(torch, lambda: torch.fft.ifft(flat, dim=-1)))
     del fn, flat
 
     # 4. the slice at full size through the module, then the oracle prefix
@@ -365,12 +456,13 @@ def chain_timing(torch, model, x, phase, what, smi):
 def run_mid(torch, dev, smi):
     """Phase 7: the SKA-Mid slice. Returns the JSON entries of its four new
     kernels and the frontend's mid numbers."""
-    from ska_pst_dsp_tpu import oracle
-    from ska_pst_dsp_tpu.utils import windows
-    from ska_pst_dsp_tpu.utils.config import load_config
+    from ska_pst_dsp_tpu_torch import oracle
+    from ska_pst_dsp_tpu_torch.utils import windows
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
     from ska_pst_dsp_tpu_torch.entry import mid_round_trip
     from ska_pst_dsp_tpu_torch.ops import synthesis as ps
     from ska_pst_dsp_tpu_torch.ops.analysis import chan_dft_core, padded_fold
+    from ska_pst_dsp_tpu_torch.ops.framing import frame
     from ska_pst_dsp_tpu_torch.ops.kernels.analysis_padded_fused import padded_fold_fused
     from ska_pst_dsp_tpu_torch.ops.kernels.chan_dft_fused import chan_dft_ramp
     from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import (
@@ -392,14 +484,20 @@ def run_mid(torch, dev, smi):
         "analysis_padded_fused", "analysis_padded_fused", "analysis_padded_fused.py:257",
         rel_err(padded_fold_fused(*fold_args), fold), PADDED_TOL,
         time_ms(torch, lambda: padded_fold_fused(*fold_args)),
-        time_ms(torch, lambda: padded_fold(*fold_args))))
+        time_ms(torch, lambda: padded_fold(*fold_args)),
+        bound(nbytes(x, model.f2d_rev, fold), 4 * model.f2d_rev.shape[0] * fold.numel()),
+        None))
     cargs = (fold, model.chan_const, 0, model.delay)
     chan = chan_dft_core(*cargs)
+    block = fold.shape[-1]
     entries.append(kernel_entry(
         "chan_dft_fused", "chan_dft_fused", "chan_dft_fused.py:190",
         rel_err(chan_dft_ramp(*cargs), chan), PADDED_TOL,
         time_ms(torch, lambda: chan_dft_ramp(*cargs)),
-        time_ms(torch, lambda: chan_dft_core(*cargs))))
+        time_ms(torch, lambda: chan_dft_core(*cargs)),
+        bound(nbytes(fold, model.chan_const, chan),
+              fft_flops(block, fold.numel() // block) + 6 * fold.numel()),
+        time_ms(torch, lambda: torch.fft.fft(fold, dim=-1))))
     del fold, cargs
 
     nb = g.n_blocks(chan.shape[1])
@@ -409,9 +507,15 @@ def run_mid(torch, dev, smi):
     front_err = rel_err(synthesis_fused(*fargs), fn)
     front_ms = (time_ms(torch, lambda: synthesis_fused(*fargs)),
                 time_ms(torch, lambda: ps.frontend(*fargs)))
-    compare("synthesis_fused at mid", front_err, SYNTHESIS_TOL, *front_ms)
+    lib_ms, n_frames = frames_fft_ms(torch, frame, chan, model.t_taper, model.perm, L,
+                                     g.input_keep, nb)
+    front_bound = bound(nbytes(chan, model.t_taper, model.dr, model.perm, fn),
+                        fft_flops(L, n_frames) + 2 * L * n_frames)
+    compare("synthesis_fused at mid", front_err, SYNTHESIS_TOL, *front_ms, front_bound,
+            lib_ms)
     mid_front = {"mid_max_abs_err": front_err[0], "mid_max_rel_err": front_err[1],
-                 "mid_ms": front_ms[0], "mid_plain_ms": front_ms[1]}
+                 "mid_ms": front_ms[0], "mid_plain_ms": front_ms[1],
+                 "mid_bound_ms": front_bound[0], "mid_library_ms": lib_ms}
     del chan, fargs
 
     n, lo, roll = g.output_fft_length, g.output_overlap, g.fn_width // 2
@@ -426,7 +530,7 @@ def run_mid(torch, dev, smi):
     key = (n, *plan, lo, roll, gain)
     errs, times = {}, {}
     for e in (elem, None):  # the main path's epilogue has no elem: last
-        a = ps.big_ifft_inner(flat, e, n2, n1)
+        a = ps.big_ifft_inner(flat, e, n2, n1).contiguous()  # the kernel's layout
         runs = {
             "ifft_big_inner": (lambda: ifft_big_inner(flat, e, n2, n1),
                                lambda: ps.big_ifft_inner(flat, e, n2, n1)),
@@ -442,10 +546,41 @@ def run_mid(torch, dev, smi):
                     BIG_IFFT_TOL, *times[name])
             errs[name] = max(errs.get(name, err), err, key=lambda v: v[1])
         del a, runs
-    del flat, elem
+    # bounds from this run's tensors (the main path has no elem), the
+    # library calls, and the pair back to back and on the device
+    n_tr = flat.shape[0] * flat.shape[1]
+    a_bytes, out_bytes = n_tr * n * 8, n_tr * (n - 2 * lo) * 8
+    bounds = {
+        "ifft_big_inner": bound(nbytes(flat) + a_bytes, fft_flops(n2, n1 * n_tr)),
+        "ifft_big_outer": bound(a_bytes + out_bytes, fft_flops(n1, n2 * n_tr) + 6 * n * n_tr),
+        "ifft_big pair": bound(nbytes(flat) + out_bytes, fft_flops(n, n_tr)),
+    }
+    cols = flat.view(*flat.shape[:2], n2, n1)
+    library = {"ifft_big_inner": time_ms(torch, lambda: torch.fft.ifft(cols, dim=-2)),
+               "ifft_big_outer": None,
+               "ifft_big pair": time_ms(torch, lambda: torch.fft.ifft(flat, dim=-1))}
+
+    def pair_call():
+        return fused_big_ifft_oc(flat, None, shape_key=key)
+
+    b2b = {"ifft_big pair": back_to_back_ms(torch, pair_call),
+           "torch.fft.ifft": back_to_back_ms(torch, lambda: torch.fft.ifft(flat, dim=-1))}
+    on_device = device_ms(torch, pair_call, "ifft_big")
+    del flat, elem, cols
+    pair_ms, pb, plib = times["ifft_big pair"][0], bounds["ifft_big pair"], library["ifft_big pair"]
+    pair = {"ms": pair_ms, "plain_ms": times["ifft_big pair"][1], "bound_ms": pb[0],
+            "library_ms": plib, "back_to_back_ms": b2b, "device_ms": on_device}
+    log("mid-kernels", f"ifft_big pair: {pair_ms:.4f} ms, {100 * pb[0] / pair_ms:.1f} % of "
+        f"its {pb[0]:.4f} ms bound ({pb[1]}), {pair_ms / plib:.2f}x torch.fft.ifft "
+        f"({plib:.4f} ms); back to back: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in b2b.items()) + "; device time per call: "
+        + (", ".join(f"{k} {v:.4f} ms" for k, v in on_device.items()) or "not measured")
+        + f" ({smi})")
     for name, line in (("ifft_big_inner", 388), ("ifft_big_outer", 524)):
-        entries.append(kernel_entry(name, "ifft_big", f"ifft_big.py:{line}", errs[name],
-                                    BIG_IFFT_TOL, *times[name]))
+        entry = kernel_entry(name, "ifft_big", f"ifft_big.py:{line}", errs[name],
+                             BIG_IFFT_TOL, *times[name], bounds[name], library[name])
+        entry["pair"] = pair
+        entries.append(entry)
 
     # b. the slice through the module
     out, launches = counted_forward(torch, model, x)
@@ -538,7 +673,7 @@ def run_mid(torch, dev, smi):
 
 
 def model_filter():
-    from ska_pst_dsp_tpu.design import fir
+    from ska_pst_dsp_tpu_torch.design import fir
     from ska_pst_dsp_tpu_torch.entry import N_CHAN, OS_FACTOR, TAPS_PER_CHAN
 
     return fir.design_pfb_fir_filter(N_CHAN, OS_FACTOR, TAPS_PER_CHAN)

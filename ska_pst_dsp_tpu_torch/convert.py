@@ -13,8 +13,8 @@ from typing import Dict, Optional, Union
 
 import numpy as np
 
-from ska_pst_dsp_tpu.utils import geometry
-from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp_tpu_torch.utils import geometry
+from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .ops.analysis import _prep_filter, padded_chan_const, ramp_table
 from .ops.synthesis import synthesis_constants

@@ -1,0 +1,228 @@
+// Register-resident FFT building blocks for the Hopper kernels.
+//
+// A length-Q transform (Q = 2^k, 128 <= Q <= 512) over rows held in shared
+// memory runs as three decimation-in-frequency passes of radices 8, 8 and
+// Q/64. Each butterfly loads its RAD values into registers, transforms them
+// there, multiplies by the pass twiddle and stores them back, so a
+// 512-point transform costs three shared-memory round trips (dft_smem.cuh's
+// radix-2 form costs nine, each with a __syncthreads).
+//
+// Pass s has radix r_s and span h_s = Q / (r_0 ... r_s). Its butterfly at
+// offset j < h_s of group g reads x[g*r_s*h_s + j + h_s*m], m < r_s, and
+// writes output d to x[g*r_s*h_s + j + h_s*d] times w_{r_s*h_s}^(j*d). After
+// the three passes output k = d0 + 8*d1 + 64*d2 sits at position
+// d0*Q/8 + d1*Q/64 + d2: the last pass's butterfly g = 8*d0 + d1 holds the
+// outputs d2 = 0..r_2-1 in registers, and a kernel stores them wherever it
+// wants (fft_reg_out_index gives k).
+//
+// Every twiddle comes from a table tab[m] = w_n^m built on the host in
+// float64 from the exact integer m and staged in shared memory; a pass reads
+// w_L^(j*d) = tab[j*d*(n/L)] with j*d < L, so no index is ever reduced. The
+// sign of the transform is the table's; the fixed radix-8 constants below
+// are for the backward (+) sign, the only one the kernels using this header
+// need.
+#pragma once
+
+#include "dft_smem.cuh"
+
+// a * exp(+i*pi/4)
+__device__ __forceinline__ float2 mul_w8_1(float2 a) {
+  const float c = 0.70710678118654752f;
+  return make_float2(c * (a.x - a.y), c * (a.x + a.y));
+}
+
+// a * exp(+i*pi/2)
+__device__ __forceinline__ float2 mul_w8_2(float2 a) { return make_float2(-a.y, a.x); }
+
+// a * exp(+3i*pi/4)
+__device__ __forceinline__ float2 mul_w8_3(float2 a) {
+  const float c = 0.70710678118654752f;
+  return make_float2(-c * (a.x + a.y), c * (a.x - a.y));
+}
+
+// In-register DFT y[d] = sum_m v[m] * exp(+2*pi*i*m*d/RAD), natural order.
+template <int RAD>
+__device__ __forceinline__ void dft_reg(float2 (&v)[RAD]);
+
+template <>
+__device__ __forceinline__ void dft_reg<2>(float2 (&v)[2]) {
+  const float2 a = v[0];
+  v[0] = c_add(a, v[1]);
+  v[1] = c_sub(a, v[1]);
+}
+
+__device__ __forceinline__ void dft4(float2& x0, float2& x1, float2& x2, float2& x3) {
+  const float2 t0 = c_add(x0, x2), t1 = c_sub(x0, x2);
+  const float2 t2 = c_add(x1, x3), t3 = mul_w8_2(c_sub(x1, x3));
+  x0 = c_add(t0, t2);
+  x2 = c_sub(t0, t2);
+  x1 = c_add(t1, t3);
+  x3 = c_sub(t1, t3);
+}
+
+template <>
+__device__ __forceinline__ void dft_reg<4>(float2 (&v)[4]) {
+  dft4(v[0], v[1], v[2], v[3]);
+}
+
+// Radix 8 as two radix-4 DFTs (even and odd m) and one radix-2 layer:
+// y[d] = E[d] + w^d O[d], y[d+4] = E[d] - w^d O[d], d < 4.
+template <>
+__device__ __forceinline__ void dft_reg<8>(float2 (&v)[8]) {
+  float2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
+  float2 o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
+  dft4(e0, e1, e2, e3);
+  dft4(o0, o1, o2, o3);
+  o1 = mul_w8_1(o1);
+  o2 = mul_w8_2(o2);
+  o3 = mul_w8_3(o3);
+  v[0] = c_add(e0, o0);
+  v[4] = c_sub(e0, o0);
+  v[1] = c_add(e1, o1);
+  v[5] = c_sub(e1, o1);
+  v[2] = c_add(e2, o2);
+  v[6] = c_sub(e2, o2);
+  v[3] = c_add(e3, o3);
+  v[7] = c_sub(e3, o3);
+}
+
+// cos and sin of 2*pi*m/r for the odd and mixed radices the kernels use
+// (r in {3, 6, 7}); called with constants after unrolling, so they fold
+// into immediates.
+__device__ __forceinline__ float root_cos(int r, int m) {
+  switch (r * 8 + m) {
+    case 3 * 8 + 1: case 3 * 8 + 2: return -0.5f;
+    case 6 * 8 + 1: case 6 * 8 + 5: return 0.5f;
+    case 6 * 8 + 2: case 6 * 8 + 4: return -0.5f;
+    case 6 * 8 + 3: return -1.f;
+    case 7 * 8 + 1: case 7 * 8 + 6: return 6.234898019e-01f;
+    case 7 * 8 + 2: case 7 * 8 + 5: return -2.225209340e-01f;
+    case 7 * 8 + 3: case 7 * 8 + 4: return -9.009688679e-01f;
+    default: return 1.f;
+  }
+}
+
+__device__ __forceinline__ float root_sin(int r, int m) {
+  switch (r * 8 + m) {
+    case 3 * 8 + 1: case 6 * 8 + 1: case 6 * 8 + 2: return 8.660254038e-01f;
+    case 3 * 8 + 2: case 6 * 8 + 4: case 6 * 8 + 5: return -8.660254038e-01f;
+    case 7 * 8 + 1: return 7.818314825e-01f;
+    case 7 * 8 + 2: return 9.749279122e-01f;
+    case 7 * 8 + 3: return 4.338837391e-01f;
+    case 7 * 8 + 4: return -4.338837391e-01f;
+    case 7 * 8 + 5: return -9.749279122e-01f;
+    case 7 * 8 + 6: return -7.818314825e-01f;
+    default: return 0.f;
+  }
+}
+
+// In-register R-point DFT (sign +) for any R <= 8: radices 2, 4 and 8 as
+// above; odd R by the symmetric form (pairs a, R-a share the cosine, their
+// difference the sine: about half the multiplies of the direct sum); R = 6
+// directly.
+template <int R>
+__device__ __forceinline__ void dft_radix(float2 (&v)[R]) {
+  if constexpr (R == 2 || R == 4 || R == 8) {
+    dft_reg<R>(v);
+  } else if constexpr (R % 2 == 1) {
+    constexpr int H = (R - 1) / 2;
+    float2 s[H + 1], d[H + 1];
+    float2 y0 = v[0];
+#pragma unroll
+    for (int a = 1; a <= H; ++a) {
+      s[a] = c_add(v[a], v[R - a]);
+      d[a] = c_sub(v[a], v[R - a]);
+      y0 = c_add(y0, s[a]);
+    }
+#pragma unroll
+    for (int k = 1; k <= H; ++k) {
+      float2 re = v[0], im = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int a = 1; a <= H; ++a) {
+        const float c = root_cos(R, (a * k) % R), sn = root_sin(R, (a * k) % R);
+        re = make_float2(fmaf(s[a].x, c, re.x), fmaf(s[a].y, c, re.y));
+        im = make_float2(fmaf(d[a].x, sn, im.x), fmaf(d[a].y, sn, im.y));
+      }
+      v[k] = make_float2(re.x - im.y, re.y + im.x);      // re + i*im
+      v[R - k] = make_float2(re.x + im.y, re.y - im.x);  // re - i*im
+    }
+    v[0] = y0;
+  } else {
+    float2 y[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      float2 acc = v[0];
+#pragma unroll
+      for (int a = 1; a < R; ++a) {
+        const int m = (a * k) % R;
+        acc = c_add(acc, m == 0 ? v[a]
+                                : c_mul(v[a], make_float2(root_cos(R, m), root_sin(R, m))));
+      }
+      y[k] = acc;
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = y[k];
+  }
+}
+
+// Position of point p of a sub-row: with PAD one slot follows every eight
+// points, so the eight consecutive points of a last-pass butterfly, taken by
+// neighbouring threads, spread over all banks.
+template <bool PAD>
+__device__ __forceinline__ int fft_reg_phys(int p) {
+  return PAD ? p + (p >> 3) : p;
+}
+
+// One butterfly of a pass over the sub-row at `row`: points off + h*m ->
+// DFT -> times w^(j*d) = tab[j*d*tstep] -> points off + h*d.
+template <int RAD, bool PAD>
+__device__ __forceinline__ void fft_reg_butterfly(float2* row, int off, int h, int j,
+                                                  const float2* tab, int tstep) {
+  float2 v[RAD];
+#pragma unroll
+  for (int m = 0; m < RAD; ++m) v[m] = row[fft_reg_phys<PAD>(off + m * h)];
+  dft_reg<RAD>(v);
+  if (j != 0) {
+#pragma unroll
+    for (int d = 1; d < RAD; ++d) v[d] = c_mul(v[d], tab[j * d * tstep]);
+  }
+#pragma unroll
+  for (int d = 0; d < RAD; ++d) row[fft_reg_phys<PAD>(off + d * h)] = v[d];
+}
+
+// Radix of the last pass of a 2^LOGQ-point transform.
+template <int LOGQ>
+struct FftRegPlan {
+  static_assert(LOGQ >= 7 && LOGQ <= 9, "fft_reg: 128 <= Q <= 512");
+  static constexpr int kQ = 1 << LOGQ;
+  static constexpr int kLast = kQ / 64;
+};
+
+// One of the first two passes (radix 8, span H) over the sub-rows of Q
+// points at buf + lane*ld + sub*sub_ld, lane < LANES, sub < subs.
+// Butterflies are numbered lane-fastest, so neighbouring threads touch
+// neighbouring lanes at the same offset. Ends with __syncthreads().
+template <int Q, int H, int LANES, bool PAD>
+__device__ __forceinline__ void fft_reg_pass8(float2* buf, int ld, int subs, int sub_ld,
+                                              const float2* tab, int n_tab) {
+  constexpr int kPer = Q / 8;
+  const int total = LANES * subs * kPer;
+  const int tstep = n_tab / (8 * H);
+  for (int item = threadIdx.x; item < total; item += blockDim.x) {
+    const int lane = item % LANES;
+    const int rest = item / LANES;
+    const int u = rest % kPer;
+    const int sub = rest / kPer;
+    const int g = u / H;
+    const int j = u - g * H;
+    fft_reg_butterfly<8, PAD>(buf + lane * ld + sub * sub_ld, g * 8 * H + j, H, j, tab,
+                              tstep);
+  }
+  __syncthreads();
+}
+
+// Output index k of the last pass's butterfly g, register d (LOGQ-point
+// transform): k = d0 + 8*d1 + 64*d with g = 8*d0 + d1.
+__device__ __forceinline__ int fft_reg_out_index(int g, int d) {
+  return (g >> 3) + 8 * (g & 7) + 64 * d;
+}

@@ -16,9 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ska_pst_dsp_tpu.design import fir
-from ska_pst_dsp_tpu.utils.config import load_config
-from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp_tpu_torch.design import fir
+from ska_pst_dsp_tpu_torch.utils.config import load_config
+from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .models.round_trip import PaddedPFBRoundTrip, PFBRoundTrip
 

@@ -1,0 +1,188 @@
+"""DADA file format codec: :func:`save` and :func:`load`.
+
+The port's copy of the generic path of :mod:`ska_pst_dsp_tpu.io.dada`; a
+file written by either package is read by the other, byte for byte.
+
+Format recap:
+  * ASCII header of HDR_SIZE bytes (default 4096): ``KEY VALUE`` lines,
+    ``#`` comments, NUL padding; HDR_SIZE may announce a larger header, in
+    which case the reader re-reads with the announced size.
+  * Data: little-endian stream in TFP order (time slowest, then channel,
+    then polarization), re/im interleaved when NDIM=2, dtype from NBIT.
+
+Arrays follow the reference kernel convention (P, F, T) complex. LowCBF
+heap files (INSTRUMENT=LowCBF) are not read here.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+DEFAULT_HDR_SIZE = 4096
+
+_NBIT_TO_DTYPE = {
+    8: np.int8,
+    16: np.int16,
+    32: np.float32,
+    64: np.float64,
+}
+_DTYPE_TO_NBIT = {
+    np.dtype(np.int8): 8,
+    np.dtype(np.uint8): 8,
+    np.dtype(np.int16): 16,
+    np.dtype(np.uint16): 16,
+    np.dtype(np.float32): 32,
+    np.dtype(np.complex64): 32,
+    np.dtype(np.float64): 64,
+    np.dtype(np.complex128): 64,
+}
+
+
+def parse_header(raw: bytes) -> Dict[str, str]:
+    """Parse ASCII key-value header text into a dict (read_header.m:13-40)."""
+    header: Dict[str, str] = {}
+    text = raw.split(b"\x00", 1)[0].decode("ascii", errors="replace")
+    for line in text.split("\n"):
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        parts = line.split()
+        if len(parts) > 1:
+            header[parts[0]] = parts[1]
+    return header
+
+
+def read_header(path: str) -> Dict[str, str]:
+    """Read a DADA header, honoring a self-announced HDR_SIZE: retry with the
+    announced (or doubled) size like the reference reader (read_header.m:29-38)."""
+    size = DEFAULT_HDR_SIZE
+    file_size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        while True:
+            f.seek(0)
+            header = parse_header(f.read(size))
+            announced = int(header.get("HDR_SIZE", 0)) if "HDR_SIZE" in header else None
+            if announced is None:
+                size *= 2
+                if size > max(file_size, DEFAULT_HDR_SIZE) * 2:
+                    raise ValueError(
+                        f"{path} has no parseable DADA header (no HDR_SIZE key)"
+                    )
+                continue
+            if announced != size:
+                size = announced
+                continue
+            return header
+
+
+def serialize_header(header: Dict[str, str]) -> bytes:
+    """Serialize a header dict: HDR_SIZE line first, NUL padding to HDR_SIZE,
+    doubling HDR_SIZE on overflow (write_header.m:8-47)."""
+    hdr = {k: str(v) for k, v in header.items()}
+    hdr.setdefault("HDR_SIZE", str(DEFAULT_HDR_SIZE))
+    while True:
+        size = int(hdr["HDR_SIZE"])
+        lines = [f"HDR_SIZE {hdr['HDR_SIZE']}"]
+        lines += [f"{k} {v}" for k, v in sorted(hdr.items()) if k != "HDR_SIZE"]
+        body = ("\n".join(lines) + "\n").encode("ascii")
+        if len(body) <= size:
+            return body + b"\x00" * (size - len(body))
+        hdr["HDR_SIZE"] = str(size * 2)
+
+
+def _data_dtype(header: Dict[str, str]) -> np.dtype:
+    nbit = int(header.get("NBIT", 32))
+    try:
+        return np.dtype(_NBIT_TO_DTYPE[nbit])
+    except KeyError:
+        raise ValueError(f"unsupported NBIT={nbit}") from None
+
+
+def load(path: str, count: Optional[int] = None, offset_samples: int = 0
+         ) -> Tuple[np.ndarray, Dict[str, str]]:
+    """Load a DADA file → ((n_pol, n_chan, n_dat) array, header).
+
+    Complex data (NDIM=2) come back as complex64/complex128; real as the
+    stored dtype. ``count``/``offset_samples`` select a time-sample window
+    for streaming reads (DADARead.generate equivalent).
+    """
+    header = read_header(path)
+    if header.get("INSTRUMENT") == "LowCBF":
+        raise ValueError(f"{path} is a LowCBF heap file; the port reads TFP streams only")
+    hdr_size = int(header["HDR_SIZE"])
+    n_dim = int(header.get("NDIM", 2))
+    n_pol = int(header.get("NPOL", 1))
+    n_chan = int(header.get("NCHAN", 1))
+    dtype = _data_dtype(header)
+
+    words_per_sample = n_dim * n_pol * n_chan
+    offset_bytes = hdr_size + offset_samples * words_per_sample * dtype.itemsize
+    n_words = -1 if count is None else count * words_per_sample
+    raw = np.fromfile(path, dtype=dtype, count=n_words, offset=offset_bytes)
+    raw = raw[: (raw.size // words_per_sample) * words_per_sample]
+
+    if n_dim == 2:
+        raw = raw.astype(np.float32 if dtype.itemsize <= 4 else np.float64)
+        data = raw[0::2] + 1j * raw[1::2]
+    else:
+        data = raw
+    # TFP stream → (T, F, P) → transpose to (P, F, T)
+    data = data.reshape(-1, n_chan, n_pol).transpose(2, 1, 0)
+    return data, header
+
+
+def _quantize(data: np.ndarray, nbit: int) -> np.ndarray:
+    """Round complex data to int8/int16 components (sgcht.m:555-566 nbit
+    output quantization)."""
+    target = np.int8 if nbit == 8 else np.int16
+    info = np.iinfo(target)
+    re = np.clip(np.round(data.real), info.min, info.max).astype(target)
+    im = np.clip(np.round(data.imag), info.min, info.max).astype(target)
+    out = np.empty(data.shape + (2,), dtype=target)
+    out[..., 0] = re
+    out[..., 1] = im
+    return out
+
+
+def save(path: str, data: np.ndarray, header: Dict[str, str],
+         nbit: Optional[int] = None) -> None:
+    """Write a (n_pol, n_chan, n_dat) array + header as a DADA file,
+    updating NBIT/NDIM/NPOL/NCHAN from the array (write_dada_header.m:20-36).
+    ``nbit`` of 8/16 quantizes complex data to integer components."""
+    if data.ndim != 3:
+        raise ValueError(f"expected (n_pol, n_chan, n_dat) array, got {data.shape}")
+    if nbit in (8, 16) and np.iscomplexobj(data):
+        q = _quantize(data, nbit)
+        hdr = {k: str(v) for k, v in header.items()}
+        hdr.update(
+            NBIT=str(nbit), NDIM="2", NPOL=str(data.shape[0]),
+            NCHAN=str(data.shape[1]),
+        )
+        tfp = q.transpose(2, 1, 0, 3)  # (T, F, P, 2)
+        with open(path, "wb") as f:
+            f.write(serialize_header(hdr))
+            np.ascontiguousarray(tfp).tofile(f)
+        return
+    hdr = {k: str(v) for k, v in header.items()}
+    is_complex = np.iscomplexobj(data)
+    base = np.dtype(data.real.dtype) if is_complex else np.dtype(data.dtype)
+    hdr["NBIT"] = str(_DTYPE_TO_NBIT[base])
+    hdr["NDIM"] = "2" if is_complex else "1"
+    hdr["NPOL"] = str(data.shape[0])
+    hdr["NCHAN"] = str(data.shape[1])
+
+    tfp = data.transpose(2, 1, 0)  # (T, F, P)
+    if is_complex:
+        flat = np.empty(tfp.size * 2, dtype=base)
+        flat[0::2] = tfp.real.ravel()
+        flat[1::2] = tfp.imag.ravel()
+    else:
+        flat = np.ascontiguousarray(tfp).ravel()
+
+    with open(path, "wb") as f:
+        f.write(serialize_header(hdr))
+        flat.tofile(f)
+

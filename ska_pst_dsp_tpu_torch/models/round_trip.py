@@ -21,8 +21,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ska_pst_dsp_tpu.utils import geometry
-from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp_tpu_torch.utils import geometry
+from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from ..convert import padded_round_trip_state, round_trip_state
 from ..ops.analysis import analysis_core, chan_dft_core, padded_fold

@@ -31,8 +31,8 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
-from ska_pst_dsp_tpu.utils import geometry
-from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp_tpu_torch.utils import geometry
+from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from . import cfft
 from .framing import frame

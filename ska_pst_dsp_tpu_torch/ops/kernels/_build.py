@@ -40,8 +40,8 @@ SIGNATURES = {
     "ifft_fused_launch": [_P] * 5 + [_L] * 2 + [_I] * 14 + [_F, _P],
     "padded_fold_launch": [_P] * 3 + [_I, _L] + [_I] * 6 + [_P],
     "chan_dft_launch": [_P] * 4 + [_I] * 7 + [_L, _I, _P],
-    "ifft_big_inner_launch": [_P] * 4 + [_L] * 2 + [_I] * 8 + [_P],
-    "ifft_big_outer_launch": [_P] * 3 + [_I] * 10 + [_L, _L, _F, _P],
+    "ifft_big_inner_launch": [_P] * 4 + [_L] * 2 + [_I] * 6 + [_P],
+    "ifft_big_outer_launch": [_P] * 7 + [_I] * 7 + [_F, _P],
 }
 
 

@@ -17,8 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from ska_pst_dsp_tpu.utils import geometry
-from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp_tpu_torch.utils import geometry
+from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .. import cfft
 from ..analysis import _prep_filter, analysis_core, ramp_table, stream

@@ -22,8 +22,8 @@ import math
 import numpy as np
 import torch
 
-from ska_pst_dsp_tpu.utils import geometry
-from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp_tpu_torch.utils import geometry
+from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .. import cfft
 from ..analysis import _prep_filter, padded_chan_const, padded_fold, stream

@@ -30,8 +30,8 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
-from ska_pst_dsp_tpu.utils import geometry, windows
-from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp_tpu_torch.utils import geometry, windows
+from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from . import cfft
 from .framing import frame
@@ -87,7 +87,7 @@ def synthesis_constants(
     s_vec = _window(spectral_taper, n_chan * fnw, input_overlap)
 
     if deripple_coeff is not None:
-        from ska_pst_dsp_tpu.design.fir import deripple_response
+        from ska_pst_dsp_tpu_torch.design.fir import deripple_response
 
         dr = deripple_response(deripple_coeff, n_chan, fnw // 2).astype(np.float32)
     else:

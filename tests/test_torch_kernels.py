@@ -31,6 +31,7 @@ from ska_pst_dsp_tpu_torch.ops.analysis import (
 )
 from ska_pst_dsp_tpu_torch.ops.kernels import radix, twiddle_table
 from ska_pst_dsp_tpu_torch.ops.kernels import analysis_padded_fused as apf
+from ska_pst_dsp_tpu_torch.ops.kernels import ifft_big as big
 from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import (
     K_TILE, analysis_fused, polyphase_analysis_fused, smem_bytes,
 )
@@ -239,26 +240,84 @@ def emu_chan_dft(g, const, block0, delay):
     return out
 
 
-def emu_ifft_big(X, elem, n2, n1, lo, roll, gain):
-    """ifft_big_inner_kernel then ifft_big_outer_kernel through A[k2, i1]."""
+def _dft_matrix(rad):
+    """W[m, d] = exp(+2*pi*i*m*d/rad), complex64: the register radices."""
+    m = np.arange(rad)
+    return twiddle_table(rad, 1)[(m[:, None] * m[None, :]) % rad]
+
+
+def emu_radix_step(v, tw, q):
+    """The radix-R step of csrc/ifft_big.cu on v[..., alpha, beta]
+    (point beta + q*alpha): the direct R-point DFT over alpha with
+    w_R^x = tw[x*q], then the twiddle tw[beta*kr]; out [..., kr, beta]."""
+    r = v.shape[-2]
+    a = np.arange(r)
+    y = np.einsum("...ab,ak->...kb", v, tw[((a[:, None] * a[None, :]) % r) * q])
+    return y * tw[a[:, None] * np.arange(q)[None, :]]
+
+
+def emu_fft_reg(rows, tab, n_tab):
+    """csrc/fft_reg.cuh on rows [..., Q]: radix-8 DIF passes of span Q/8 and
+    Q/64 in place, butterfly (g, j) reading x[g*L + m*h + j] and writing
+    output d times tab[j*d*(n_tab/L)], L = 8h; then the last radix-Q/64
+    pass, whose butterfly g holds output k = (g >> 3) + 8*(g & 7) + 64*d
+    in register d. Returns [..., Q] in natural order of k."""
+    q = rows.shape[-1]
+    y = rows.astype(np.complex64)
+    for h in (q // 8, q // 64):
+        v = y.reshape(*y.shape[:-1], q // (8 * h), 8, h)  # [g, m, j]
+        out = np.einsum("...gmj,md->...gdj", v, _dft_matrix(8))
+        tw = tab[np.arange(8)[:, None] * np.arange(h)[None, :] * (n_tab // (8 * h))]
+        y = (out * tw).reshape(y.shape)
+    last = q // 64
+    out = y.reshape(*y.shape[:-1], 64, last) @ _dft_matrix(last)  # [g, d]
+    g, d = np.arange(64)[:, None], np.arange(last)[None, :]
+    k = ((g >> 3) + 8 * (g & 7) + 64 * d).ravel()
+    res = np.empty_like(y)
+    res[..., k] = out.reshape(*y.shape[:-1], q)
+    return res
+
+
+def emu_big_inner(w, n2, n1, tables):
+    """ifft_big_inner_kernel on one transform w (N,) = X*elem: A[k2, i1]."""
+    r, logq = big.kernel_split(n2)
+    q = 1 << logq
+    v = w.reshape(n2, n1).T.reshape(n1, r, q)  # [i1, alpha, beta]: i2 = beta + q*alpha
+    y = emu_radix_step(v, tables["tw_n2"], q)
+    a = emu_fft_reg(y, tables["tw_n2"], n2)  # [i1, kr, kq]: k2 = kr + r*kq
+    return a.transpose(2, 1, 0).reshape(n2, n1)
+
+
+def emu_big_outer(a, n2, n1, lo, tables, scale):
+    """ifft_big_outer_kernel on one transform's A: the two-level N-level
+    twiddle, the n1-point DFT, the kept k1 times roll_row * scale *
+    roll_col, in time order."""
     n = n2 * n1
-    tab = twiddle_table(n, 1)
+    r, logq = big.kernel_split(n1, big.OUTER_SPLITS)
+    q = 1 << logq
+    i1 = np.arange(n1)
+    w = tables["row_hi"][:, i1 // big.LANES] * tables["row_lo"][:, i1 % big.LANES]
+    v = (a * w).reshape(n2, r, q)
+    y = emu_radix_step(v, tables["tw_n1"], q) if r > 1 else v
+    z = emu_fft_reg(y, tables["tw_n1"], n1)  # [k2, kr, kq]: k1 = kr + r*kq
+    z = z.transpose(0, 2, 1).reshape(n2, n1)  # natural k1
+    k1_lo, n1_keep = lo // n2, (n - 2 * lo) // n2
+    k1 = k1_lo + np.arange(n1_keep)
+    ph = (tables["roll_row"] * np.float32(scale))[:, None] * tables["roll_col"][k1][None, :]
+    return (z[:, k1] * ph).T.reshape(-1)  # t - lo = k2 + n2*(k1 - k1_lo)
+
+
+def emu_ifft_big(X, elem, n2, n1, lo, roll, gain):
+    """fused_big_ifft_oc on the card: the inner kernel over every transform
+    into A (n_tr, n2, n1), then the outer kernel. Returns A and the output."""
+    n = n2 * n1
+    tables = big.big_ifft_tables(n, n2, n1, roll % n)
     n_pol, n_b, _ = X.shape
-    k2, i1 = np.arange(n2), np.arange(n1)
-    k1 = lo // n2 + np.arange((n - 2 * lo) // n2)
-    a = np.zeros((n_pol, n_b, n2, n1), np.complex64)
-    out = np.zeros((n_pol, n_b, n - 2 * lo), np.complex64)
-    for p in range(n_pol):
-        for b in range(n_b):
-            w = X[p, b] if elem is None else X[p, b] * elem
-            cols = w.reshape(n2, n1).T  # cols[i1, i2] = W[n1*i2 + i1]
-            a[p, b] = emu_dft_rq(cols, tab, n // n2)[:, _pos(k2, n2)].T
-            rows = a[p, b] * tab[(k2[:, None] * i1[None, :]) % n]
-            z = emu_dft_rq(rows, tab, n // n1)
-            t = k2[:, None] + n2 * k1[None, :]
-            v = z[:, _pos(k1, n1)] * np.conj(tab[(roll * t) % n])
-            out[p, b, (t - lo).ravel()] = (v * np.float32(gain / n)).ravel()
-    return a, out
+    flat = X.reshape(n_pol * n_b, n)
+    w = flat if elem is None else flat * elem
+    a = np.stack([emu_big_inner(wt, n2, n1, tables) for wt in w])
+    out = np.stack([emu_big_outer(at, n2, n1, lo, tables, gain / n) for at in a])
+    return a, out.reshape(n_pol, n_b, n - 2 * lo)
 
 
 class TestDecomposition:
@@ -374,15 +433,83 @@ class TestDecomposition:
         p, q, n1 = pqn
         n2 = p * q
         n, lo = n2 * n1, n2 * 8
-        X = _noise((1, 2, n), 27)
+        X = _noise((1, 3, n), 27)
         elem = _noise((n,), 28) if with_elem else None
-        a, got = emu_ifft_big(X, elem, n2, n1, lo, 224, 0.875)
         xt = torch.as_tensor(X)
         et = None if elem is None else torch.as_tensor(elem)
+        ref = tsynth.epilogue(xt, et, lo, 224, 0.875, 3).numpy()
+        a, got = emu_ifft_big(X, elem, n2, n1, lo, 224, 0.875)
+        assert _rel_err(got, ref) < BIG_IFFT_TOL
+        # A of transform 2, and the outer kernel on it alone
         a_ref = tsynth.big_ifft_inner(xt, et, n2, n1)
-        assert _rel_err(a, a_ref.numpy()) < BIG_IFFT_TOL
-        assert _rel_err(got, tsynth.big_ifft_outer(a_ref, lo, 224, 0.875).numpy()) < BIG_IFFT_TOL
-        assert _rel_err(got, tsynth.epilogue(xt, et, lo, 224, 0.875, 2).numpy()) < BIG_IFFT_TOL
+        assert _rel_err(a[2], a_ref[0, 2].numpy()) < BIG_IFFT_TOL
+        assert _rel_err(emu_big_outer(a[2], n2, n1, lo,
+                                      big.big_ifft_tables(n, n2, n1, 224), 0.875 / n),
+                        tsynth.big_ifft_outer(a_ref, lo, 224, 0.875)[0, 2].numpy()) < BIG_IFFT_TOL
+
+    def test_ifft_big_emulation_mid(self):
+        # one transform of the mid plan (7, 512, 512) at full size, the
+        # kernels' tables and index maps against the plain halves
+        n2, n1, lo, roll = 3584, 512, 458_752, 224
+        n = n2 * n1
+        assert plan_big_ifft(n, lo) == (7, 512, 512)
+        assert big.kernel_split(n2) == (7, 9) and big.kernel_split(n1, big.OUTER_SPLITS) == (1, 9)
+        X = _noise((1, 1, n), 35)
+        _, got = emu_ifft_big(X, None, n2, n1, lo, roll, 0.875)
+        xt = torch.as_tensor(X)
+        a_ref = tsynth.big_ifft_inner(xt, None, n2, n1)
+        tables = big.big_ifft_tables(n, n2, n1, roll)
+        a = emu_big_inner(X[0, 0], n2, n1, tables)
+        assert _rel_err(a, a_ref[0, 0].numpy()) < BIG_IFFT_TOL
+        assert _rel_err(got, tsynth.big_ifft_outer(a_ref, lo, roll, 0.875).numpy()) < BIG_IFFT_TOL
+        assert _rel_err(got, tsynth.epilogue(xt, None, lo, roll, 0.875, 1).numpy()) < 2e-6
+
+    def test_mid_phase_tables_sweep(self):
+        # the two-level N-level twiddle over every (i1, k2) of the mid plan
+        # and the factored roll phase over every kept t, against the phase
+        # at the exact integer index: within 2 ulp of fp32 (2^-23 at 1)
+        n2, n1, lo, roll = 3584, 512, 458_752, 224
+        n = n2 * n1
+        t = big.big_ifft_tables(n, n2, n1, roll)
+        ulp = float(np.spacing(np.float32(1)))
+        i1 = np.arange(n1)
+        got = t["row_hi"][:, i1 // 32] * t["row_lo"][:, i1 % 32]
+        ref = np.exp(2j * np.pi * ((np.arange(n2)[:, None] * i1[None, :]) % n) / n)
+        assert np.abs(got - ref).max() <= 2 * ulp
+        tt = np.arange(lo, n - lo)
+        got = t["roll_row"][tt % n2] * t["roll_col"][tt // n2]
+        ref = np.exp(-2j * np.pi * ((roll * tt) % n) / n)
+        assert np.abs(got - ref).max() <= 2 * ulp
+        assert t["row_hi"].shape == (n2, n1 // 32) and t["row_lo"].shape == (n2, 32)
+
+    def test_fft_reg_matches_numpy(self):
+        for q in (128, 256, 512):
+            x = _noise((3, q), q)
+            got = emu_fft_reg(x, twiddle_table(q, 1), q)
+            assert _rel_err(got, np.fft.ifft(x) * q) < 2e-6
+
+    def test_kernel_split(self):
+        assert big.kernel_split(3584) == (7, 9) and big.kernel_split(896) == (7, 7)
+        assert big.kernel_split(2048) == (4, 9) and big.kernel_split(384, big.OUTER_SPLITS) == (3, 7)
+        with pytest.raises(ValueError, match="out-of-core kernels"):
+            big.kernel_split(5 * 512)
+
+    def test_fused_big_ifft_oc_checks(self):
+        # an (re, im) pair comes back as a pair equal to the complex path; a
+        # key whose factors miss n and a keep region that is not whole n2
+        # rows are refused
+        n2, n1, lo = 896, 128, 896 * 8
+        n = n2 * n1
+        key = (n, 7, 128, n1, lo, 224, 0.875)
+        X = torch.as_tensor(_noise((1, 2, n), 38))
+        re, im = big.fused_big_ifft_oc((X.real.contiguous(), X.imag.contiguous()),
+                                       shape_key=key)
+        ref = big.fused_big_ifft_oc(X, shape_key=key)
+        assert torch.equal(torch.complex(re, im), ref)
+        with pytest.raises(ValueError, match="n = p\\*q\\*n1"):
+            big.fused_big_ifft_oc(X, shape_key=(n, 7, 128, 256, lo, 224, 0.875))
+        with pytest.raises(ValueError, match="whole n2"):
+            big._keep_rows(n, n2, lo + 1)
 
     def test_big_ifft_halves_compose_to_epilogue(self):
         # the two plain halves at the kernels' boundary equal the epilogue
@@ -562,13 +689,27 @@ class TestOnCard:
 
     @pytest.mark.parametrize("with_elem", [False, True])
     def test_ifft_big(self, cuda, with_elem):
+        # 4 transforms of a reduced mid block: one launch of each kernel
         n2, n1, lo = 896, 512, 114_688
         n = n2 * n1
         X = torch.as_tensor(_noise((2, 2, n), 33), device=cuda)
         elem = torch.as_tensor(_noise((n,), 34), device=cuda) if with_elem else None
         before = (ifft_big_inner.launches, ifft_big_outer.launches)
         got = fused_big_ifft_oc(X, elem, shape_key=(n, 7, 128, n1, lo, 224, 0.875))
-        assert (ifft_big_inner.launches, ifft_big_outer.launches) == (before[0] + 1,
-                                                                      before[1] + 1)
+        assert (ifft_big_inner.launches, ifft_big_outer.launches) == (
+            before[0] + 1, before[1] + 1)
         ref = tsynth.epilogue(X, elem, lo, 224, 0.875, 2)
+        assert _rel_err(got.cpu(), ref.cpu()) < BIG_IFFT_TOL
+
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_ifft_big_halves(self, cuda, with_elem):
+        n2, n1, lo = 1536, 128, 12_288  # the (3, 512, 128) plan
+        n = n2 * n1
+        X = torch.as_tensor(_noise((2, 3, n), 36), device=cuda)
+        elem = torch.as_tensor(_noise((n,), 37), device=cuda) if with_elem else None
+        a = ifft_big_inner(X, elem, n2, n1)
+        a_ref = tsynth.big_ifft_inner(X, elem, n2, n1)
+        assert _rel_err(a.cpu(), a_ref.cpu()) < BIG_IFFT_TOL
+        got = ifft_big_outer(a_ref, lo, 224, 0.875)
+        ref = tsynth.big_ifft_outer(a_ref, lo, 224, 0.875)
         assert _rel_err(got.cpu(), ref.cpu()) < BIG_IFFT_TOL

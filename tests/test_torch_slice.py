@@ -140,8 +140,9 @@ class TestState:
 
 
 def test_port_imports_no_jax():
-    """Importing the port and running one CPU slice leaves jax out of
-    sys.modules (the card's machine has no JAX)."""
+    """Importing the port and running one CPU slice leaves jax and every
+    module of the JAX package (ska_pst_dsp_tpu) out of sys.modules: the
+    card's machine has no JAX, and the port carries its own host modules."""
     code = (
         "import sys, json, torch\n"
         "import ska_pst_dsp_tpu_torch\n"
@@ -156,7 +157,10 @@ def test_port_imports_no_jax():
         "mid_round_trip('cpu')\n"
         "fn, args = entry('cpu', n_dat=60000)\n"
         "rr, ri = fn(*args)\n"
-        "print(json.dumps({'jax': sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')),"
+        "import ska_pst_dsp_tpu_torch.oracle, ska_pst_dsp_tpu_torch.io.dada\n"
+        "import ska_pst_dsp_tpu_torch.verify.util\n"
+        "def named(p): return sorted(m for m in sys.modules if m == p or m.startswith(p + '.'))\n"
+        "print(json.dumps({'jax': named('jax'), 'pkg': named('ska_pst_dsp_tpu'),"
         " 'shape': list(rr.shape)}))\n"
     )
     env = dict(os.environ)
@@ -166,3 +170,4 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     got = json.loads(res.stdout.strip().splitlines()[-1])
     assert got["jax"] == [] and got["shape"][:2] == [2, 1]
+    assert got["pkg"] == []
