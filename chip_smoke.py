@@ -8,11 +8,13 @@ Phases (one line each; any failure raises and the exit code is non-zero):
 
 1. card: requires CUDA; prints ``nvidia-smi`` name and power limit; turns
    TF32 off for matmul and cuDNN.
-2. build: compiles ska_pst_dsp_tpu_torch/csrc/*.cu with nvcc (seconds).
+2. build: compiles ska_pst_dsp_tpu_torch/csrc/*.cu with nvcc (seconds);
+   prints each kernel's registers and spills from ``ptxas -v``.
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shapes: max |err| / scale within 8e-6 (analysis) and
    1.2e-5 (frontend, epilogue with and without ``elem``), the tolerances of
-   tests/test_pallas.py; each kernel's time beside its plain version's.
+   tests/test_pallas.py; each kernel's time beside its plain version's; the
+   frontend also back to back and, from torch.profiler, on the device.
 4. slice: 2 pol x 2^23 samples (bench.py's size) through
    ``PFBRoundTrip`` on the kernels: every launch counter rises, the output is
    finite and matches the plain chain on the card (1.2e-5 * scale) and, on a
@@ -29,8 +31,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       tests/test_pallas.py:268), the frontend at mid shapes (1.2e-5), both
       out-of-core IFFT launches and their pair, with and without ``elem``
       (1e-4, tests/test_pallas.py:423), each against its plain version,
-      with both times; the pair also back to back and, from torch.profiler,
-      each launch's device time;
+      with both times; the channel DFT, the frontend and the pair also back
+      to back and, from torch.profiler, each launch's device time;
    b. slice: one forward through the module: every mid launch counter
       rises, the output (2, 1, 4 * 917504) is finite and matches the plain
       chain (1.2e-5 * scale);
@@ -76,6 +78,8 @@ MID_ORACLE_MAX, MID_ORACLE_MEAN = 1e-6, 2e-7
 PURITY_DB = -60.0
 REPS = 10
 PALLAS = "ska_pst_dsp_tpu/ops/pallas/"
+#: registers and spills of each source's kernels, from the build
+RESOURCES = {}
 #: H100 SXM peaks the bounds are taken against (NVIDIA's data sheet, 700 W):
 #: HBM bytes/s and fp32 flop/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -223,16 +227,33 @@ def kernel_entry(name, source, replaces, err, tol, ms, plain_ms, bnd, library_ms
             "source": f"ska_pst_dsp_tpu_torch/csrc/{source}.cu",
             "replaces": PALLAS + replaces, "max_abs_err": err[0],
             "max_rel_err": err[1], "tol": tol, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms,
+            "resources": RESOURCES.get(source, {})}
 
 
-def frames_fft_ms(torch, frame, x_tc, t_taper, perm, L, keep, nb):
+def frames_fft(torch, frame, x_tc, t_taper, perm, L, keep, nb):
     """Library yardstick of the frontend: one torch.fft.fft of its tapered
-    frames, built beforehand."""
+    frames, built beforehand. Returns (the call, its ms, the frame count)."""
     frames = (frame(x_tc.index_select(-1, perm).transpose(1, 2), L, keep, nb)
               .transpose(1, 2) * t_taper).contiguous()
-    ms = time_ms(torch, lambda: torch.fft.fft(frames, dim=-1))
-    return ms, frames.shape[0] * frames.shape[1] * frames.shape[2]
+
+    def call():
+        return torch.fft.fft(frames, dim=-1)
+
+    return call, time_ms(torch, call), frames.shape[0] * frames.shape[1] * frames.shape[2]
+
+
+def more_times(torch, name, kern, lib, match, smi):
+    """The kernel and its library call back to back, and the kernel's
+    device time per call from torch.profiler; logged and returned."""
+    out = {"back_to_back_ms": back_to_back_ms(torch, kern),
+           "library_back_to_back_ms": back_to_back_ms(torch, lib),
+           "device_ms": device_ms(torch, kern, match)}
+    log("kernels", f"{name}: back to back {out['back_to_back_ms']:.4f} ms (library "
+        f"{out['library_back_to_back_ms']:.4f} ms); device time per call: "
+        + (", ".join(f"{k} {v:.4f} ms" for k, v in out["device_ms"].items())
+           or "not measured") + f" ({smi})")
+    return out
 
 
 def main() -> int:
@@ -281,6 +302,11 @@ def main() -> int:
     log("build", f"{_build.library_path().name}: "
         + ("found built" if prebuilt else "nvcc build")
         + f", {time.perf_counter() - t0:.1f} s to build and load")
+    RESOURCES.update(_build.resource_usage())
+    for source, kerns in sorted(RESOURCES.items()):
+        log("build", f"{source}: " + "; ".join(
+            f"{k} {v['registers']} registers, spills {v['spill_stores']} B stored / "
+            f"{v['spill_loads']} B loaded" for k, v in sorted(kerns.items())))
 
     # 3. kernels against their plain versions at the main path's shapes
     model = low_round_trip(dev)
@@ -311,8 +337,8 @@ def main() -> int:
     kpos = (L // 2 + g.discard) % L
     fargs = (chan, model.t_taper, model.dr, model.perm, L, g.input_keep, kpos, nb)
     fn = plain_synth.frontend(*fargs)
-    lib_ms, n_frames = frames_fft_ms(torch, frame, chan, model.t_taper, model.perm, L,
-                                     g.input_keep, nb)
+    lib_call, lib_ms, n_frames = frames_fft(torch, frame, chan, model.t_taper, model.perm,
+                                            L, g.input_keep, nb)
     record("synthesis_fused",
            "synthesis_fused.py:244",
            rel_err(synthesis_fused(*fargs), fn), SYNTHESIS_TOL,
@@ -320,7 +346,9 @@ def main() -> int:
            time_ms(torch, lambda: plain_synth.frontend(*fargs)),
            bound(nbytes(chan, model.t_taper, model.dr, model.perm, fn),
                  fft_flops(L, n_frames) + 2 * L * n_frames), lib_ms)
-    del chan
+    kernels[-1].update(more_times(torch, "synthesis_fused", lambda: synthesis_fused(*fargs),
+                                  lib_call, "synthesis_frontend_kernel", smi))
+    del chan, lib_call
 
     n, lo, roll = g.output_fft_length, g.output_overlap, g.fn_width // 2
     gain = OS_FACTOR.de / OS_FACTOR.nu
@@ -498,6 +526,9 @@ def run_mid(torch, dev, smi):
         bound(nbytes(fold, model.chan_const, chan),
               fft_flops(block, fold.numel() // block) + 6 * fold.numel()),
         time_ms(torch, lambda: torch.fft.fft(fold, dim=-1))))
+    entries[-1].update(more_times(torch, "chan_dft_fused", lambda: chan_dft_ramp(*cargs),
+                                  lambda: torch.fft.fft(fold, dim=-1), "chan_dft_kernel",
+                                  smi))
     del fold, cargs
 
     nb = g.n_blocks(chan.shape[1])
@@ -507,8 +538,8 @@ def run_mid(torch, dev, smi):
     front_err = rel_err(synthesis_fused(*fargs), fn)
     front_ms = (time_ms(torch, lambda: synthesis_fused(*fargs)),
                 time_ms(torch, lambda: ps.frontend(*fargs)))
-    lib_ms, n_frames = frames_fft_ms(torch, frame, chan, model.t_taper, model.perm, L,
-                                     g.input_keep, nb)
+    lib_call, lib_ms, n_frames = frames_fft(torch, frame, chan, model.t_taper, model.perm,
+                                            L, g.input_keep, nb)
     front_bound = bound(nbytes(chan, model.t_taper, model.dr, model.perm, fn),
                         fft_flops(L, n_frames) + 2 * L * n_frames)
     compare("synthesis_fused at mid", front_err, SYNTHESIS_TOL, *front_ms, front_bound,
@@ -516,7 +547,10 @@ def run_mid(torch, dev, smi):
     mid_front = {"mid_max_abs_err": front_err[0], "mid_max_rel_err": front_err[1],
                  "mid_ms": front_ms[0], "mid_plain_ms": front_ms[1],
                  "mid_bound_ms": front_bound[0], "mid_library_ms": lib_ms}
-    del chan, fargs
+    mid_front.update({f"mid_{k}": v for k, v in more_times(
+        torch, "synthesis_fused at mid", lambda: synthesis_fused(*fargs), lib_call,
+        "synthesis_frontend_kernel", smi).items()})
+    del chan, fargs, lib_call
 
     n, lo, roll = g.output_fft_length, g.output_overlap, g.fn_width // 2
     gain = model.os_factor.de / model.os_factor.nu

@@ -1,89 +1,95 @@
 // Register-resident FFT building blocks for the Hopper kernels.
 //
-// A length-Q transform (Q = 2^k, 128 <= Q <= 512) over rows held in shared
-// memory runs as three decimation-in-frequency passes of radices 8, 8 and
-// Q/64. Each butterfly loads its RAD values into registers, transforms them
-// there, multiplies by the pass twiddle and stores them back, so a
-// 512-point transform costs three shared-memory round trips (dft_smem.cuh's
-// radix-2 form costs nine, each with a __syncthreads).
+// A length-Q transform (Q = 2^k, 128 <= Q <= 4096) over rows held in shared
+// memory runs as ceil(k/3) decimation-in-frequency passes, all of radix 8
+// but the last, of radix 2, 4 or 8 (FftRegPlan). Each butterfly loads its
+// RAD values into registers, transforms them there, multiplies by the pass
+// twiddle and stores them back, so a 512-point transform costs three
+// shared-memory round trips and a 4096-point one four (dft_smem.cuh's
+// radix-2 form costs nine and twelve, each with a __syncthreads).
 //
 // Pass s has radix r_s and span h_s = Q / (r_0 ... r_s). Its butterfly at
 // offset j < h_s of group g reads x[g*r_s*h_s + j + h_s*m], m < r_s, and
 // writes output d to x[g*r_s*h_s + j + h_s*d] times w_{r_s*h_s}^(j*d). After
-// the three passes output k = d0 + 8*d1 + 64*d2 sits at position
-// d0*Q/8 + d1*Q/64 + d2: the last pass's butterfly g = 8*d0 + d1 holds the
-// outputs d2 = 0..r_2-1 in registers, and a kernel stores them wherever it
-// wants (fft_reg_out_index gives k).
+// the passes output k = d0 + 8*d1 + 64*d2 + ... sits at position
+// d0*Q/8 + d1*Q/64 + ... + d_last: the last pass's butterfly g (the digits
+// d0, d1, ... of all but the last pass, d0 most significant) holds the
+// outputs d_last = 0..r_last-1 in registers, and a kernel stores them
+// wherever it wants (fft_reg_out_index gives k).
 //
-// Every twiddle comes from a table tab[m] = w_n^m built on the host in
-// float64 from the exact integer m and staged in shared memory; a pass reads
-// w_L^(j*d) = tab[j*d*(n/L)] with j*d < L, so no index is ever reduced. The
-// sign of the transform is the table's; the fixed radix-8 constants below
-// are for the backward (+) sign, the only one the kernels using this header
-// need.
+// Every twiddle comes from a table built on the host in float64 from exact
+// integers and staged in shared memory: either tab[m] = w_n^m, read as
+// w_L^(j*d) = tab[j*d*(n/L)] with j*d < L, or the per-pass table of
+// fft_reg_pass_tw; no index is ever reduced. The sign of the transform is
+// the template parameter SIGN (+1 backward, -1 forward) of the fixed radix
+// constants, and the table must be built with the same sign.
 #pragma once
+
+#include <mutex>
 
 #include "dft_smem.cuh"
 
-// a * exp(+i*pi/4)
+// a * exp(SIGN*i*pi/4)
+template <int SIGN = 1>
 __device__ __forceinline__ float2 mul_w8_1(float2 a) {
   const float c = 0.70710678118654752f;
-  return make_float2(c * (a.x - a.y), c * (a.x + a.y));
+  return SIGN > 0 ? make_float2(c * (a.x - a.y), c * (a.x + a.y))
+                  : make_float2(c * (a.x + a.y), c * (a.y - a.x));
 }
 
-// a * exp(+i*pi/2)
-__device__ __forceinline__ float2 mul_w8_2(float2 a) { return make_float2(-a.y, a.x); }
+// a * exp(SIGN*i*pi/2)
+template <int SIGN = 1>
+__device__ __forceinline__ float2 mul_w8_2(float2 a) {
+  return SIGN > 0 ? make_float2(-a.y, a.x) : make_float2(a.y, -a.x);
+}
 
-// a * exp(+3i*pi/4)
+// a * exp(SIGN*3i*pi/4)
+template <int SIGN = 1>
 __device__ __forceinline__ float2 mul_w8_3(float2 a) {
   const float c = 0.70710678118654752f;
-  return make_float2(-c * (a.x + a.y), c * (a.x - a.y));
+  return SIGN > 0 ? make_float2(-c * (a.x + a.y), c * (a.x - a.y))
+                  : make_float2(c * (a.y - a.x), -c * (a.x + a.y));
 }
 
-// In-register DFT y[d] = sum_m v[m] * exp(+2*pi*i*m*d/RAD), natural order.
-template <int RAD>
-__device__ __forceinline__ void dft_reg(float2 (&v)[RAD]);
-
-template <>
-__device__ __forceinline__ void dft_reg<2>(float2 (&v)[2]) {
-  const float2 a = v[0];
-  v[0] = c_add(a, v[1]);
-  v[1] = c_sub(a, v[1]);
-}
-
+template <int SIGN = 1>
 __device__ __forceinline__ void dft4(float2& x0, float2& x1, float2& x2, float2& x3) {
   const float2 t0 = c_add(x0, x2), t1 = c_sub(x0, x2);
-  const float2 t2 = c_add(x1, x3), t3 = mul_w8_2(c_sub(x1, x3));
+  const float2 t2 = c_add(x1, x3), t3 = mul_w8_2<SIGN>(c_sub(x1, x3));
   x0 = c_add(t0, t2);
   x2 = c_sub(t0, t2);
   x1 = c_add(t1, t3);
   x3 = c_sub(t1, t3);
 }
 
-template <>
-__device__ __forceinline__ void dft_reg<4>(float2 (&v)[4]) {
-  dft4(v[0], v[1], v[2], v[3]);
-}
-
-// Radix 8 as two radix-4 DFTs (even and odd m) and one radix-2 layer:
-// y[d] = E[d] + w^d O[d], y[d+4] = E[d] - w^d O[d], d < 4.
-template <>
-__device__ __forceinline__ void dft_reg<8>(float2 (&v)[8]) {
-  float2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
-  float2 o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
-  dft4(e0, e1, e2, e3);
-  dft4(o0, o1, o2, o3);
-  o1 = mul_w8_1(o1);
-  o2 = mul_w8_2(o2);
-  o3 = mul_w8_3(o3);
-  v[0] = c_add(e0, o0);
-  v[4] = c_sub(e0, o0);
-  v[1] = c_add(e1, o1);
-  v[5] = c_sub(e1, o1);
-  v[2] = c_add(e2, o2);
-  v[6] = c_sub(e2, o2);
-  v[3] = c_add(e3, o3);
-  v[7] = c_sub(e3, o3);
+// In-register DFT y[d] = sum_m v[m] * exp(SIGN*2*pi*i*m*d/RAD), natural
+// order, RAD in {2, 4, 8}. Radix 8 runs as two radix-4 DFTs (even and odd
+// m) and one radix-2 layer: y[d] = E[d] + w^d O[d], y[d+4] = E[d] - w^d O[d].
+template <int RAD, int SIGN = 1>
+__device__ __forceinline__ void dft_reg(float2 (&v)[RAD]) {
+  static_assert(RAD == 2 || RAD == 4 || RAD == 8, "dft_reg: radix 2, 4 or 8");
+  if constexpr (RAD == 2) {
+    const float2 a = v[0];
+    v[0] = c_add(a, v[1]);
+    v[1] = c_sub(a, v[1]);
+  } else if constexpr (RAD == 4) {
+    dft4<SIGN>(v[0], v[1], v[2], v[3]);
+  } else {
+    float2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
+    float2 o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
+    dft4<SIGN>(e0, e1, e2, e3);
+    dft4<SIGN>(o0, o1, o2, o3);
+    o1 = mul_w8_1<SIGN>(o1);
+    o2 = mul_w8_2<SIGN>(o2);
+    o3 = mul_w8_3<SIGN>(o3);
+    v[0] = c_add(e0, o0);
+    v[4] = c_sub(e0, o0);
+    v[1] = c_add(e1, o1);
+    v[5] = c_sub(e1, o1);
+    v[2] = c_add(e2, o2);
+    v[6] = c_sub(e2, o2);
+    v[3] = c_add(e3, o3);
+    v[7] = c_sub(e3, o3);
+  }
 }
 
 // cos and sin of 2*pi*m/r for the odd and mixed radices the kernels use
@@ -116,14 +122,14 @@ __device__ __forceinline__ float root_sin(int r, int m) {
   }
 }
 
-// In-register R-point DFT (sign +) for any R <= 8: radices 2, 4 and 8 as
-// above; odd R by the symmetric form (pairs a, R-a share the cosine, their
-// difference the sine: about half the multiplies of the direct sum); R = 6
-// directly.
-template <int R>
+// In-register R-point DFT of sign SIGN for any R <= 8: radices 2, 4 and 8
+// as above; odd R by the symmetric form (pairs a, R-a share the cosine,
+// their difference the sine: about half the multiplies of the direct sum);
+// R = 6 directly.
+template <int R, int SIGN = 1>
 __device__ __forceinline__ void dft_radix(float2 (&v)[R]) {
   if constexpr (R == 2 || R == 4 || R == 8) {
-    dft_reg<R>(v);
+    dft_reg<R, SIGN>(v);
   } else if constexpr (R % 2 == 1) {
     constexpr int H = (R - 1) / 2;
     float2 s[H + 1], d[H + 1];
@@ -139,7 +145,7 @@ __device__ __forceinline__ void dft_radix(float2 (&v)[R]) {
       float2 re = v[0], im = make_float2(0.f, 0.f);
 #pragma unroll
       for (int a = 1; a <= H; ++a) {
-        const float c = root_cos(R, (a * k) % R), sn = root_sin(R, (a * k) % R);
+        const float c = root_cos(R, (a * k) % R), sn = SIGN * root_sin(R, (a * k) % R);
         re = make_float2(fmaf(s[a].x, c, re.x), fmaf(s[a].y, c, re.y));
         im = make_float2(fmaf(d[a].x, sn, im.x), fmaf(d[a].y, sn, im.y));
       }
@@ -156,7 +162,8 @@ __device__ __forceinline__ void dft_radix(float2 (&v)[R]) {
       for (int a = 1; a < R; ++a) {
         const int m = (a * k) % R;
         acc = c_add(acc, m == 0 ? v[a]
-                                : c_mul(v[a], make_float2(root_cos(R, m), root_sin(R, m))));
+                                : c_mul(v[a], make_float2(root_cos(R, m),
+                                                          SIGN * root_sin(R, m))));
       }
       y[k] = acc;
     }
@@ -175,13 +182,13 @@ __device__ __forceinline__ int fft_reg_phys(int p) {
 
 // One butterfly of a pass over the sub-row at `row`: points off + h*m ->
 // DFT -> times w^(j*d) = tab[j*d*tstep] -> points off + h*d.
-template <int RAD, bool PAD>
+template <int RAD, bool PAD, int SIGN = 1>
 __device__ __forceinline__ void fft_reg_butterfly(float2* row, int off, int h, int j,
                                                   const float2* tab, int tstep) {
   float2 v[RAD];
 #pragma unroll
   for (int m = 0; m < RAD; ++m) v[m] = row[fft_reg_phys<PAD>(off + m * h)];
-  dft_reg<RAD>(v);
+  dft_reg<RAD, SIGN>(v);
   if (j != 0) {
 #pragma unroll
     for (int d = 1; d < RAD; ++d) v[d] = c_mul(v[d], tab[j * d * tstep]);
@@ -190,19 +197,35 @@ __device__ __forceinline__ void fft_reg_butterfly(float2* row, int off, int h, i
   for (int d = 0; d < RAD; ++d) row[fft_reg_phys<PAD>(off + d * h)] = v[d];
 }
 
-// Radix of the last pass of a 2^LOGQ-point transform.
+// The passes of a 2^LOGQ-point transform: kPasses = ceil(LOGQ / 3), all of
+// radix 8 but the last, of radix kLast in {2, 4, 8}. Pass s < kPasses - 1
+// has span Q / 8^(s+1); the last has span 1, and its butterfly g holds the
+// outputs k = fft_reg_out_index<kDigits>(g, d), d < kLast.
 template <int LOGQ>
 struct FftRegPlan {
-  static_assert(LOGQ >= 7 && LOGQ <= 9, "fft_reg: 128 <= Q <= 512");
+  static_assert(LOGQ >= 7 && LOGQ <= 12, "fft_reg: 128 <= Q <= 4096");
   static constexpr int kQ = 1 << LOGQ;
-  static constexpr int kLast = kQ / 64;
+  static constexpr int kPasses = (LOGQ + 2) / 3;
+  static constexpr int kDigits = kPasses - 1;
+  static constexpr int kLast = kQ >> (3 * kDigits);
+  // entries of the per-pass twiddle table (fft_reg_pass_tw)
+  static constexpr int kTw = kQ - kLast;
 };
+
+// Offset of radix-8 pass s in the per-pass twiddle table: pass s (span H)
+// holds 7 rows d = 1..7 of H entries w_8H^(j*d), j < H, so that threads on
+// neighbouring j read neighbouring entries (host: ops/kernels
+// pass_twiddles). The spans before s sum to (Q - Q/8^s) / 7, so the table
+// holds Q - kLast entries.
+__device__ __forceinline__ int fft_reg_pass_tw(int q, int s) {
+  return q - (q >> (3 * s));
+}
 
 // One of the first two passes (radix 8, span H) over the sub-rows of Q
 // points at buf + lane*ld + sub*sub_ld, lane < LANES, sub < subs.
 // Butterflies are numbered lane-fastest, so neighbouring threads touch
 // neighbouring lanes at the same offset. Ends with __syncthreads().
-template <int Q, int H, int LANES, bool PAD>
+template <int Q, int H, int LANES, bool PAD, int SIGN = 1>
 __device__ __forceinline__ void fft_reg_pass8(float2* buf, int ld, int subs, int sub_ld,
                                               const float2* tab, int n_tab) {
   constexpr int kPer = Q / 8;
@@ -215,14 +238,64 @@ __device__ __forceinline__ void fft_reg_pass8(float2* buf, int ld, int subs, int
     const int sub = rest / kPer;
     const int g = u / H;
     const int j = u - g * H;
-    fft_reg_butterfly<8, PAD>(buf + lane * ld + sub * sub_ld, g * 8 * H + j, H, j, tab,
-                              tstep);
+    fft_reg_butterfly<8, PAD, SIGN>(buf + lane * ld + sub * sub_ld, g * 8 * H + j, H, j,
+                                    tab, tstep);
   }
   __syncthreads();
 }
 
-// Output index k of the last pass's butterfly g, register d (LOGQ-point
-// transform): k = d0 + 8*d1 + 64*d with g = 8*d0 + d1.
+// t with its NDIG base-8 digits reversed.
+template <int NDIG>
+__device__ __forceinline__ int fft_reg_rev8(int t) {
+  int r = 0;
+#pragma unroll
+  for (int i = 0; i < NDIG; ++i) {
+    r = (r << 3) | (t & 7);
+    t >>= 3;
+  }
+  return r;
+}
+
+// Output index k of the last pass's butterfly g, register d, of a transform
+// of NDIG + 1 passes: k = rev8(g) + 8^NDIG * d (three passes: k = d0 + 8*d1
+// + 64*d with g = 8*d0 + d1).
+template <int NDIG = 2>
 __device__ __forceinline__ int fft_reg_out_index(int g, int d) {
-  return (g >> 3) + 8 * (g & 7) + 64 * d;
+  return fft_reg_rev8<NDIG>(g) + (d << (3 * NDIG));
+}
+
+// Sets the shared-memory allowance of `kern` and returns how many of its
+// thread blocks of `threads` are resident on the current card at once, for
+// a persistent grid. Both queries cost tens of microseconds, so each
+// (kernel, device) is prepared once; a lock keeps the table whole when host
+// threads launch at the same time.
+static cudaError_t prepare_persistent(const void* kern, int threads, size_t smem,
+                                      int* slots) {
+  struct Prepared {
+    const void* kern;
+    int dev, slots;
+  };
+  static std::mutex mu;
+  static Prepared done[64];
+  static int n_done = 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_done; ++i) {
+    if (done[i].kern == kern && done[i].dev == dev) {
+      *slots = done[i].slots;
+      return cudaSuccess;
+    }
+  }
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
+  }
+  if (e != cudaSuccess) return e;
+  *slots = sms * (per_sm > 0 ? per_sm : 1);
+  if (n_done < 64) done[n_done++] = {kern, dev, *slots};
+  return cudaSuccess;
 }

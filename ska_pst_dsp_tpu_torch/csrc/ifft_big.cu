@@ -58,8 +58,6 @@
 //     (w_n2 for the inner kernel, w_n1 and the row tables for the outer);
 //     none is gathered from a table of N entries.
 // fp32 SIMT arithmetic throughout.
-#include <mutex>
-
 #include "fft_reg.cuh"
 
 // Tile shapes, the fastest measured on the H100 (PERF.md). 512 threads a
@@ -340,40 +338,6 @@ static size_t outer_smem(int r, int logq) {
   return (n1 + kRows * (n1 / kLanes + kLanes) + kRows * (n1 + 1)) * sizeof(float2);
 }
 
-// Sets the shared-memory allowance of `kern` and returns how many of its
-// thread blocks are resident on the current card at once. Both queries cost
-// tens of microseconds, so each (kernel, device) is prepared once; a lock
-// keeps the table whole when host threads launch at the same time.
-static cudaError_t prepare(const void* kern, size_t smem, int* slots) {
-  struct Prepared {
-    const void* kern;
-    int dev, slots;
-  };
-  static std::mutex mu;
-  static Prepared done[64];
-  static int n_done = 0;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < n_done; ++i) {
-    if (done[i].kern == kern && done[i].dev == dev) {
-      *slots = done[i].slots;
-      return cudaSuccess;
-    }
-  }
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
-  }
-  if (e != cudaSuccess) return e;
-  *slots = sms * (per_sm > 0 ? per_sm : 1);
-  if (n_done < 64) done[n_done++] = {kern, dev, *slots};
-  return cudaSuccess;
-}
-
 // X: complex64 with element strides (xsp, xsb) over (pol, block), bins
 // contiguous; elem: (n,) complex64 or null; A: (n_pol * n_blocks, n2, n1)
 // complex64; tw_n2: (n2,) exp(+2*pi*i*m/n2). n2 = r2 * 2^logq2. One
@@ -389,7 +353,8 @@ extern "C" int ifft_big_inner_launch(const void* X, const void* elem, void* A,
   }
   const size_t smem = inner_smem(r2, logq2);
   int slots = 0;
-  const cudaError_t e = prepare(reinterpret_cast<const void*>(inner), smem, &slots);
+  const cudaError_t e =
+      prepare_persistent(reinterpret_cast<const void*>(inner), kThreads, smem, &slots);
   if (e != cudaSuccess) return e;
   const int tiles = n_tr * (n1 / kCols);
   inner<<<tiles < slots ? tiles : slots, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -415,7 +380,8 @@ extern "C" int ifft_big_outer_launch(const void* A, void* out, const void* tw_n1
   }
   const size_t smem = outer_smem(r1, logq1);
   int slots = 0;
-  const cudaError_t e = prepare(reinterpret_cast<const void*>(outer), smem, &slots);
+  const cudaError_t e =
+      prepare_persistent(reinterpret_cast<const void*>(outer), kThreads, smem, &slots);
   if (e != cudaSuccess) return e;
   const int tiles = n_tr * (n2 / kRows);
   outer<<<tiles < slots ? tiles : slots, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

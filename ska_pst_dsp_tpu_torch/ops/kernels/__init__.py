@@ -15,7 +15,9 @@ goes up by one each time the kernel is launched:
 
 The sources live in ``ska_pst_dsp_tpu_torch/csrc/``; :mod:`._build` compiles
 them on first use. This module holds the host-side helpers the wrappers
-share.
+share: the radix split of the shared-memory DFT, and the plan and twiddle
+tables of the register passes (``csrc/fft_reg.cuh``) that the channel DFT,
+the frontend and the out-of-core epilogue run on.
 """
 
 from __future__ import annotations
@@ -29,9 +31,9 @@ import torch
 #: shared memory one thread block may use on the H100 (bytes)
 SMEM_LIMIT = 232_448
 
-#: odd factors the kernels are instantiated for (n = r * 2^k): the low
-#: path's DFT lengths are 256, 128 and 384 = 3 * 128; mid's are 4096, 512
-#: and 3584 = 7 * 512 (its 1,835,008-point IFFT is 7 * 2^18)
+#: odd factors the shared-memory DFT (csrc/dft_smem.cuh) accepts
+#: (n = r * 2^k); analysis_fused and ifft_fused, which run on it, are
+#: instantiated for r in {1, 3} (the low path's 256, 128 and 384 = 3 * 128)
 RADICES = (1, 3, 7)
 
 
@@ -57,6 +59,40 @@ def twiddle_table(n: int, sign: int) -> np.ndarray:
     return np.exp(sign * 2j * np.pi * m / n).astype(np.complex64)
 
 
+def reg_plan(q: int) -> Tuple[int, int]:
+    """(passes, last radix) of a q-point transform on csrc/fft_reg.cuh's
+    register passes (FftRegPlan): ceil(log2(q) / 3) passes, all of radix 8
+    but the last, of radix 2, 4 or 8. q = 2^k, 128 <= q <= 4096."""
+    logq = q.bit_length() - 1
+    if q != 1 << logq or not 7 <= logq <= 12:
+        raise ValueError(f"register-pass transforms take 2^7..2^12 points, got {q}")
+    passes = -(-logq // 3)
+    return passes, q >> (3 * (passes - 1))
+
+
+def pass_twiddles(q: int, sign: int) -> np.ndarray:
+    """The per-pass twiddle table of a q-point transform of sign ``sign`` on
+    the register passes (csrc/fft_reg.cuh fft_reg_pass_tw): for each radix-8
+    pass s but the last, of span h = q / 8^(s+1), 7 rows d = 1..7 of h
+    entries exp(sign * 2*pi*i*j*d/(8h)), j < h. complex64, each angle taken
+    in float64 from the exact integer j*d; q - (last radix) entries."""
+    passes, last = reg_plan(q)
+    parts = []
+    for s in range(passes - 1):
+        h = q >> (3 * (s + 1))
+        jd = np.arange(1, 8)[:, None] * np.arange(h)[None, :]
+        parts.append(np.exp(sign * 2j * np.pi * jd / (8 * h)).ravel())
+    out = np.concatenate(parts).astype(np.complex64)
+    assert out.size == q - last
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def device_pass_twiddles(q: int, sign: int, device: torch.device) -> torch.Tensor:
+    """:func:`pass_twiddles` on ``device``, built once per (q, sign, device)."""
+    return torch.as_tensor(pass_twiddles(q, sign), device=device)
+
+
 @functools.lru_cache(maxsize=None)
 def twiddles(n: int, sign: int, device: torch.device) -> torch.Tensor:
     """:func:`twiddle_table` on ``device``, built once per (n, sign, device)."""
@@ -73,6 +109,13 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
     return t.contiguous()
 
 
+#: the current stream's raw handle by device index, without building a
+#: torch.cuda.Stream (a few microseconds a call); None where torch lacks it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(t: torch.Tensor) -> int:
     """Handle of the current CUDA stream of t's device."""
+    if _raw_stream is not None:
+        return _raw_stream(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,10 +1,11 @@
 """Fused Golden-inversion frontend kernel and the epilogue dispatch.
 
 Counterpart of :mod:`ska_pst_dsp_tpu.ops.pallas.synthesis_fused`. The CUDA
-kernel (``csrc/synthesis_fused.cu``) reads each overlap-save frame of a
-tile of channels once, tapers it, runs the L-point FFT in shared memory
-and writes only the kept, derippled passband bins, already in assembled
-spectrum order (n_pol, n_blocks, n_chan, FN_width). Its plain version is
+kernel (``csrc/synthesis_fused.cu``) loads each overlap-save frame of a
+tile of 32 channels straight into registers, tapers it there, runs the
+L-point FFT as register radix-8 passes (``csrc/fft_reg.cuh``) and stores
+only the kept, derippled passband bins, already in assembled spectrum order
+(n_pol, n_blocks, n_chan, FN_width). Its plain version is
 :func:`ska_pst_dsp_tpu_torch.ops.synthesis.frontend`.
 
 The epilogue follows the JAX package's dispatch (synthesis_fused.py:419-427):
@@ -26,9 +27,13 @@ from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .. import cfft
 from ..synthesis import epilogue, frontend, synthesis_constants
-from . import _build, radix, require, stream_of, twiddles
+from . import _build, device_pass_twiddles, require, stream_of
 from .ifft_big import fused_big_ifft_oc, plan_big_ifft
 from .ifft_fused import fused_big_ifft, plan_ifft
+
+#: frame lengths L the frontend kernel is instantiated for, with log2 L
+#: (csrc/synthesis_fused.cu pick_kernel)
+LENGTHS = {128: 7, 256: 8, 512: 9}
 
 
 def synthesis_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
@@ -37,9 +42,14 @@ def synthesis_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     """(n_pol, n_dat, n_chan) complex64, any strides -> (n_pol, n_blocks,
     n_chan, FN_width). Output channel c reads input channel perm[c]
     (int32); kept bin j is raw DFT bin (kpos + j) mod L times dr[j]. A CPU
-    tensor runs the plain version; a CUDA tensor launches the kernel."""
+    tensor runs the plain version; a CUDA tensor launches the kernel, which
+    takes L in 128, 256 and 512 and raises ValueError for any other."""
     if x_tc.device.type == "cpu":
         return frontend(x_tc, t_taper, dr, perm, L, keep, kpos, n_blocks)
+    if L not in LENGTHS:
+        raise ValueError(
+            f"synthesis_fused takes L in {sorted(LENGTHS)} on the card, got {L}"
+        )
     if x_tc.device.type != "cuda":
         raise ValueError(f"synthesis_fused runs on cuda or cpu, not {x_tc.device}")
     dev = x_tc.device
@@ -57,16 +67,15 @@ def synthesis_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
             f"{n_blocks} overlap-save blocks of {L} at hop {keep} do not fit "
             f"in {n_dat} samples"
         )
-    r, q, logq = radix(L)
     out = torch.empty((n_pol, n_blocks, n_chan, fnw), dtype=torch.complex64,
                       device=dev)
-    tab = twiddles(L, -1, dev)
+    tab = device_pass_twiddles(L, -1, dev)
     sp, st, sc = x_tc.stride()
     with torch.cuda.device(dev):
         status = _build.library().synthesis_fused_launch(
             x_tc.data_ptr(), out.data_ptr(), t_taper.data_ptr(), dr.data_ptr(),
             perm.data_ptr(), tab.data_ptr(), sp, st, sc, n_pol, n_chan,
-            n_blocks, L, r, q, logq, keep, kpos, fnw, stream_of(x_tc),
+            n_blocks, L, LENGTHS[L], keep, kpos % L, fnw, stream_of(x_tc),
         )
     _build.check(status, "synthesis_fused")
     synthesis_fused.launches += 1

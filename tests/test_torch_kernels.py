@@ -7,11 +7,12 @@ synthesis and epilogue, 1e-5 * scale padded analysis, 1e-4 * scale
 out-of-core IFFT).
 
 The CUDA kernels cannot run here, so their decomposition is emulated in
-numpy: the same host tables (twiddle_table, ramp_table), the same index
-maps (strided loads, dft_rq_pos, the four-step t = k2 + n2*k1) and the
-same split of each DFT (radix r, then radix-2 DIF) as csrc/*.cu, checked
-against np.fft and the plain versions. An index bug then shows here before
-the card. Tests marked ``cuda`` compare each kernel with its plain version
+numpy: the same host tables (twiddle_table, pass_twiddles, ramp_table), the
+same index maps (strided loads, dft_rq_pos, the register passes' rev8
+outputs, the shared-memory swizzles, the four-step t = k2 + n2*k1) and the
+same split of each DFT (radix r, then radix-2 DIF in dft_smem.cuh or radix-8
+register passes in fft_reg.cuh) as csrc/*.cu, checked against np.fft and
+the plain versions. An index bug then shows here before the card. Tests marked ``cuda`` compare each kernel with its plain version
 on a card and skip without one; this module imports JAX only inside the
 tests that need it, so on a machine with a card and no JAX they run with
 ``python -m pytest --noconftest tests/test_torch_kernels.py -m cuda``.
@@ -29,7 +30,11 @@ from ska_pst_dsp_tpu_torch.ops.analysis import (
     _prep_filter, analysis_core, chan_dft_core, padded_chan_const, padded_fold,
     ramp_table,
 )
-from ska_pst_dsp_tpu_torch.ops.kernels import radix, twiddle_table
+from ska_pst_dsp_tpu_torch.ops.kernels import (
+    pass_twiddles, radix, reg_plan, twiddle_table,
+)
+from ska_pst_dsp_tpu_torch.ops.kernels import chan_dft_fused as cdf
+from ska_pst_dsp_tpu_torch.ops.kernels import synthesis_fused as tsf
 from ska_pst_dsp_tpu_torch.ops.kernels import analysis_padded_fused as apf
 from ska_pst_dsp_tpu_torch.ops.kernels import ifft_big as big
 from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import (
@@ -93,7 +98,7 @@ def _rel_err(got, ref):
 
 
 # ---------------------------------------------------------------------------
-# numpy emulation of csrc/dft_smem.cuh and the three kernels
+# numpy emulation of csrc/dft_smem.cuh, csrc/fft_reg.cuh and the kernels
 # ---------------------------------------------------------------------------
 
 def _bitrev(v, bits):
@@ -160,23 +165,6 @@ def emu_analysis(x, f2d, ramp, step, block0, k_tile):
     return out
 
 
-def emu_frontend(flat, strides, shape, taper, dr, perm, keep, kpos, n_blocks):
-    """synthesis_frontend_kernel: strided loads of a flat buffer."""
-    sp, st, sc = strides
-    n_pol, _, n_chan = shape
-    n_l = taper.size
-    t = np.arange(n_l)
-    j = np.arange(dr.size)
-    out = np.zeros((n_pol, n_blocks, n_chan, dr.size), np.complex64)
-    for p in range(n_pol):
-        for b in range(n_blocks):
-            idx = p * sp + (b * keep + t)[:, None] * st + perm[None, :] * sc
-            rows = (flat[idx] * taper[:, None]).T  # one row per channel
-            y = emu_dft_rq(rows, twiddle_table(n_l, -1), 1)
-            out[p, b] = y[:, _pos((kpos + j) % n_l, n_l)] * dr
-    return out
-
-
 def emu_epilogue(X, elem, n, n2, n1, lo, roll, gain, n_valid):
     """ifft_inner_kernel then ifft_outer_kernel through the A scratch."""
     tab = twiddle_table(n, 1)
@@ -228,22 +216,20 @@ def emu_padded_fold(x, f2d_rev, step):
     return out.reshape(n_pol, nblocks, block)
 
 
-def emu_chan_dft(g, const, block0, delay):
-    """chan_dft_kernel: per spectrum, the shared-memory DFT read through
-    dft_rq_pos, times its constant row, stored at row (k - delay) mod nb."""
-    n_pol, nb, block = g.shape
-    k = np.arange(nb)
-    y = emu_dft_rq(g.reshape(-1, block), twiddle_table(block, -1), 1)
-    y = y.reshape(n_pol, nb, block)[..., _pos(np.arange(block), block)]
-    out = np.empty_like(y)
-    out[:, (k - delay) % nb] = y * const[(k + block0) % const.shape[0]]
-    return out
-
-
-def _dft_matrix(rad):
-    """W[m, d] = exp(+2*pi*i*m*d/rad), complex64: the register radices."""
+def _dft_matrix(rad, sign=1):
+    """W[m, d] = exp(sign*2*pi*i*m*d/rad), complex64: the register radices."""
     m = np.arange(rad)
-    return twiddle_table(rad, 1)[(m[:, None] * m[None, :]) % rad]
+    return twiddle_table(rad, sign)[(m[:, None] * m[None, :]) % rad]
+
+
+def _rev8(t, ndig):
+    """t with its ndig base-8 digits reversed (csrc/fft_reg.cuh fft_reg_rev8)."""
+    t = np.asarray(t)
+    r = np.zeros_like(t)
+    for _ in range(ndig):
+        r = (r << 3) | (t & 7)
+        t = t >> 3
+    return r
 
 
 def emu_radix_step(v, tw, q):
@@ -256,26 +242,160 @@ def emu_radix_step(v, tw, q):
     return y * tw[a[:, None] * np.arange(q)[None, :]]
 
 
-def emu_fft_reg(rows, tab, n_tab):
-    """csrc/fft_reg.cuh on rows [..., Q]: radix-8 DIF passes of span Q/8 and
-    Q/64 in place, butterfly (g, j) reading x[g*L + m*h + j] and writing
-    output d times tab[j*d*(n_tab/L)], L = 8h; then the last radix-Q/64
-    pass, whose butterfly g holds output k = (g >> 3) + 8*(g & 7) + 64*d
-    in register d. Returns [..., Q] in natural order of k."""
+def emu_fft_reg(rows, tab, n_tab, sign=1):
+    """csrc/fft_reg.cuh on rows [..., Q], Q = 2^k up to 4096: radix-8 DIF
+    passes of span Q/8, Q/64, ... in place, butterfly (g, j) reading
+    x[g*L + m*h + j] and writing output d times tab[j*d*(n_tab/L)],
+    L = 8h; then the last pass of radix Q/8^(P-1), whose butterfly g holds
+    output k = rev8(g) + 8^(P-1)*d in register d. ``tab`` and the radix
+    constants have sign ``sign``. Returns [..., Q] in natural order of k."""
     q = rows.shape[-1]
+    passes, last = reg_plan(q)
     y = rows.astype(np.complex64)
-    for h in (q // 8, q // 64):
+    for s in range(passes - 1):
+        h = q >> (3 * (s + 1))
         v = y.reshape(*y.shape[:-1], q // (8 * h), 8, h)  # [g, m, j]
-        out = np.einsum("...gmj,md->...gdj", v, _dft_matrix(8))
+        out = np.einsum("...gmj,md->...gdj", v, _dft_matrix(8, sign))
         tw = tab[np.arange(8)[:, None] * np.arange(h)[None, :] * (n_tab // (8 * h))]
         y = (out * tw).reshape(y.shape)
-    last = q // 64
-    out = y.reshape(*y.shape[:-1], 64, last) @ _dft_matrix(last)  # [g, d]
-    g, d = np.arange(64)[:, None], np.arange(last)[None, :]
-    k = ((g >> 3) + 8 * (g & 7) + 64 * d).ravel()
+    span = q // last
+    out = y.reshape(*y.shape[:-1], span, last) @ _dft_matrix(last, sign)  # [g, d]
+    g, d = np.arange(span)[:, None], np.arange(last)[None, :]
+    k = (_rev8(g, passes - 1) + span * d).ravel()
     res = np.empty_like(y)
     res[..., k] = out.reshape(*y.shape[:-1], q)
     return res
+
+
+def _reg_passes(buf, phys, q, tab, first):
+    """The radix-8 passes s >= first of the new kernels on buf [..., Q]
+    (stored at phys(p)), twiddles from the per-pass table ``tab``
+    (csrc/fft_reg.cuh fft_reg_pass_tw), forward sign."""
+    passes, _ = reg_plan(q)
+    per = q // 8
+    u = np.arange(per)
+    for s in range(first, passes - 1):
+        h = q >> (3 * (s + 1))
+        grp, j = u // h, u % h
+        pos = (grp * 8 * h + j)[:, None] + h * np.arange(8)[None, :]  # [u, m]
+        w = buf[..., phys[pos]] @ _dft_matrix(8, -1)  # [..., u, d]
+        tw = tab[(q - (q >> (3 * s))) + (np.arange(1, 8)[None, :] - 1) * h + j[:, None]]
+        w[..., 1:] *= np.where(j[:, None] != 0, tw, np.complex64(1))
+        buf[..., phys[pos]] = w
+    return buf
+
+
+def _last_pass(buf, phys, q):
+    """The last pass: thread tq takes butterfly rev8(tq); returns [..., tq, d]
+    holding bin tq + (Q/r_last)*d."""
+    passes, last = reg_plan(q)
+    span = q // last
+    base = _rev8(np.arange(span), passes - 1) * last
+    return buf[..., phys[base[:, None] + np.arange(last)[None, :]]] @ _dft_matrix(last, -1)
+
+
+def chan_phys(logq):
+    """csrc/chan_dft_fused.cu chan_phys over [0, Q)."""
+    p = np.arange(1 << logq)
+    return p ^ (((p >> (logq - 3)) & 7) | (((p >> 6) & 1) << 3))
+
+
+def frontend_phys(logl):
+    """csrc/synthesis_fused.cu frontend_phys over [0, L)."""
+    p = np.arange(1 << logl)
+    a = (p >> (logl - 3)) & 7
+    last = reg_plan(1 << logl)[1]
+    sw = {8: a, 4: (a & 3) | ((a & 4) << 1), 2: (a & 1) | ((a & 6) << 1)}[last]
+    return p ^ sw
+
+
+def emu_chan_dft(g, const, block0, delay):
+    """chan_dft_kernel: tiles of 4096 / block spectra; r = 1 loads the first
+    radix-8 pass's points g[k, j + m*Q/8] straight into registers, r = 3
+    runs the radix-3 step first; the per-pass twiddle table; swizzled
+    shared-memory rows; the last pass stored from registers at channel
+    kr + r*(tq + SPAN*d), times the constant row (k + block0) % nu, to row
+    (k - delay) mod nb."""
+    n_pol, nb, block = g.shape
+    r, logq = cdf.kernel_split(block)
+    q = 1 << logq
+    per = q // 8
+    spec = cdf.POINTS // block
+    phys = chan_phys(logq)
+    assert np.array_equal(np.sort(phys), np.arange(q))
+    tab = pass_twiddles(q, -1)
+    n_spec = n_pol * nb
+    n_tiles = -(-n_spec // spec)
+    flat = np.zeros((n_tiles * spec, block), np.complex64)
+    flat[:n_spec] = g.reshape(n_spec, block)
+    flat = flat.reshape(n_tiles, spec, block)
+    buf = np.zeros((n_tiles, spec * r, q), np.complex64)
+    if r == 1:
+        j = np.arange(per)
+        v = flat[..., j[:, None] + per * np.arange(8)[None, :]] @ _dft_matrix(8, -1)
+        tw = tab[(np.arange(1, 8)[None, :] - 1) * per + j[:, None]]
+        v[..., 1:] *= np.where(j[:, None] != 0, tw, np.complex64(1))
+        buf[..., phys[j[:, None] + per * np.arange(8)[None, :]]] = v
+        first = 1
+    else:
+        beta = np.arange(q)
+        twn = twiddle_table(block, -1)
+        u = flat.reshape(n_tiles, spec, r, q).transpose(0, 1, 3, 2) @ _dft_matrix(r, -1)
+        u = u * twn[beta[:, None] * np.arange(r)[None, :]]  # [tile, si, beta, kr]
+        buf[..., phys] = u.transpose(0, 1, 3, 2).reshape(n_tiles, spec * r, q)
+        first = 0
+    buf = _reg_passes(buf, phys, q, tab, first)
+    w = _last_pass(buf, phys, q)  # [tile, row, tq, d]
+    span, last = w.shape[-2:]
+    kq = np.arange(span)[:, None] + span * np.arange(last)[None, :]
+    y = np.empty((n_tiles, spec, block), np.complex64)
+    rows = w.reshape(n_tiles, spec, r, span, last)
+    for kr in range(r):
+        y[..., kr + r * kq] = rows[:, :, kr]
+    y = y.reshape(-1, block)[:n_spec].reshape(n_pol, nb, block)
+    k = np.arange(nb)
+    out = np.full_like(y, np.nan)
+    out[:, (k - delay) % nb] = y * const[(k + block0 % const.shape[0]) % const.shape[0]]
+    return out
+
+
+def emu_frontend(flat, strides, shape, taper, dr, perm, keep, kpos, n_blocks):
+    """synthesis_frontend_kernel: tiles of one block b and 32 channels; the
+    first pass's samples loaded strided from a flat buffer (perm[c] once
+    per lane), tapered, radix-8 DFT and twiddle into swizzled rows of
+    L + 1 points; the middle radix-8 pass; the last pass on bins, storing
+    only j = (tq + SPAN*d - kpos) mod L < FN_width, times dr[j]."""
+    sp, st, sc = strides
+    n_pol, _, n_chan = shape
+    n_l, fnw = taper.size, dr.size
+    logl = tsf.LENGTHS[n_l]
+    per = n_l // 8
+    phys = frontend_phys(logl)
+    assert np.array_equal(np.sort(phys), np.arange(n_l))
+    tab = pass_twiddles(n_l, -1)
+    n_ct = -(-n_chan // 32)
+    c = np.arange(n_ct * 32)
+    pc = np.where(c < n_chan, perm[np.minimum(c, n_chan - 1)], 0)
+    j = np.arange(per)
+    t = j[:, None] + per * np.arange(8)[None, :]  # [j, m]
+    p, b = np.arange(n_pol), np.arange(n_blocks)
+    idx = (p[:, None, None, None, None] * sp
+           + (b[None, :, None, None, None] * keep + t[None, None, None]) * st
+           + pc[None, None, :, None, None] * sc)  # [p, b, c, j, m]
+    v = np.where((c < n_chan)[None, None, :, None, None], flat[idx], 0).astype(np.complex64)
+    v = (v * taper[t]) @ _dft_matrix(8, -1)
+    tw = tab[(np.arange(1, 8)[None, :] - 1) * per + j[:, None]]
+    v[..., 1:] *= np.where(j[:, None] != 0, tw, np.complex64(1))
+    buf = np.zeros((n_pol, n_blocks, n_ct * 32, n_l), np.complex64)
+    buf[..., phys[t]] = v
+    buf = _reg_passes(buf, phys, n_l, tab, 1)
+    w = _last_pass(buf, phys, n_l)  # [p, b, c, tq, d]
+    span, last = w.shape[-2:]
+    jj = (np.arange(span)[:, None] + span * np.arange(last)[None, :] - kpos) % n_l
+    kept = jj < fnw
+    out = np.full((n_pol, n_blocks, n_ct * 32, fnw), np.nan, np.complex64)
+    out[..., jj[kept]] = w[..., kept] * dr[jj[kept]]
+    return out[:, :, :n_chan]
 
 
 def emu_big_inner(w, n2, n1, tables):
@@ -371,19 +491,32 @@ class TestDecomposition:
                                 torch.as_tensor(ramp), step, block0).numpy()
             assert _rel_err(got, ref) < ANALYSIS_TOL
 
+    @pytest.mark.parametrize("n_l", [256, 512])
     @pytest.mark.parametrize("combine", [1, 16])
-    def test_frontend_emulation(self, filt, combine):
-        c = tsynth.synthesis_constants(N_CHAN, L, OS, OV, deripple_coeff=filt,
-                                       temporal_taper="tukey", combine=combine)
-        x = _noise((2, N_CHAN, 700), 11)  # channel-major: strides (C*T, 1, T)
-        n_blocks = GEOM.n_blocks(700)
-        got = emu_frontend(x.ravel(), (N_CHAN * 700, 1, 700), (2, 700, N_CHAN),
-                           c["t_taper"], c["dr"], c["perm"], GEOM.input_keep,
-                           KPOS, n_blocks)
+    @pytest.mark.parametrize("layout", ["channel_major", "time_major"])
+    def test_frontend_emulation(self, filt, n_l, combine, layout):
+        # 48 channels: a full tile of 32 and a ragged one
+        n_chan, n_dat = 48, 700
+        os_f = OS if n_l == 256 else Rational(8, 7)
+        ov = OV if n_l == 256 else 128
+        geom = geometry.SynthesisGeometry(n_chan, n_l, ov, os_f)
+        kpos = (n_l // 2 + geom.discard) % n_l
+        c = tsynth.synthesis_constants(n_chan, n_l, os_f, ov, temporal_taper="tukey",
+                                       combine=combine)
+        c["dr"] = np.linspace(0.5, 1.5, geom.fn_width).astype(np.float32)
+        n_blocks = geom.n_blocks(n_dat)
+        if layout == "channel_major":  # strides (C*T, 1, T)
+            x = _noise((2, n_chan, n_dat), 11)
+            strides, x_tc = (n_chan * n_dat, 1, n_dat), torch.as_tensor(x).transpose(1, 2)
+        else:  # strides (T*C, C, 1)
+            x = _noise((2, n_dat, n_chan), 11)
+            strides, x_tc = (n_dat * n_chan, n_chan, 1), torch.as_tensor(x)
+        got = emu_frontend(x.ravel(), strides, (2, n_dat, n_chan), c["t_taper"], c["dr"],
+                           c["perm"], geom.input_keep, kpos, n_blocks)
+        assert not np.isnan(got).any()  # every kept bin stored once
         ref = tsynth.frontend(
-            torch.as_tensor(x).transpose(1, 2), torch.as_tensor(c["t_taper"]),
-            torch.as_tensor(c["dr"]), torch.as_tensor(c["perm"]), L,
-            GEOM.input_keep, KPOS, n_blocks,
+            x_tc, torch.as_tensor(c["t_taper"]), torch.as_tensor(c["dr"]),
+            torch.as_tensor(c["perm"]), n_l, geom.input_keep, kpos, n_blocks,
         ).numpy()
         assert _rel_err(got, ref) < SYNTHESIS_TOL
 
@@ -417,14 +550,16 @@ class TestDecomposition:
         assert apf.fold_rows(4096, 3584) == (512, 8, 7)
         assert apf.smem_bytes(4096, 3584, 25) == 417 * 32 * 8 == 106_752
 
+    @pytest.mark.parametrize("block", [512, 1024, 3072, 4096])
     @pytest.mark.parametrize("block0,delay", [(0, 0), (5, 3), (3, 40)])
-    def test_chan_dft_emulation(self, block0, delay):
-        block, step = 1024, 896
+    def test_chan_dft_emulation(self, block, block0, delay):
+        step = block * 7 // 8
         const = padded_chan_const(block, step)
-        g = _noise((2, 37, block), 26)
-        got = emu_chan_dft(g, const, block0, delay)
+        g = _noise((2, 43, block), 26)  # 86 spectra: a ragged last tile below 4096
+        got = emu_chan_dft(g, const, block0, delay % 43)
+        assert not np.isnan(got).any()  # every output row written once
         ref = chan_dft_core(torch.as_tensor(g), torch.as_tensor(const), block0,
-                            delay).numpy()
+                            delay % 43).numpy()
         assert _rel_err(got, ref) < PADDED_TOL
 
     @pytest.mark.parametrize("pqn", [(7, 128, 128), (3, 512, 128)])
@@ -482,11 +617,101 @@ class TestDecomposition:
         assert np.abs(got - ref).max() <= 2 * ulp
         assert t["row_hi"].shape == (n2, n1 // 32) and t["row_lo"].shape == (n2, 32)
 
-    def test_fft_reg_matches_numpy(self):
-        for q in (128, 256, 512):
-            x = _noise((3, q), q)
-            got = emu_fft_reg(x, twiddle_table(q, 1), q)
-            assert _rel_err(got, np.fft.ifft(x) * q) < 2e-6
+    @pytest.mark.parametrize("q", [128, 256, 512, 1024, 2048, 4096])
+    @pytest.mark.parametrize("r", [1, 3, 7])
+    @pytest.mark.parametrize("sign", [-1, 1])
+    def test_fft_reg_matches_numpy(self, q, r, sign):
+        # the odd pre-step r (ifft_big inner, chan_dft at 3072), then the
+        # register passes of Q points: output k = kr + r*kq
+        n = r * q
+        x = _noise((2, n), q + r)
+        tab = twiddle_table(n, sign)
+        y = emu_radix_step(x.reshape(2, r, q), tab, q) if r > 1 else x.reshape(2, 1, q)
+        z = emu_fft_reg(y, tab, n, sign)  # [row, kr, kq]
+        got = z.transpose(0, 2, 1).reshape(2, n)
+        ref = np.fft.fft(x) if sign < 0 else np.fft.ifft(x) * n
+        assert _rel_err(got, ref) < 2e-6
+
+    @pytest.mark.parametrize("q", [128, 256, 512, 4096])
+    def test_pass_twiddles_exact(self, q):
+        # every entry the phase of the exact integer j*d, within 1 ulp of fp32
+        passes, last = reg_plan(q)
+        assert passes == -(-(q.bit_length() - 1) // 3) and last * 8 ** (passes - 1) == q
+        tab = pass_twiddles(q, -1)
+        ulp = float(np.spacing(np.float32(1)))
+        for s in range(passes - 1):
+            h = q >> (3 * (s + 1))
+            jd = np.arange(1, 8)[:, None] * np.arange(h)[None, :]
+            got = tab[q - (q >> (3 * s)):][: 7 * h].reshape(7, h)
+            assert np.abs(got - np.exp(-2j * np.pi * jd / (8 * h))).max() <= ulp
+        assert tab.size == q - last
+
+    @pytest.mark.parametrize("kernel,n", [("chan_dft", 4096), ("frontend", 128),
+                                          ("frontend", 256), ("frontend", 512)])
+    def test_swizzle_conflict_free(self, kernel, n):
+        # each pass's shared-memory accesses, per half-warp of 16 lanes (the
+        # unit of a 64-bit access), fall in 16 distinct eight-byte slots
+        logn = n.bit_length() - 1
+        passes, last = reg_plan(n)
+        span = n // last
+        lanes = np.arange(16)
+        if kernel == "chan_dft":  # the radix-8 passes: lanes on butterflies u
+            phys = chan_phys(logn)
+            per = n // 8
+            groups = [([(u // h) * 8 * h + u % h for u in u0 + lanes], h, 8)
+                      for s in range(passes - 1) for h in [n >> (3 * (s + 1))]
+                      for u0 in range(0, per, 16)]
+        else:  # the radix-8 passes: lanes on channels, rows of L + 1, one offset
+            phys = frontend_phys(logn)
+            assert len(set((lanes * (n + 1)) % 16)) == 16
+            groups = []
+        for t0 in range(0, span, 16):  # the last pass: lanes on tq, one row
+            groups.append((_rev8(t0 + lanes, passes - 1) * last, 1, last))
+        for pos, stride, rad in groups:
+            for m in range(rad):
+                slots = phys[np.asarray(pos) + stride * m] % 16
+                assert len(set(slots)) == 16, (kernel, n, stride, m)
+
+    def test_build_log_parse(self):
+        # registers and spills per kernel from ptxas -v, by source
+        from ska_pst_dsp_tpu_torch.ops.kernels import _build
+
+        log = """// source: chan_dft_fused.cu
+ptxas info    : Compiling entry function '_Z15chan_dft_kernelILi1ELi12EEvPK6float2PS0_' for 'sm_90a'
+ptxas info    : Function properties for _Z15chan_dft_kernelILi1ELi12EEvPK6float2PS0_
+    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 420 bytes cmem[0]
+// source: synthesis_fused.cu
+ptxas info    : Compiling entry function '_Z25synthesis_frontend_kernelILi9EEvPK6float2' for 'sm_90a'
+ptxas info    : Function properties for _Z25synthesis_frontend_kernelILi9EEvPK6float2
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 118 registers, used 1 barriers, 444 bytes cmem[0]
+"""
+        assert _build.parse_ptxas(log) == {
+            "chan_dft_fused": {"chan_dft_kernel<1,12>": {
+                "registers": 64, "spill_stores": 8, "spill_loads": 12}},
+            "synthesis_fused": {"synthesis_frontend_kernel<9>": {
+                "registers": 118, "spill_stores": 0, "spill_loads": 0}},
+        }
+
+    def test_wrappers_refuse_lengths(self):
+        # a length the kernels are not instantiated for raises before any
+        # launch (meta tensors: no data, no card)
+        meta = torch.device("meta")
+        for block in (256, 640, 6144, 8192):
+            g = torch.empty((2, 5, block), dtype=torch.complex64, device=meta)
+            with pytest.raises(ValueError, match="takes blocks"):
+                chan_dft_ramp(g, torch.empty((8, block), dtype=torch.complex64, device=meta))
+        g = torch.empty((2, 5, 4096), dtype=torch.complex64, device=meta)
+        with pytest.raises(ValueError, match="runs on cuda or cpu"):
+            chan_dft_ramp(g, torch.empty((8, 4096), dtype=torch.complex64, device=meta))
+        x = torch.empty((2, 4000, 64), dtype=torch.complex64, device=meta)
+        for n_l in (64, 384, 1024):
+            with pytest.raises(ValueError, match="takes L in"):
+                synthesis_fused(x, torch.empty(n_l), torch.empty(n_l // 2),
+                                torch.empty(64, dtype=torch.int32), n_l, n_l // 2, 0, 3)
+        assert sorted(cdf.BLOCKS) == [512, 1024, 2048, 3072, 4096]
+        assert sorted(tsf.LENGTHS) == [128, 256, 512]
 
     def test_kernel_split(self):
         assert big.kernel_split(3584) == (7, 9) and big.kernel_split(896) == (7, 7)
@@ -566,6 +791,58 @@ class TestPlainVsPallas:
                   combine=16, spectral_taper="tukey")
         ref = np.asarray(jax_synthesis_fused(x, L, OS, interpret=True, **kw))
         got = polyphase_synthesis_fused(x, L, OS, **kw).numpy()
+        assert _rel_err(got, ref) < SYNTHESIS_TOL
+
+    @pytest.mark.parametrize("block", [1024, 4096])
+    @pytest.mark.parametrize("block0,delay", [(0, 0), (3, 5)])
+    def test_chan_dft_emulation_vs_pallas(self, block, block0, delay):
+        # the Pallas channel DFT (tiles of KB spectra, the constant tiled to
+        # KB rows, no roll) in interpret mode against the emulated kernel
+        from ska_pst_dsp_tpu.ops.pallas.chan_dft_fused import KB
+        from ska_pst_dsp_tpu.ops.pallas.chan_dft_fused import chan_dft_ramp as jax_chan_dft
+
+        const = padded_chan_const(block, block * 7 // 8)
+        nu = const.shape[0]
+        g = _noise((2, 9, block), 39)
+        ct = const[(np.arange(KB) + block0) % nu]
+        jr, ji = jax_chan_dft(np.ascontiguousarray(g.real), np.ascontiguousarray(g.imag),
+                              np.ascontiguousarray(ct.real), np.ascontiguousarray(ct.imag),
+                              block=block, interpret=True)
+        ref = np.roll(np.asarray(jr) + 1j * np.asarray(ji), -delay, axis=1)
+        assert _rel_err(emu_chan_dft(g, const, block0, delay), ref) < PADDED_TOL
+
+    @pytest.mark.parametrize("n_l,combine,time_major", [(256, 1, True), (256, 16, False),
+                                                        (512, 1, False), (512, 16, True)])
+    def test_frontend_emulation_vs_pallas(self, n_l, combine, time_major, pallas):
+        # the emulated frontend kernel, then the plain epilogue, against the
+        # Pallas frontend + epilogue in interpret mode (32 channels)
+        jax_synthesis_fused = pallas[1].polyphase_synthesis_fused
+        n_chan = 32
+        os_f, ov = (OS, OV) if n_l == 256 else (Rational(8, 7), 128)
+        f = fir.design_pfb_fir_filter(n_chan, os_f, 12)
+        geom = geometry.SynthesisGeometry(n_chan, n_l, ov, os_f)
+        n_dat = 2 * ov + 2 * geom.input_keep + 40
+        kw = dict(input_overlap=ov, deripple_coeff=f, temporal_taper="tukey",
+                  combine=combine)
+        c = tsynth.synthesis_constants(n_chan, n_l, os_f, ov, deripple_coeff=f,
+                                       temporal_taper="tukey", combine=combine)
+        if time_major:
+            x = _noise((1, n_dat, n_chan), 40)
+            strides = (n_dat * n_chan, n_chan, 1)
+            pair = (np.ascontiguousarray(x.real), np.ascontiguousarray(x.imag))
+            jr, ji = jax_synthesis_fused(pair, n_l, os_f, interpret=True,
+                                         time_major_in=True, **kw)
+            ref = np.asarray(jr) + 1j * np.asarray(ji)
+        else:
+            x = _noise((1, n_chan, n_dat), 40)
+            strides = (n_chan * n_dat, 1, n_dat)
+            ref = np.asarray(jax_synthesis_fused(x, n_l, os_f, interpret=True, **kw))
+        nb = geom.n_blocks(n_dat)
+        fn = emu_frontend(x.ravel(), strides, (1, n_dat, n_chan), c["t_taper"], c["dr"],
+                          c["perm"], geom.input_keep, (n_l // 2 + geom.discard) % n_l, nb)
+        got = tsynth.epilogue(torch.as_tensor(fn.reshape(1, nb, -1)), None,
+                              geom.output_overlap, geom.fn_width // 2,
+                              os_f.de / os_f.nu, nb).reshape(1, 1, -1).numpy()
         assert _rel_err(got, ref) < SYNTHESIS_TOL
 
     @pytest.mark.parametrize("with_elem", [False, True])
@@ -658,6 +935,21 @@ class TestOnCard:
         ref = tsynth.frontend(x, *args, L, GEOM.input_keep, KPOS, nb)
         assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
 
+    def test_frontend_mid_length(self, cuda):
+        # L = 512 (the mid shape), time-major, 48 channels: a ragged tile
+        os_f, ov, n_chan = Rational(8, 7), 128, 48
+        geom = geometry.SynthesisGeometry(n_chan, 512, ov, os_f)
+        c = tsynth.synthesis_constants(n_chan, 512, os_f, ov, temporal_taper="tukey")
+        x = torch.as_tensor(_noise((2, 1500, n_chan), 41), device=cuda)
+        args = [torch.as_tensor(c[k], device=cuda) for k in ("t_taper", "dr", "perm")]
+        nb = geom.n_blocks(1500)
+        kpos = (256 + geom.discard) % 512
+        before = synthesis_fused.launches
+        got = synthesis_fused(x, *args, 512, geom.input_keep, kpos, nb)
+        assert synthesis_fused.launches == before + 1
+        ref = tsynth.frontend(x, *args, 512, geom.input_keep, kpos, nb)
+        assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
+
     @pytest.mark.parametrize("with_elem", [False, True])
     def test_epilogue(self, cuda, with_elem):
         X = torch.as_tensor(_noise((2, 3, N), 21), device=cuda)
@@ -678,9 +970,10 @@ class TestOnCard:
         ref = padded_fold(x, f2d_rev, step)
         assert _rel_err(got.cpu(), ref.cpu()) < PADDED_TOL
 
-    def test_chan_dft(self, cuda):
-        const = torch.as_tensor(padded_chan_const(1024, 896), device=cuda)
-        g = torch.as_tensor(_noise((2, 37, 1024), 32), device=cuda)
+    @pytest.mark.parametrize("block", [1024, 4096, 512, 2048, 3072])
+    def test_chan_dft(self, cuda, block):
+        const = torch.as_tensor(padded_chan_const(block, block * 7 // 8), device=cuda)
+        g = torch.as_tensor(_noise((2, 37, block), 32), device=cuda)
         before = chan_dft_ramp.launches
         got = chan_dft_ramp(g, const, 5, 14)
         assert chan_dft_ramp.launches == before + 1

@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Host time of each step of the port's channel-DFT and frontend wrappers on
+one CUDA card, at the SKA-Mid main path's shapes.
+
+    python3 tools/torch_host_overhead.py     # from the repository root
+
+Each step runs ``CALLS`` times in a row; the line gives its host time per
+call in microseconds (time.perf_counter, median of ``WINDOWS`` windows; the
+card is synchronized between windows, and a window queues at most ``CALLS``
+launches, far from the launch queue's depth). The steps are those of
+``chan_dft_ramp`` and ``synthesis_fused`` in the order they run, then each
+whole wrapper and the library call (torch.fft.fft) it is held against.
+"""
+
+from __future__ import annotations
+
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+CALLS, WINDOWS = 200, 5
+
+
+def host_us(torch, fn) -> float:
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            fn()
+        per.append((time.perf_counter() - t0) / CALLS * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(per)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_host_overhead: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from ska_pst_dsp_tpu_torch.entry import mid_round_trip
+    from ska_pst_dsp_tpu_torch.ops.kernels import (
+        _build, device_pass_twiddles, require, stream_of,
+    )
+    from ska_pst_dsp_tpu_torch.ops.kernels.chan_dft_fused import chan_dft_ramp
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import LENGTHS, synthesis_fused
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    model = mid_round_trip(dev)
+    g = torch.randn((2, 1280, 4096), dtype=torch.complex64, device=dev)
+    const = model.chan_const
+    lib = _build.library()
+    out = torch.empty_like(g)
+    tw = device_pass_twiddles(4096, -1, dev)
+    geom = model.geom
+    L, keep = geom.input_fft_length, geom.input_keep
+    kpos = (L // 2 + geom.discard) % L
+    nb = geom.n_blocks(g.shape[1])
+    fargs = (g, model.t_taper, model.dr, model.perm, L, keep, kpos, nb)
+    fout = torch.empty((2, nb, 4096, geom.fn_width), dtype=torch.complex64, device=dev)
+    ftw = device_pass_twiddles(L, -1, dev)
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    steps = {
+        "require (2 operands)": lambda: (require(g, "g", torch.complex64, dev),
+                                         require(const, "c", torch.complex64, dev)),
+        "torch.empty_like": lambda: torch.empty_like(g),
+        "device_pass_twiddles (cached)": lambda: device_pass_twiddles(4096, -1, dev),
+        "stream_of": lambda: stream_of(g),
+        "with torch.cuda.device": device_context,
+        "_build.library (cached)": _build.library,
+        "chan_dft_launch (ctypes, launch)": lambda: lib.chan_dft_launch(
+            g.data_ptr(), out.data_ptr(), tw.data_ptr(), tw.data_ptr(), const.data_ptr(),
+            2, 1280, 4096, 1, 12, const.shape[0], 0, 14, stream_of(g)),
+        "chan_dft_launch refused (ctypes only)": lambda: lib.chan_dft_launch(
+            g.data_ptr(), out.data_ptr(), tw.data_ptr(), tw.data_ptr(), const.data_ptr(),
+            2, 1280, 4096, 5, 12, const.shape[0], 0, 14, stream_of(g)),
+        "chan_dft_ramp (whole wrapper)": lambda: chan_dft_ramp(g, const, 0, 14),
+        "torch.fft.fft (2, 1280, 4096)": lambda: torch.fft.fft(g, dim=-1),
+        "synthesis_fused_launch (ctypes, launch)": lambda: lib.synthesis_fused_launch(
+            g.data_ptr(), fout.data_ptr(), model.t_taper.data_ptr(), model.dr.data_ptr(),
+            model.perm.data_ptr(), ftw.data_ptr(), *g.stride(), 2, 4096, nb, L,
+            LENGTHS[L], keep, kpos, geom.fn_width, stream_of(g)),
+        "synthesis_fused (whole wrapper)": lambda: synthesis_fused(*fargs),
+    }
+    with torch.cuda.device(dev):
+        for name, fn in steps.items():
+            print(f"[host] {name}: {host_us(torch, fn):.2f} us per call ({smi})", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
