@@ -13,8 +13,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shapes: max |err| / scale within 8e-6 (analysis) and
    1.2e-5 (frontend, epilogue with and without ``elem``), the tolerances of
-   tests/test_pallas.py; each kernel's time beside its plain version's; the
-   frontend also back to back and, from torch.profiler, on the device.
+   tests/test_pallas.py; each kernel's time beside its plain version's, back
+   to back and, from torch.profiler, on the device; the epilogue's resident
+   clusters, its ratio to torch.fft.ifft and to a yardstick, the ifft_big
+   pair run at the low shape (n2 = 1 * 128, n1 = 384).
 4. slice: 2 pol x 2^23 samples (bench.py's size) through
    ``PFBRoundTrip`` on the kernels: every launch counter rises, the output is
    finite and matches the plain chain on the card (1.2e-5 * scale) and, on a
@@ -23,7 +25,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
 5. purity: an integer-bin tone and an impulse through the kernels, scored
    with verify.util.DomainPerformance; max spurious <= -60 dB.
 6. dada: fine channels -> io.dada save/load -> fused inversion, equal to the
-   direct inversion.
+   direct inversion; then no fallback: one low forward with the plain
+   versions and ``torch.fft`` patched to raise.
 7. SKA-Mid (``mid_round_trip``: 4096 ch, OS 8/7, the 100353-tap
    zero-padded analysis, L=512 / overlap 128, 1,835,008-point epilogue) at
    bench.py's size, 2 pol x 4,587,520 samples:
@@ -31,8 +34,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
       tests/test_pallas.py:268), the frontend at mid shapes (1.2e-5), both
       out-of-core IFFT launches and their pair, with and without ``elem``
       (1e-4, tests/test_pallas.py:423), each against its plain version,
-      with both times; the channel DFT, the frontend and the pair also back
-      to back and, from torch.profiler, each launch's device time;
+      with both times; each kernel and the pair also back to back and, from
+      torch.profiler, each launch's device time;
    b. slice: one forward through the module: every mid launch counter
       rises, the output (2, 1, 4 * 917504) is finite and matches the plain
       chain (1.2e-5 * scale);
@@ -244,16 +247,43 @@ def frames_fft(torch, frame, x_tc, t_taper, perm, L, keep, nb):
 
 
 def more_times(torch, name, kern, lib, match, smi):
-    """The kernel and its library call back to back, and the kernel's
-    device time per call from torch.profiler; logged and returned."""
+    """The kernel and its library call (None where there is none) back to
+    back, and the kernel's device time per call from torch.profiler; logged
+    and returned."""
     out = {"back_to_back_ms": back_to_back_ms(torch, kern),
-           "library_back_to_back_ms": back_to_back_ms(torch, lib),
+           "library_back_to_back_ms": None if lib is None else back_to_back_ms(torch, lib),
            "device_ms": device_ms(torch, kern, match)}
+    lib_b2b = ("none" if lib is None else f"{out['library_back_to_back_ms']:.4f} ms")
     log("kernels", f"{name}: back to back {out['back_to_back_ms']:.4f} ms (library "
-        f"{out['library_back_to_back_ms']:.4f} ms); device time per call: "
+        f"{lib_b2b}); device time per call: "
         + (", ".join(f"{k} {v:.4f} ms" for k, v in out["device_ms"].items())
            or "not measured") + f" ({smi})")
     return out
+
+
+def no_fallback(torch, model, x, phase):
+    """One forward with the plain versions and torch.fft patched to raise:
+    the CUDA path never falls back."""
+    def boom(*args, **kwargs):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    plain = ("padded_fold", "chan_dft_core", "frontend", "epilogue",
+             "big_ifft_inner", "big_ifft_outer", "analysis_core")
+    with contextlib.ExitStack() as stack:
+        patched = 0
+        for mod_name, mod in list(sys.modules.items()):
+            if mod_name.startswith("ska_pst_dsp_tpu_torch"):
+                for name in plain:
+                    if hasattr(mod, name):
+                        stack.enter_context(mock.patch.object(mod, name, boom))
+                        patched += 1
+        for name in ("fft", "ifft", "fftn", "ifftn", "rfft", "irfft", "fft2", "ifft2"):
+            stack.enter_context(mock.patch.object(torch.fft, name, boom))
+        out = model(x)
+        torch.cuda.synchronize()
+    check(bool(torch.isfinite(torch.view_as_real(out)).all()), f"{phase}: no-fallback forward")
+    log(phase, f"forward completed with {patched} plain-version names and "
+        "torch.fft patched to raise")
 
 
 def main() -> int:
@@ -277,7 +307,10 @@ def main() -> int:
     from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import (
         analysis_fused, polyphase_analysis_fused,
     )
-    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import fused_big_ifft, plan_ifft
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import fused_big_ifft_oc
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import (
+        active_clusters, fused_big_ifft, plan_ifft,
+    )
     from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import (
         polyphase_synthesis_fused, synthesis_fused,
     )
@@ -332,6 +365,8 @@ def main() -> int:
            time_ms(torch, a_kernel), time_ms(torch, a_plain),
            bound(nbytes(x, model.f2d, model.ramp, chan),
                  n_spec * N_CHAN * (4 * phases + 6) + fft_flops(N_CHAN, n_spec)), None)
+    kernels[-1].update(more_times(torch, "analysis_fused", a_kernel, None,
+                                  "analysis_fused_kernel", smi))
 
     nb = g.n_blocks(chan.shape[1])
     kpos = (L // 2 + g.discard) % L
@@ -370,10 +405,36 @@ def main() -> int:
     compare("ifft_fused with elem", *results[0][:1], SYNTHESIS_TOL, *results[0][1:])
     worst = max((r[0] for r in results), key=lambda err: err[1])
     out_bytes = 2 * nb * (n - 2 * lo) * 8
+    lib_ms = time_ms(torch, lambda: torch.fft.ifft(flat, dim=-1))
     record("ifft_fused", "ifft_fused.py:268",
            worst, SYNTHESIS_TOL, *results[1][1:],
-           bound(nbytes(flat) + out_bytes, fft_flops(n, 2 * nb)),
-           time_ms(torch, lambda: torch.fft.ifft(flat, dim=-1)))
+           bound(nbytes(flat) + out_bytes, fft_flops(n, 2 * nb)), lib_ms)
+
+    def e_main():
+        return fused_big_ifft(flat, None, shape_key=(n, *plan, lo, roll, gain), n_valid=nb)
+
+    kernels[-1].update(more_times(torch, "ifft_fused", e_main,
+                                  lambda: torch.fft.ifft(flat, dim=-1),
+                                  "ifft_cluster_kernel", smi))
+    clusters = active_clusters(plan[1])
+    # yardstick: the mid path's two-launch ifft_big pair at the low shape, n2 = 1 * 128
+    pair_key = (n, 1, plan[0], plan[1], lo, roll, gain)
+
+    def pair_call():
+        return fused_big_ifft_oc(flat, None, shape_key=pair_key)
+
+    pair_err = rel_err(pair_call(), plain_synth.epilogue(flat, None, lo, roll, gain, nb))
+    check(pair_err[1] <= SYNTHESIS_TOL, f"ifft_big pair at the low shape {pair_err[1]:.3g}")
+    ms_main = kernels[-1]["ms"]
+    pair = {"ms": time_ms(torch, pair_call), "back_to_back_ms": back_to_back_ms(torch, pair_call),
+            "device_ms": device_ms(torch, pair_call, "ifft_big"), "max_rel_err": pair_err[1]}
+    kernels[-1].update({"active_clusters": clusters, "yardstick_ifft_big_pair": pair})
+    log("kernels", f"ifft_fused: {clusters} clusters of 4 resident on the card; "
+        f"{ms_main:.4f} ms one call = {ms_main / lib_ms:.2f}x torch.fft.ifft ({lib_ms:.4f} ms), "
+        f"{ms_main / pair['ms']:.2f}x the ifft_big pair at the low shape ({pair['ms']:.4f} ms; "
+        f"back to back {pair['back_to_back_ms']:.4f} ms; device "
+        + (", ".join(f"{k} {v:.4f} ms" for k, v in pair["device_ms"].items())
+           or "not measured") + f"; max|err|/scale {pair_err[1]:.3g}) ({smi})")
     del fn, flat
 
     # 4. the slice at full size through the module, then the oracle prefix
@@ -452,6 +513,9 @@ def main() -> int:
     log("dada", f"channels {tuple(loaded.shape)} via DADA, inverted: vs direct "
         f"max|err|/scale {derr[1]:.3g}")
 
+    # 6b. no fallback on the low path
+    no_fallback(torch, model, x, "fallback")
+
     # 7. SKA-Mid
     mid_entries, mid_front = run_mid(torch, dev, smi)
     next(k for k in kernels if k["name"] == "synthesis_fused").update(mid_front)
@@ -515,6 +579,9 @@ def run_mid(torch, dev, smi):
         time_ms(torch, lambda: padded_fold(*fold_args)),
         bound(nbytes(x, model.f2d_rev, fold), 4 * model.f2d_rev.shape[0] * fold.numel()),
         None))
+    entries[-1].update(more_times(torch, "analysis_padded_fused",
+                                  lambda: padded_fold_fused(*fold_args), None,
+                                  "padded_fold_kernel", smi))
     cargs = (fold, model.chan_const, 0, model.delay)
     chan = chan_dft_core(*cargs)
     block = fold.shape[-1]
@@ -600,7 +667,15 @@ def run_mid(torch, dev, smi):
     b2b = {"ifft_big pair": back_to_back_ms(torch, pair_call),
            "torch.fft.ifft": back_to_back_ms(torch, lambda: torch.fft.ifft(flat, dim=-1))}
     on_device = device_ms(torch, pair_call, "ifft_big")
-    del flat, elem, cols
+    a_main = ps.big_ifft_inner(flat, None, n2, n1).contiguous()
+    each = {"ifft_big_inner": more_times(torch, "ifft_big_inner",
+                                         lambda: ifft_big_inner(flat, None, n2, n1),
+                                         lambda: torch.fft.ifft(cols, dim=-2),
+                                         "ifft_big_inner", smi),
+            "ifft_big_outer": more_times(torch, "ifft_big_outer",
+                                         lambda: ifft_big_outer(a_main, lo, roll, gain), None,
+                                         "ifft_big_outer", smi)}
+    del flat, elem, cols, a_main
     pair_ms, pb, plib = times["ifft_big pair"][0], bounds["ifft_big pair"], library["ifft_big pair"]
     pair = {"ms": pair_ms, "plain_ms": times["ifft_big pair"][1], "bound_ms": pb[0],
             "library_ms": plib, "back_to_back_ms": b2b, "device_ms": on_device}
@@ -613,6 +688,7 @@ def run_mid(torch, dev, smi):
     for name, line in (("ifft_big_inner", 388), ("ifft_big_outer", 524)):
         entry = kernel_entry(name, "ifft_big", f"ifft_big.py:{line}", errs[name],
                              BIG_IFFT_TOL, *times[name], bounds[name], library[name])
+        entry.update(each[name])
         entry["pair"] = pair
         entries.append(entry)
 
@@ -679,27 +755,7 @@ def run_mid(torch, dev, smi):
     check(max(tone_db, imp_db) <= PURITY_DB, f"mid purity {max(tone_db, imp_db):.2f} dB")
 
     # e. no fallback: the plain versions and torch.fft raise during a forward
-    def boom(*args, **kwargs):
-        raise AssertionError("a plain version ran on the CUDA path")
-
-    plain = ("padded_fold", "chan_dft_core", "frontend", "epilogue",
-             "big_ifft_inner", "big_ifft_outer", "analysis_core")
-    with contextlib.ExitStack() as stack:
-        patched = 0
-        for mod_name, mod in list(sys.modules.items()):
-            if mod_name.startswith("ska_pst_dsp_tpu_torch"):
-                for name in plain:
-                    if hasattr(mod, name):
-                        stack.enter_context(mock.patch.object(mod, name, boom))
-                        patched += 1
-        for name in ("fft", "ifft", "fftn", "ifftn", "rfft", "irfft", "fft2", "ifft2"):
-            stack.enter_context(mock.patch.object(torch.fft, name, boom))
-        out = model(x)
-        torch.cuda.synchronize()
-    check(bool(torch.isfinite(torch.view_as_real(out)).all()), "no-fallback forward")
-    log("mid-fallback", f"forward completed with {patched} plain-version names and "
-        "torch.fft patched to raise")
-    del out
+    no_fallback(torch, model, x, "mid-fallback")
 
     # f. timing
     chain_timing(torch, model, x, "mid-timing", f"2 x {n_dat} samples", smi)

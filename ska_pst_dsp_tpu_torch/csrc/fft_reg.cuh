@@ -27,7 +27,7 @@
 
 #include <mutex>
 
-#include "dft_smem.cuh"
+#include "complex.cuh"
 
 // a * exp(SIGN*i*pi/4)
 template <int SIGN = 1>
@@ -89,6 +89,55 @@ __device__ __forceinline__ void dft_reg(float2 (&v)[RAD]) {
     v[6] = c_sub(e2, o2);
     v[3] = c_add(e3, o3);
     v[7] = c_sub(e3, o3);
+  }
+}
+
+// cos(2*pi*m/16); called with constants after unrolling, so it folds into
+// an immediate
+__device__ __forceinline__ float w16_cos(int m) {
+  switch (m & 15) {
+    case 0: return 1.f;
+    case 1: case 15: return 0.92387953251128674f;
+    case 2: case 14: return 0.70710678118654752f;
+    case 3: case 13: return 0.38268343236508977f;
+    case 4: case 12: return 0.f;
+    case 5: case 11: return -0.38268343236508977f;
+    case 6: case 10: return -0.70710678118654752f;
+    case 7: case 9: return -0.92387953251128674f;
+    default: return -1.f;
+  }
+}
+
+// a * exp(SIGN*2*pi*i*m/16) for a constant m
+template <int SIGN = 1>
+__device__ __forceinline__ float2 mul_w16(float2 a, int m) {
+  const float c = w16_cos(m), s = SIGN * w16_cos(m + 12);  // sin x = cos(x - pi/2)
+  return make_float2(a.x * c - a.y * s, a.x * s + a.y * c);
+}
+
+// In-register 16-point DFT y[k] = sum_m v[m] * exp(SIGN*2*pi*i*m*k/16),
+// natural order: radix-4 DFTs over m1 (m = 4*m1 + m2), the twiddle
+// w16^(m2*k1), radix-4 DFTs over m2 (k = k1 + 4*k2).
+template <int SIGN = 1>
+__device__ __forceinline__ void dft16(float2 (&v)[16]) {
+  float2 a[4][4];
+#pragma unroll
+  for (int m2 = 0; m2 < 4; ++m2) {
+    float2 t0 = v[m2], t1 = v[4 + m2], t2 = v[8 + m2], t3 = v[12 + m2];
+    dft4<SIGN>(t0, t1, t2, t3);
+    a[m2][0] = t0;
+    a[m2][1] = m2 == 0 ? t1 : mul_w16<SIGN>(t1, m2);
+    a[m2][2] = m2 == 0 ? t2 : mul_w16<SIGN>(t2, 2 * m2);
+    a[m2][3] = m2 == 0 ? t3 : mul_w16<SIGN>(t3, 3 * m2);
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {
+    float2 t0 = a[0][k1], t1 = a[1][k1], t2 = a[2][k1], t3 = a[3][k1];
+    dft4<SIGN>(t0, t1, t2, t3);
+    v[k1] = t0;
+    v[k1 + 4] = t1;
+    v[k1 + 8] = t2;
+    v[k1 + 12] = t3;
   }
 }
 
@@ -211,6 +260,21 @@ struct FftRegPlan {
   // entries of the per-pass twiddle table (fft_reg_pass_tw)
   static constexpr int kTw = kQ - kLast;
 };
+
+// Position of point p in a row of 2^LOGQ points whose radix-8 passes run
+// with lanes on rows and whose last pass runs with lanes on butterflies
+// rev8(tq) (a bijection on [0, 2^LOGQ)): the top three bits of p, which the
+// last pass's lanes vary together with bit log2(r_last), are XORed into the
+// other three of the low four bits, so a half-warp's 16 reads fall in 16
+// distinct eight-byte slots.
+template <int LOGQ>
+__device__ __forceinline__ int fft_reg_swizzle(int p) {
+  constexpr int kLast = FftRegPlan<LOGQ>::kLast;
+  const int a = (p >> (LOGQ - 3)) & 7;
+  if constexpr (kLast == 8) return p ^ a;
+  else if constexpr (kLast == 4) return p ^ ((a & 3) | ((a & 4) << 1));
+  else return p ^ ((a & 1) | ((a & 6) << 1));
+}
 
 // Offset of radix-8 pass s in the per-pass twiddle table: pass s (span H)
 // holds 7 rows d = 1..7 of H entries w_8H^(j*d), j < H, so that threads on

@@ -44,26 +44,13 @@
 //     only the FN_width kept bins j = (k - kpos) mod L, times dr[j], in
 //     (pol, block, chan, j) order: 256 contiguous bytes per warp. The L -
 //     FN_width discarded bins are never stored. An XOR swizzle of each row
-//     (frontend_phys) keeps these reads free of bank conflicts.
+//     (fft_reg_swizzle) keeps these reads free of bank conflicts.
 // Two shared-memory round trips per point (three passes); fp32 SIMT
 // arithmetic throughout.
 #include "fft_reg.cuh"
 
 constexpr int kThreads = 512;
 constexpr int kChan = 32;  // channels per tile
-
-// Position of point p in a channel's row (a bijection on [0, L)): the top
-// three bits of p, which the last pass's lanes vary together with bit
-// log2(r_last), are XORed into the other three of the low four bits, so a
-// half-warp's 16 reads fall in 16 distinct eight-byte slots.
-template <int LOGL>
-__device__ __forceinline__ int frontend_phys(int p) {
-  constexpr int kLast = FftRegPlan<LOGL>::kLast;
-  const int a = (p >> (LOGL - 3)) & 7;
-  if constexpr (kLast == 8) return p ^ a;
-  else if constexpr (kLast == 4) return p ^ ((a & 3) | ((a & 4) << 1));
-  else return p ^ ((a & 1) | ((a & 6) << 1));
-}
 
 // The first-pass samples of lane c (channel c0 + c) in the tile (pol, b,
 // c0): v[it][m] = x[pol, b*keep + j + m*L/8, perm[c0 + c]], j = warp +
@@ -149,7 +136,7 @@ synthesis_frontend_kernel(const float2* __restrict__ x, float2* __restrict__ out
         for (int d = 1; d < 8; ++d) v[it][d] = c_mul(v[it][d], tw[(d - 1) * PER + j]);
       }
 #pragma unroll
-      for (int d = 0; d < 8; ++d) row[frontend_phys<LOGL>(j + PER * d)] = v[it][d];
+      for (int d = 0; d < 8; ++d) row[fft_reg_swizzle<LOGL>(j + PER * d)] = v[it][d];
     }
     if (tile + gridDim.x < n_tiles) {
       frontend_load<LOGL, IT>(v, x, perm, sp, st, sc, n_chan, n_blocks, n_ct, keep,
@@ -169,14 +156,14 @@ synthesis_frontend_kernel(const float2* __restrict__ x, float2* __restrict__ out
         const int off = grp * 8 * H + j;
         float2 w[8];
 #pragma unroll
-        for (int m = 0; m < 8; ++m) w[m] = row[frontend_phys<LOGL>(off + H * m)];
+        for (int m = 0; m < 8; ++m) w[m] = row[fft_reg_swizzle<LOGL>(off + H * m)];
         dft_reg<8, -1>(w);
         if (j != 0) {
 #pragma unroll
           for (int d = 1; d < 8; ++d) w[d] = c_mul(w[d], tws[(d - 1) * H + j]);
         }
 #pragma unroll
-        for (int d = 0; d < 8; ++d) row[frontend_phys<LOGL>(off + H * d)] = w[d];
+        for (int d = 0; d < 8; ++d) row[fft_reg_swizzle<LOGL>(off + H * d)] = w[d];
       }
       __syncthreads();
     }
@@ -192,7 +179,7 @@ synthesis_frontend_kernel(const float2* __restrict__ x, float2* __restrict__ out
       const int base = fft_reg_rev8<ND>(tq) * RL;
       float2 w[RL];
 #pragma unroll
-      for (int m = 0; m < RL; ++m) w[m] = rc[frontend_phys<LOGL>(base + m)];
+      for (int m = 0; m < RL; ++m) w[m] = rc[fft_reg_swizzle<LOGL>(base + m)];
       dft_reg<RL, -1>(w);
       float2* oc = ob + static_cast<long long>(c) * fnw;
 #pragma unroll

@@ -8,16 +8,17 @@ goes up by one each time the kernel is launched:
 
 * :mod:`.analysis_fused`  — fold + DFT + derotation ramp;
 * :mod:`.synthesis_fused` — inversion frontend, and the epilogue dispatch;
-* :mod:`.ifft_fused`      — the inversion's backward-FFT epilogue;
+* :mod:`.ifft_fused`      — the inversion's backward-FFT epilogue, one
+  thread-block cluster per transform;
 * :mod:`.analysis_padded_fused` — the zero-padded (SKA-Mid) analysis fold;
 * :mod:`.chan_dft_fused`  — mid's channel DFT + derotation constant;
 * :mod:`.ifft_big`        — mid's out-of-core epilogue (two launches).
 
 The sources live in ``ska_pst_dsp_tpu_torch/csrc/``; :mod:`._build` compiles
 them on first use. This module holds the host-side helpers the wrappers
-share: the radix split of the shared-memory DFT, and the plan and twiddle
-tables of the register passes (``csrc/fft_reg.cuh``) that the channel DFT,
-the frontend and the out-of-core epilogue run on.
+share: the odd-factor split of a transform length, exact phase tables, and
+the plan and twiddle tables of the register passes (``csrc/fft_reg.cuh``)
+that every kernel but the padded fold runs on.
 """
 
 from __future__ import annotations
@@ -31,15 +32,15 @@ import torch
 #: shared memory one thread block may use on the H100 (bytes)
 SMEM_LIMIT = 232_448
 
-#: odd factors the shared-memory DFT (csrc/dft_smem.cuh) accepts
-#: (n = r * 2^k); analysis_fused and ifft_fused, which run on it, are
-#: instantiated for r in {1, 3} (the low path's 256, 128 and 384 = 3 * 128)
+#: odd factors of a transform length n = r * 2^k the port splits off:
+#: csrc/dft_smem.cuh's radix-r step takes all three, analysis_fused's is
+#: instantiated for r in {1, 3} (blocks 128 to 1024)
 RADICES = (1, 3, 7)
 
 
 def radix(n: int) -> Tuple[int, int, int]:
-    """(r, q, log2 q) with n = r * q, q = 2^log2q and r odd — the split of
-    the shared-memory DFT (csrc/dft_smem.cuh)."""
+    """(r, q, log2 q) with n = r * q, q = 2^log2q and r odd: the radix-r
+    step and the power-of-two transform of a kernel's DFT."""
     if n <= 0:
         raise ValueError(f"DFT length must be positive, got {n}")
     logq = (n & -n).bit_length() - 1
@@ -57,6 +58,12 @@ def twiddle_table(n: int, sign: int) -> np.ndarray:
     float64 from the exact integer m."""
     m = np.arange(n, dtype=np.float64)
     return np.exp(sign * 2j * np.pi * m / n).astype(np.complex64)
+
+
+def phase_table(idx, n: int, sign: int) -> np.ndarray:
+    """exp(sign * 2*pi*i*idx/n) as complex64 for integer ``idx`` of any
+    shape, the angle taken in float64 from the exact integer idx mod n."""
+    return np.exp(sign * 2j * np.pi * (np.asarray(idx, np.int64) % n) / n).astype(np.complex64)
 
 
 def reg_plan(q: int) -> Tuple[int, int]:

@@ -40,9 +40,10 @@ _F = ctypes.c_float
 
 #: argtypes of each C entry point, in csrc/ order.
 SIGNATURES = {
-    "analysis_fused_launch": [_P] * 5 + [_I, _L] + [_I] * 8 + [_L, _P],
+    "analysis_fused_launch": [_P] * 6 + [_I, _L] + [_I] * 9 + [_P],
     "synthesis_fused_launch": [_P] * 6 + [_L] * 3 + [_I] * 8 + [_P],
-    "ifft_fused_launch": [_P] * 5 + [_L] * 2 + [_I] * 14 + [_F, _P],
+    "ifft_fused_launch": [_P] * 9 + [_L] * 2 + [_I] * 6 + [_F, _P],
+    "ifft_fused_clusters": [_I, _P],
     "padded_fold_launch": [_P] * 3 + [_I, _L] + [_I] * 6 + [_P],
     "chan_dft_launch": [_P] * 5 + [_I] * 8 + [_P],
     "ifft_big_inner_launch": [_P] * 4 + [_L] * 2 + [_I] * 6 + [_P],

@@ -1,16 +1,23 @@
 """Fused analysis PFB kernel: fold + DFT + derotation ramp in one launch.
 
 Counterpart of :mod:`ska_pst_dsp_tpu.ops.pallas.analysis_fused`. The CUDA
-kernel (``csrc/analysis_fused.cu``) stages the input span of K consecutive
-spectra in shared memory, folds, FFTs and derotates them there, and writes
-the time-major (n_pol, nblocks, block) spectra once. Its plain version is
+kernel (``csrc/analysis_fused.cu``) walks over tiles of
+:func:`tile_spectra` consecutive spectra with one persistent thread block
+per SM. Each tile's input span arrives by asynchronous bulk copies into a
+ring of two shared-memory buffers (the next span loads while the current
+one is folded and transformed), the fold replaces the span by the folded
+rows, the DFT runs as register radix-8 passes (``csrc/fft_reg.cuh``), and
+the last pass writes the time-major (n_pol, nblocks, block) spectra once,
+in channel order, times the ramp. The low geometry (block 256, 13 phases,
+hop 192) has its own fold, which reads each staged sample once per residue
+class of the hop. Its plain version is
 :func:`ska_pst_dsp_tpu_torch.ops.analysis.analysis_core`.
 
-The TPU kernel's Mosaic-only rules (``block % 128 == 0``, staged shifted
-copies of the input, block0 a multiple of nu) are not carried over. Its
-``keep_padding`` handoff hands the synthesis a tail-padded stream plus the
-valid row count; this kernel writes exactly ``nblocks`` rows, so the
-handoff is the stream itself plus ``nblocks``.
+The TPU kernel's Mosaic-only rules (staged shifted copies of the input,
+block0 a multiple of nu) are not carried over. Its ``keep_padding``
+handoff hands the synthesis a tail-padded stream plus the valid row count;
+this kernel writes exactly ``nblocks`` rows, so the handoff is the stream
+itself plus ``nblocks``.
 """
 
 from __future__ import annotations
@@ -22,17 +29,44 @@ from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .. import cfft
 from ..analysis import _prep_filter, analysis_core, ramp_table, stream
-from . import SMEM_LIMIT, _build, radix, require, stream_of, twiddles
+from . import (
+    SMEM_LIMIT, _build, device_pass_twiddles, radix, reg_plan, require, stream_of,
+    twiddles,
+)
 
-#: consecutive spectra per thread block (csrc/analysis_fused.cu K)
-K_TILE = 32
+#: blocks (channel counts) the kernel takes on the card: r * 2^k with r in
+#: {1, 3}, 128 to 1024 (csrc/analysis_fused.cu pick_kernel)
+BLOCKS = (128, 256, 384, 512, 768, 1024)
+#: shared-memory header (barriers, buffer offsets, row offsets), and the
+#: largest ramp staged in shared memory, in bytes
+HEADER, RAMP_STAGE = 160, 16384
 
 
-def smem_bytes(block: int, step: int, phases: int) -> int:
-    """Shared memory of one thread block: the staged input span of K_TILE
-    spectra, whose storage the folded rows reuse."""
-    span = (K_TILE - 1) * step + phases * block
-    return max(span, K_TILE * block) * 8
+def tile_spectra(block: int) -> int:
+    """Consecutive spectra per tile (csrc/analysis_fused.cu tile_spectra)."""
+    return 32 if block <= 256 else 16 if block <= 512 else 8
+
+
+def smem_bytes(block: int, step: int, phases: int, period: int, stages: int = 2) -> int:
+    """Shared memory of one thread block with ``stages`` span buffers: the
+    header; each buffer holds a tile's span plus one sample (a copy that
+    starts one sample early) or its folded sub-rows of q + 1 points,
+    whichever is larger; the pass table, w_block for r = 3, and the ramp
+    where it is at most RAMP_STAGE bytes."""
+    r, q, _ = radix(block)
+    k = tile_spectra(block)
+    span = (k - 1) * step + phases * block + 1
+    f2 = (max(span, k * r * (q + 1)) + 1) // 2 * 2
+    ramp = period * block * 8
+    return (HEADER + (stages * f2 + q - reg_plan(q)[1] + (block if r > 1 else 0)) * 8
+            + (ramp if ramp <= RAMP_STAGE else 0))
+
+
+def span_stages(block: int, step: int, phases: int, period: int) -> int:
+    """Span buffers the kernel runs with: 2 where they fit in shared memory,
+    else 1, else 0 (the geometry does not fit)."""
+    return next((s for s in (2, 1) if smem_bytes(block, step, phases, period, s)
+                 <= SMEM_LIMIT), 0)
 
 
 def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
@@ -41,9 +75,13 @@ def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
 
     f2d: (phases, block) float32 polyphase filter; ramp: (period, block)
     complex64 derotation table (:func:`..analysis.ramp_table`). A CPU
-    tensor runs the plain version; a CUDA tensor launches the kernel."""
+    tensor runs the plain version; a CUDA tensor launches the kernel, which
+    takes the blocks in :data:`BLOCKS` and raises ValueError for any other."""
     if x.device.type == "cpu":
         return analysis_core(x, f2d, ramp, step, block0)
+    phases, block = f2d.shape
+    if block not in BLOCKS:
+        raise ValueError(f"analysis_fused takes blocks {BLOCKS} on the card, got {block}")
     if x.device.type != "cuda":
         raise ValueError(f"analysis_fused runs on cuda or cpu, not {x.device}")
     dev = x.device
@@ -52,14 +90,12 @@ def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
     ramp = require(ramp, "ramp", torch.complex64, dev)
     if x.ndim != 2:
         raise ValueError(f"x must be (n_pol, n_dat), got {tuple(x.shape)}")
-    phases, block = f2d.shape
-    if block > 1024:
-        raise ValueError(f"analysis_fused takes block <= 1024, got {block}")
     if ramp.ndim != 2 or ramp.shape[1] != block:
         raise ValueError(f"ramp must be (period, {block}), got {tuple(ramp.shape)}")
     if block0 < 0:
         raise ValueError(f"block0 must be >= 0, got {block0}")
-    if smem_bytes(block, step, phases) > SMEM_LIMIT:
+    period = ramp.shape[0]
+    if not span_stages(block, step, phases, period):
         raise ValueError(
             f"analysis span of {phases} phases x {block} at step {step} does "
             "not fit in shared memory"
@@ -71,13 +107,16 @@ def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
         raise ValueError(
             f"input stream too short: {n_dat} samples yield {nblocks} spectra"
         )
+    if x.data_ptr() % 16:  # the bulk copies start on 16 bytes
+        x = x.clone()
     out = torch.empty((n_pol, nblocks, block), dtype=torch.complex64, device=dev)
-    tab = twiddles(block, -1, dev)
+    tw_pass = device_pass_twiddles(q, -1, dev)
+    tw_n = twiddles(block, -1, dev) if r > 1 else tw_pass
     with torch.cuda.device(dev):
         status = _build.library().analysis_fused_launch(
-            x.data_ptr(), out.data_ptr(), f2d.data_ptr(), tab.data_ptr(),
-            ramp.data_ptr(), n_pol, n_dat, nblocks, block, r, q, logq, step,
-            phases, ramp.shape[0], block0, stream_of(x),
+            x.data_ptr(), out.data_ptr(), f2d.data_ptr(), tw_pass.data_ptr(),
+            tw_n.data_ptr(), ramp.data_ptr(), n_pol, n_dat, nblocks, block, r, logq,
+            step, phases, period, block0 % period, SMEM_LIMIT, stream_of(x),
         )
     _build.check(status, "analysis_fused")
     analysis_fused.launches += 1

@@ -32,7 +32,7 @@ import torch
 
 from .. import cfft
 from ..synthesis import big_ifft_inner, big_ifft_outer, epilogue
-from . import _build, require, stream_of, twiddle_table
+from . import _build, phase_table, require, stream_of, twiddle_table
 
 #: largest outer transform of the split (the JAX package's cfft.BASE)
 _BASE = 512
@@ -86,12 +86,6 @@ def kernel_split(n: int, splits=INNER_SPLITS) -> Tuple[int, int]:
     return r, logq
 
 
-def _phase(idx: np.ndarray, n: int, sign: int) -> np.ndarray:
-    """exp(sign * 2*pi*i*idx/n) as complex64, the angle taken in float64 from
-    the exact integer idx mod n."""
-    return np.exp(sign * 2j * np.pi * (np.asarray(idx, np.int64) % n) / n).astype(np.complex64)
-
-
 def big_ifft_tables(n: int, n2: int, n1: int, roll: int) -> Dict[str, np.ndarray]:
     """The kernels' host tables, complex64, each built in float64 from exact
     integers: ``tw_n2``, ``tw_n1`` (w_n2^m, w_n1^m); ``row_hi``, ``row_lo``
@@ -103,10 +97,10 @@ def big_ifft_tables(n: int, n2: int, n1: int, roll: int) -> Dict[str, np.ndarray
     return {
         "tw_n2": twiddle_table(n2, 1),
         "tw_n1": twiddle_table(n1, 1),
-        "row_hi": _phase(k2 * (LANES * np.arange(n1 // LANES)), n, 1),
-        "row_lo": _phase(k2 * np.arange(LANES), n, 1),
-        "roll_row": _phase(roll * np.arange(n2), n, -1),
-        "roll_col": _phase(roll * n2 * np.arange(n1), n, -1),
+        "row_hi": phase_table(k2 * (LANES * np.arange(n1 // LANES)), n, 1),
+        "row_lo": phase_table(k2 * np.arange(LANES), n, 1),
+        "roll_row": phase_table(roll * np.arange(n2), n, -1),
+        "roll_col": phase_table(roll * n2 * np.arange(n1), n, -1),
     }
 
 

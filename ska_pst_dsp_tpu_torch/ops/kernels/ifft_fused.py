@@ -6,21 +6,35 @@ Counterpart of :mod:`ska_pst_dsp_tpu.ops.pallas.ifft_fused`:
 
 per assembled block, with ``elem`` (spectral taper x filter) pre-rolled by
 +roll. The CUDA kernel (``csrc/ifft_fused.cu``) runs the four-step split
-N = n2 * n1 as two launches through device memory (a 49152-point block
-does not fit in one thread block's shared memory) and computes only the
-kept output rows. Its plain version is
-:func:`ska_pst_dsp_tpu_torch.ops.synthesis.epilogue`.
+N = n2 * n1 = 128 * n1 of each block in one launch, on a cluster of four
+thread blocks that hold the block in their shared memory together and
+exchange it there (block c: columns [c*n1/4, (c+1)*n1/4), rows k2
+[32c, 32c + 32)); nothing passes through device memory between the steps,
+and only the kept output samples are computed. Its plain version is
+:func:`ska_pst_dsp_tpu_torch.ops.synthesis.epilogue`; its host tables come
+from :func:`cluster_tables`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import cfft
 from ..synthesis import epilogue
-from . import _build, radix, require, stream_of, twiddles
+from . import _build, pass_twiddles, phase_table, require, stream_of, twiddle_table
+
+#: thread blocks of a cluster, and the column transform length n2 the
+#: kernel takes (csrc/ifft_fused.cu kCluster, kN2)
+CLUSTER, N2 = 4, 128
+#: row transform lengths n1 the kernel is instantiated for
+N1S = (128, 384)
+#: the N-level twiddle w_N^(m1*k2) = tw_a[k2 // 16, m1] * tw_b[k2 % 16, m1]
+TW_SPLIT = 16
 
 
 def plan_ifft(n: int, lo: int) -> Optional[Tuple[int, int]]:
@@ -45,6 +59,41 @@ def plan_ifft(n: int, lo: int) -> Optional[Tuple[int, int]]:
     return None
 
 
+def cluster_tables(n: int, n1: int, roll: int) -> Dict[str, np.ndarray]:
+    """The kernel's host tables, complex64, each built in float64 from exact
+    integers: ``tw_pass`` (the per-pass table of the 128-point backward
+    transform), ``tw_n1`` (w_n1^m); ``tw_a``, ``tw_b`` ((8, n1)
+    w_N^(16*a*m1) and (16, n1) w_N^(b*m1): the N-level twiddle of
+    k2 = 16*a + b is their product); ``roll_row``, ``roll_col``
+    (w_N^(-roll*k2), w_N^(-roll*128*k1): the roll phase w_N^(-roll*t) of
+    t = k2 + 128*k1 is their product)."""
+    m1 = np.arange(n1, dtype=np.int64)[None, :]
+    return {
+        "tw_pass": pass_twiddles(N2, 1),
+        "tw_n1": twiddle_table(n1, 1),
+        "tw_a": phase_table(TW_SPLIT * np.arange(N2 // TW_SPLIT)[:, None] * m1, n, 1),
+        "tw_b": phase_table(np.arange(TW_SPLIT)[:, None] * m1, n, 1),
+        "roll_row": phase_table(roll * np.arange(N2), n, -1),
+        "roll_col": phase_table(roll * N2 * np.arange(n1), n, -1),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(n: int, n1: int, roll: int,
+                   device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device)
+            for k, v in cluster_tables(n, n1, roll).items()}
+
+
+def active_clusters(n1: int = 384) -> int:
+    """Clusters of the n1-point kernel resident on the current card at once
+    (the persistent grid's size)."""
+    clusters = ctypes.c_int(0)
+    _build.check(_build.library().ifft_fused_clusters(n1, ctypes.byref(clusters)),
+                 "ifft_fused_clusters")
+    return clusters.value
+
+
 def fused_big_ifft(flat, elem=None, *, shape_key, n_valid: Optional[int] = None):
     """Fused IFFT(roll(X * elem, -roll)) * gain, keeping [lo, N-lo).
 
@@ -53,7 +102,8 @@ def fused_big_ifft(flat, elem=None, *, shape_key, n_valid: Optional[int] = None)
     shape_key: (n, n2, n1, lo, roll, gain) with n == n2 * n1. Returns
     (n_pol, n_valid, N - 2*lo); blocks past ``n_valid`` (default all) are
     never computed. A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel."""
+    launches the kernel, which takes n2 = 128 and n1 in :data:`N1S` and
+    raises ValueError for any other split."""
     n, n2, n1, lo, roll, gain = shape_key
     x, pair = cfft.as_complex(flat)
     e = None if elem is None else cfft.as_complex(elem)[0]
@@ -61,6 +111,9 @@ def fused_big_ifft(flat, elem=None, *, shape_key, n_valid: Optional[int] = None)
         n_valid = x.shape[1]
     if x.device.type == "cpu":
         return cfft.same_kind(epilogue(x, e, lo, roll, gain, n_valid), pair)
+    if n2 != N2 or n1 not in N1S:
+        raise ValueError(f"the cluster epilogue takes n2 = {N2} and n1 in {N1S}, "
+                         f"got ({n2}, {n1})")
     if x.device.type != "cuda":
         raise ValueError(f"fused_big_ifft runs on cuda or cpu, not {x.device}")
     dev = x.device
@@ -72,25 +125,23 @@ def fused_big_ifft(flat, elem=None, *, shape_key, n_valid: Optional[int] = None)
         raise ValueError(f"n_valid={n_valid} outside [1, {x.shape[1]}]")
     if lo % n2 or (n - 2 * lo) <= 0 or (n - 2 * lo) % n2:
         raise ValueError(f"keep region [{lo}, {n - lo}) is not whole n2={n2} rows")
-    if x.stride(2) != 1:
-        x = x.contiguous()
+    # the bulk copies read 16-byte-aligned rows
+    if x.stride(2) != 1 or x.stride(0) % 2 or x.stride(1) % 2 or x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
     if e is not None:
         e = require(e, "elem", torch.complex64, dev)
         if e.shape != (n,):
             raise ValueError(f"elem must be ({n},), got {tuple(e.shape)}")
-    r2, q2, logq2 = radix(n2)
-    r1, q1, logq1 = radix(n1)
     n_pol = x.shape[0]
-    scratch = torch.empty((n_pol, n_valid, n), dtype=torch.complex64, device=dev)
     out = torch.empty((n_pol, n_valid, n - 2 * lo), dtype=torch.complex64, device=dev)
-    tab = twiddles(n, 1, dev)
+    tab = _device_tables(n, n1, roll % n, dev)
     with torch.cuda.device(dev):
         status = _build.library().ifft_fused_launch(
-            x.data_ptr(), None if e is None else e.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), tab.data_ptr(),
-            x.stride(0), x.stride(1), n_pol, n_valid, n, n2, r2, q2, logq2,
-            n1, r1, q1, logq1, lo // n2, (n - 2 * lo) // n2, roll % n,
-            gain / n, stream_of(x),
+            x.data_ptr(), None if e is None else e.data_ptr(), out.data_ptr(),
+            *(tab[k].data_ptr() for k in ("tw_pass", "tw_n1", "tw_a", "tw_b",
+                                           "roll_row", "roll_col")),
+            x.stride(0), x.stride(1), n_pol, n_valid, n2, n1, lo // n2,
+            (n - 2 * lo) // n2, gain / n, stream_of(x),
         )
     _build.check(status, "fused_big_ifft")
     fused_big_ifft.launches += 1

@@ -18,6 +18,8 @@ tests that need it, so on a machine with a card and no JAX they run with
 ``python -m pytest --noconftest tests/test_torch_kernels.py -m cuda``.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -37,8 +39,10 @@ from ska_pst_dsp_tpu_torch.ops.kernels import chan_dft_fused as cdf
 from ska_pst_dsp_tpu_torch.ops.kernels import synthesis_fused as tsf
 from ska_pst_dsp_tpu_torch.ops.kernels import analysis_padded_fused as apf
 from ska_pst_dsp_tpu_torch.ops.kernels import ifft_big as big
+from ska_pst_dsp_tpu_torch.ops.kernels import analysis_fused as af
+from ska_pst_dsp_tpu_torch.ops.kernels import ifft_fused as itf
 from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import (
-    K_TILE, analysis_fused, polyphase_analysis_fused, smem_bytes,
+    analysis_fused, polyphase_analysis_fused,
 )
 from ska_pst_dsp_tpu_torch.ops.kernels.chan_dft_fused import chan_dft_ramp
 from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import (
@@ -140,53 +144,6 @@ def emu_dft_rq(x, tab, tstride):
     return y
 
 
-def emu_analysis(x, f2d, ramp, step, block0, k_tile):
-    """analysis_fused_kernel: span staging, register fold, FFT, ramp."""
-    n_pol, n_dat = x.shape
-    phases, block = f2d.shape
-    nblocks = (n_dat - phases * block) // step
-    tab = twiddle_table(block, -1)
-    span = (k_tile - 1) * step + phases * block
-    j = np.arange(block)
-    out = np.zeros((n_pol, nblocks, block), np.complex64)
-    for p in range(n_pol):
-        for k0 in range(0, nblocks, k_tile):
-            buf = np.zeros(span, np.complex64)
-            seg = x[p, k0 * step: k0 * step + span]
-            buf[: seg.size] = seg
-            acc = np.zeros((k_tile, block), np.complex64)
-            for m in range(phases):
-                idx = np.arange(k_tile)[:, None] * step + m * block + j[None, :]
-                acc = acc + f2d[m][None, :] * buf[idx]
-            rows = emu_dft_rq(acc, tab, 1)
-            kk = np.arange(k0, min(k0 + k_tile, nblocks))
-            row = (kk + block0) % ramp.shape[0]
-            out[p, kk] = rows[kk - k0][:, _pos(j, block)] * ramp[row] * np.float32(block)
-    return out
-
-
-def emu_epilogue(X, elem, n, n2, n1, lo, roll, gain, n_valid):
-    """ifft_inner_kernel then ifft_outer_kernel through the A scratch."""
-    tab = twiddle_table(n, 1)
-    n_pol = X.shape[0]
-    k1_lo, n1_keep = lo // n2, (n - 2 * lo) // n2
-    m1 = np.arange(n1)
-    k2 = np.arange(n2)
-    k1 = k1_lo + np.arange(n1_keep)
-    out = np.zeros((n_pol, n_valid, n - 2 * lo), np.complex64)
-    for p in range(n_pol):
-        for b in range(n_valid):
-            w = X[p, b] if elem is None else X[p, b] * elem
-            cols = w.reshape(n2, n1).T  # cols[m1, m2] = W[m2*n1 + m1]
-            y = emu_dft_rq(cols, tab, n // n2)
-            a = (y[:, _pos(k2, n2)] * tab[(m1[:, None] * k2[None, :]) % n]).T
-            z = emu_dft_rq(a, tab, n // n1)  # rows k2 of A[k2*n1 + m1]
-            t = k2[:, None] + n2 * k1[None, :]
-            v = z[:, _pos(k1, n1)] * np.conj(tab[(roll * t) % n])
-            out[p, b, (t - lo).ravel()] = (v * np.float32(gain / n)).ravel()
-    return out
-
-
 def emu_padded_fold(x, f2d_rev, step):
     """padded_fold_kernel: per (K_TILE spectra, C_TILE columns) tile, stage
     the W-row view's rows S*k0 - D*phases + [0, rows) (zeros outside the
@@ -267,10 +224,10 @@ def emu_fft_reg(rows, tab, n_tab, sign=1):
     return res
 
 
-def _reg_passes(buf, phys, q, tab, first):
+def _reg_passes(buf, phys, q, tab, first, sign=-1):
     """The radix-8 passes s >= first of the new kernels on buf [..., Q]
     (stored at phys(p)), twiddles from the per-pass table ``tab``
-    (csrc/fft_reg.cuh fft_reg_pass_tw), forward sign."""
+    (csrc/fft_reg.cuh fft_reg_pass_tw) of sign ``sign``."""
     passes, _ = reg_plan(q)
     per = q // 8
     u = np.arange(per)
@@ -278,20 +235,20 @@ def _reg_passes(buf, phys, q, tab, first):
         h = q >> (3 * (s + 1))
         grp, j = u // h, u % h
         pos = (grp * 8 * h + j)[:, None] + h * np.arange(8)[None, :]  # [u, m]
-        w = buf[..., phys[pos]] @ _dft_matrix(8, -1)  # [..., u, d]
+        w = buf[..., phys[pos]] @ _dft_matrix(8, sign)  # [..., u, d]
         tw = tab[(q - (q >> (3 * s))) + (np.arange(1, 8)[None, :] - 1) * h + j[:, None]]
         w[..., 1:] *= np.where(j[:, None] != 0, tw, np.complex64(1))
         buf[..., phys[pos]] = w
     return buf
 
 
-def _last_pass(buf, phys, q):
+def _last_pass(buf, phys, q, sign=-1):
     """The last pass: thread tq takes butterfly rev8(tq); returns [..., tq, d]
     holding bin tq + (Q/r_last)*d."""
     passes, last = reg_plan(q)
     span = q // last
     base = _rev8(np.arange(span), passes - 1) * last
-    return buf[..., phys[base[:, None] + np.arange(last)[None, :]]] @ _dft_matrix(last, -1)
+    return buf[..., phys[base[:, None] + np.arange(last)[None, :]]] @ _dft_matrix(last, sign)
 
 
 def chan_phys(logq):
@@ -301,7 +258,8 @@ def chan_phys(logq):
 
 
 def frontend_phys(logl):
-    """csrc/synthesis_fused.cu frontend_phys over [0, L)."""
+    """csrc/fft_reg.cuh fft_reg_swizzle over [0, L), the row layout of the
+    frontend and the analysis."""
     p = np.arange(1 << logl)
     a = (p >> (logl - 3)) & 7
     last = reg_plan(1 << logl)[1]
@@ -398,6 +356,168 @@ def emu_frontend(flat, strides, shape, taper, dr, perm, keep, kpos, n_blocks):
     return out[:, :, :n_chan]
 
 
+def ana_fold_geometry(block, step, phases):
+    """(SB, BB) of the residue-class fold the kernel specialises (the low
+    geometry: block 256, 13 phases, hop 192 -> 3 blocks per 4 spectra), or
+    None where it folds directly (csrc/analysis_fused.cu pick_kernel)."""
+    if (block, phases, step) == (256, 13, 192):
+        g = math.gcd(step, block)
+        return step // g, block // g
+    return None
+
+
+def span_chunk(nbytes):
+    """Bytes each lane of the issuing warp copies (csrc/analysis_fused.cu
+    span_chunk)."""
+    return (((nbytes + 31) >> 5) + 15) & ~15
+
+
+def emu_analysis(x, f2d, ramp, step, block0):
+    """analysis_fused_kernel: tiles of tile_spectra(block) spectra of one
+    polarization; each tile's span copied from the flat stream starting at
+    the 16-byte-aligned sample at or before it (offset o), NaN past the
+    stream (no stored spectrum reads it); the fold (the residue-class window
+    at the low geometry: class r of column j reads rows r*step + i*block,
+    i < SB*(U-1) + phases, once each and adds row i to spectrum r + BB*u at
+    phase i - SB*u; directly elsewhere); the folded point j of spectrum kk
+    at sub-row kk*R + j//Q, position fft_reg_swizzle(j % Q); the radix-R step; the
+    radix-8 passes; the last pass in channel order kr + R*(tq + SPAN*d)
+    times the ramp row (k + block0) % period and the block, stored for
+    k < nblocks only. Returns the output, NaN where nothing was stored."""
+    n_pol, n_dat = x.shape
+    phases, block = f2d.shape
+    r, q, logq = radix(block)
+    k_t = af.tile_spectra(block)
+    nblocks = (n_dat - phases * block) // step
+    span = (k_t - 1) * step + phases * block
+    phys = frontend_phys(logq)
+    tab = pass_twiddles(q, -1)
+    twn = twiddle_table(block, -1)
+    period = ramp.shape[0]
+    flat = x.ravel()
+    n_kt = -(-nblocks // k_t)
+    fold_geom = ana_fold_geometry(block, step, phases)
+    out = np.full((n_pol, nblocks, block), np.nan, np.complex64)
+    j = np.arange(block)
+    for tile in range(n_pol * n_kt):
+        pol, kt = divmod(tile, n_kt)
+        s0 = kt * k_t * step
+        e0 = pol * n_dat + s0
+        o = e0 & 1
+        nv = min(span, n_dat - s0) + o
+        buf = np.full(span + 1, np.nan, np.complex64)
+        nbytes = nv * 8 // 16 * 16
+        chunk = span_chunk(nbytes)
+        for lane in range(32):  # the issuing warp's copies, 8-byte samples
+            a, b = lane * chunk, min(nbytes, (lane + 1) * chunk)
+            if a < b:
+                buf[a // 8: b // 8] = flat[e0 - o + a // 8: e0 - o + b // 8]
+        if nbytes < nv * 8:  # an odd last sample, loaded by lane 0
+            buf[nv - 1] = flat[e0 - o + nv - 1]
+        src = buf[o:]
+        fold = np.zeros((k_t, block), np.complex64)
+        if fold_geom is not None:
+            sb, bb = fold_geom
+            u_n = k_t // bb
+            for cls in range(bb):
+                for i in range(sb * (u_n - 1) + phases):
+                    v = src[cls * step + i * block + j]
+                    for u in range(u_n):
+                        m = i - sb * u
+                        if 0 <= m < phases:
+                            fold[cls + bb * u] += f2d[m] * v
+        else:
+            for kk in range(k_t):
+                for m in range(phases):
+                    fold[kk] += f2d[m] * src[kk * step + m * block + j]
+        rows = np.zeros((k_t * r, q), np.complex64)
+        rows[(np.arange(k_t)[:, None] * r + j[None, :] // q), phys[j % q][None, :]] = fold
+        if r > 1:
+            beta = np.arange(q)
+            v = rows.reshape(k_t, r, q)[:, :, phys[beta]]  # [kk, a, beta]
+            y = np.einsum("kab,ad->kdb", v, _dft_matrix(r, -1))
+            y = y * twn[beta[None, :] * np.arange(r)[:, None]][None]
+            rows.reshape(k_t, r, q)[:, :, phys[beta]] = y
+        rows = _reg_passes(rows, phys, q, tab, 0)
+        w = _last_pass(rows, phys, q)  # [sr, tq, d]
+        spn, last = w.shape[-2:]
+        ch = (np.arange(r)[:, None, None]
+              + r * (np.arange(spn)[None, :, None] + spn * np.arange(last)[None, None, :]))
+        spec = np.empty((k_t, block), np.complex64)
+        spec[:, ch.ravel()] = w.reshape(k_t, r * spn * last)
+        kk = np.arange(k_t)
+        keep = kt * k_t + kk < nblocks
+        k_abs = kt * k_t + kk[keep]
+        out[pol, k_abs] = (spec[keep] * ramp[(k_abs + block0 % period) % period]
+                           * np.float32(block))
+    return out
+
+
+def emu_8x16(v, tw_pass, sign=1):
+    """The cluster kernel's 128-point transform of v [..., 128]: the radix-8
+    pass of span 16 (butterfly j reads points j + 16*m, output d times the
+    per-pass table's w_128^(j*d), to point j + 16*d), then the 16-point DFT
+    of each group d in registers. Returns [..., d, k] holding output
+    d + 8*k."""
+    x = v.reshape(*v.shape[:-1], 8, 16)  # [m, j]
+    y = np.einsum("...mj,md->...dj", x, _dft_matrix(8, sign))
+    j, d = np.arange(16)[None, :], np.arange(8)[:, None]
+    tw = np.where((j == 0) | (d == 0), np.complex64(1), tw_pass[((d - 1) * 16 + j) % 112])
+    return (y * tw) @ _dft_matrix(16, sign)  # [..., d, k]
+
+
+def emu_cluster_epilogue(X, elem, n, lo, roll, gain, n_valid):
+    """ifft_cluster_kernel on each transform, four blocks of a cluster:
+    block c's columns m1 in [c*n1/4, (c+1)*n1/4) of all 128 rows (the bulk
+    copies), times elem; the 128-point transforms over m2 (emu_8x16, sign
+    +1); output k2 = d + 8*k of group d times tw_a[k2 // 16, m1] *
+    tw_b[k2 % 16, m1], written to row k2 % 32 of block k2 // 32's receive
+    buffer (each slot exactly once); each block's rows, m1 = j + 16*m +
+    128*alpha: the radix-r1 DFT over alpha times w_n1^((j + 16*m)*kr), then
+    emu_8x16 over (m, j) of each sub-row kr; the kept k1 = kr + r1*(d + 8*k)
+    only, times roll_row[k2] * gain/N * roll_col[k1], at t - lo = k2 +
+    128*(k1 - k1_lo). Returns the output (NaN where nothing was stored) and
+    the count of stores per sample."""
+    n2 = itf.N2
+    n1 = n // n2
+    r1 = n1 // 128
+    cpc, rows = n1 // itf.CLUSTER, n2 // itf.CLUSTER
+    tab = itf.cluster_tables(n, n1, roll % n)
+    k1_lo, n1_keep = lo // n2, (n - 2 * lo) // n2
+    n_pol = X.shape[0]
+    out = np.full((n_pol, n_valid, n - 2 * lo), np.nan, np.complex64)
+    stores = np.zeros(out.shape, np.int64)
+    dk = np.arange(8)[:, None] + 8 * np.arange(16)[None, :]  # [d, k]: d + 8*k
+    for p in range(n_pol):
+        for b in range(n_valid):
+            w = X[p, b] if elem is None else X[p, b] * elem
+            recv = np.full((itf.CLUSTER, rows, n1), np.nan, np.complex64)
+            for c in range(itf.CLUSTER):
+                m1 = c * cpc + np.arange(cpc)
+                col = np.ascontiguousarray(w.reshape(n2, n1)[:, m1].T)  # [c, m2]
+                y = emu_8x16(col, tab["tw_pass"])  # [c, d, k]
+                k2 = dk.ravel()
+                tw = tab["tw_a"][k2 >> 4][:, m1] * tab["tw_b"][k2 & 15][:, m1]  # [k2, c]
+                blk, kl = k2 // rows, k2 % rows
+                assert np.isnan(recv[blk[:, None], kl[:, None], m1[None, :]]).all()
+                recv[blk[:, None], kl[:, None], m1[None, :]] = y.reshape(cpc, 128).T * tw
+            assert not np.isnan(recv).any()  # every slot of every block written
+            for blk in range(itf.CLUSTER):
+                v = recv[blk].reshape(rows, r1, 128)  # [kl, alpha, j + 16*m]
+                if r1 > 1:
+                    v = emu_radix_step(v, tab["tw_n1"], 128)  # [kl, kr, j + 16*m]
+                y = emu_8x16(v, tab["tw_pass"])  # [kl, kr, d, k]
+                k2 = blk * rows + np.arange(rows)
+                k1 = np.arange(r1)[:, None, None] + r1 * dk[None]  # [kr, d, k]
+                kept = (k1 >= k1_lo) & (k1 < k1_lo + n1_keep)
+                t = k2[:, None] + n2 * (k1[kept] - k1_lo)[None, :]
+                ph = ((tab["roll_row"][k2] * np.float32(gain / n))[:, None]
+                      * tab["roll_col"][k1[kept]][None, :])
+                out[p, b, t] = y[:, kept] * ph
+                np.add.at(stores[p, b], t.ravel(), 1)
+    return out, stores
+
+
 def emu_big_inner(w, n2, n1, tables):
     """ifft_big_inner_kernel on one transform w (N,) = X*elem: A[k2, i1]."""
     r, logq = big.kernel_split(n2)
@@ -479,17 +599,41 @@ class TestDecomposition:
         ref = np.exp(2j * np.pi * m / 49152)
         assert np.abs(tab - ref).max() < 1e-7
 
-    def test_analysis_emulation(self, filt):
-        step = geometry.analysis_step(N_CHAN, OS)
-        f2d = _prep_filter(filt, N_CHAN)
-        ramp = ramp_table(N_CHAN, step)
-        assert smem_bytes(N_CHAN, step, f2d.shape[0]) == 74_240
-        x = _noise((2, 3328 + 191 * 70 + 17), 10)
-        for block0 in (0, 7):
-            got = emu_analysis(x, f2d, ramp, step, block0, K_TILE)
-            ref = analysis_core(torch.as_tensor(x), torch.as_tensor(f2d),
-                                torch.as_tensor(ramp), step, block0).numpy()
-            assert _rel_err(got, ref) < ANALYSIS_TOL
+    @pytest.mark.parametrize("block,os_f,taps", [(256, OS, 12), (512, Rational(8, 7), 4),
+                                                 (384, OS, 4)])
+    @pytest.mark.parametrize("block0", [0, 7])
+    def test_analysis_emulation(self, filt, block, os_f, taps, block0):
+        # 2.3 tiles per polarization: a ragged last tile; an odd stream
+        # length, so the second polarization's spans start one sample early
+        step = geometry.analysis_step(block, os_f)
+        f = filt if block == N_CHAN else fir.design_pfb_fir_filter(block, os_f, taps)
+        f2d = _prep_filter(f, block)
+        ramp = ramp_table(block, step)
+        k_t = af.tile_spectra(block)
+        n_dat = f2d.shape[0] * block + step * (2 * k_t + k_t // 3) + 17
+        x = _noise((2, n_dat), 10 + block)
+        got = emu_analysis(x, f2d, ramp, step, block0)
+        assert not np.isnan(got).any()  # every spectrum's every channel stored
+        ref = analysis_core(torch.as_tensor(x), torch.as_tensor(f2d),
+                            torch.as_tensor(ramp), step, block0).numpy()
+        assert _rel_err(got, ref) < ANALYSIS_TOL
+
+    def test_span_chunks_cover(self):
+        # the 32 lanes' copies cover every span size, each a multiple of 16
+        nbytes = np.arange(16, 300_000, 16)
+        chunk = span_chunk(nbytes)
+        assert (chunk % 16 == 0).all() and (32 * chunk >= nbytes).all()
+        assert (31 * chunk < nbytes + 16 * 32).all()
+
+    def test_analysis_smem_low(self):
+        # low: 32 spectra a tile, a 9280-sample span (+1), two buffers, the
+        # 4-row ramp staged: 158,880 bytes, one block per SM
+        assert af.tile_spectra(256) == 32 and ana_fold_geometry(256, 192, 13) == (3, 4)
+        assert af.smem_bytes(256, 192, 13, 4) == 160 + (2 * 9282 + 252) * 8 + 4 * 256 * 8
+        assert af.span_stages(256, 192, 13, 4) == 2
+        # block 1024 at 8/7 with 12 phases: one buffer only; far larger: none
+        assert af.span_stages(1024, 896, 12, 8) == 1
+        assert af.span_stages(1024, 896, 40, 8) == 0
 
     @pytest.mark.parametrize("n_l", [256, 512])
     @pytest.mark.parametrize("combine", [1, 16])
@@ -521,15 +665,50 @@ class TestDecomposition:
         assert _rel_err(got, ref) < SYNTHESIS_TOL
 
     @pytest.mark.parametrize("with_elem", [False, True])
-    def test_epilogue_emulation(self, with_elem):
-        n2, n1 = plan_ifft(N, LO)
-        X = _noise((1, 3, N), 12)
+    @pytest.mark.parametrize("n_valid", [2, 3])
+    def test_epilogue_emulation(self, with_elem, n_valid):
+        # the low split (128, 384); n_valid < B leaves the last block alone
+        assert plan_ifft(N, LO) == (itf.N2, 384)
+        X = _noise((2, 3, N), 12)
         elem = _noise((N,), 13) if with_elem else None
-        got = emu_epilogue(X, elem, N, n2, n1, LO, ROLL, GAIN, 2)
+        got, stores = emu_cluster_epilogue(X, elem, N, LO, ROLL, GAIN, n_valid)
+        assert (stores == 1).all()  # every kept sample written exactly once
         ref = tsynth.epilogue(torch.as_tensor(X),
                               None if elem is None else torch.as_tensor(elem),
-                              LO, ROLL, GAIN, 2).numpy()
+                              LO, ROLL, GAIN, n_valid).numpy()
         assert _rel_err(got, ref) < SYNTHESIS_TOL
+
+    def test_epilogue_emulation_n1_128(self):
+        # the other instantiation: n1 = 128, no radix-3 step
+        n, lo = 128 * 128, 512
+        assert plan_ifft(n, lo) == (128, 128)
+        X = _noise((1, 2, n), 42)
+        elem = _noise((n,), 43)
+        got, stores = emu_cluster_epilogue(X, elem, n, lo, 31, 0.75, 2)
+        assert (stores == 1).all()
+        ref = tsynth.epilogue(torch.as_tensor(X), torch.as_tensor(elem), lo, 31, 0.75, 2)
+        assert _rel_err(got, ref.numpy()) < SYNTHESIS_TOL
+
+    def test_cluster_tables_exact(self):
+        # the N-level twiddle over every (m1, k2) and the factored roll phase
+        # over every kept t, within 2 ulp of the phase of the exact integer
+        t = itf.cluster_tables(N, 384, ROLL)
+        ulp = float(np.spacing(np.float32(1)))
+        k2 = np.arange(128)[:, None]
+        got = t["tw_a"][k2 // 16, np.arange(384)[None, :]] * t["tw_b"][k2 % 16,
+                                                                     np.arange(384)[None, :]]
+        ref = np.exp(2j * np.pi * ((k2 * np.arange(384)[None, :]) % N) / N)
+        assert np.abs(got - ref).max() <= 2 * ulp
+        tt = np.arange(LO, N - LO)
+        got = t["roll_row"][tt % 128] * t["roll_col"][tt // 128]
+        assert np.abs(got - np.exp(-2j * np.pi * ((ROLL * tt) % N) / N)).max() <= 2 * ulp
+        assert t["tw_pass"].size == 126 and t["tw_a"].shape == (8, 384)
+        # emu_8x16 is the 128-point backward DFT with outputs d + 8*k
+        x = _noise((3, 128), 49)
+        y = emu_8x16(x, t["tw_pass"]).reshape(3, 8, 16)
+        got = np.empty_like(x)
+        got[:, (np.arange(8)[:, None] + 8 * np.arange(16)[None, :]).ravel()] = y.reshape(3, 128)
+        assert _rel_err(got, np.fft.ifft(x) * 128) < 2e-6
 
     @pytest.mark.parametrize("block,os_f,wds", [(512, Rational(4, 3), (128, 4, 3)),
                                                 (1024, Rational(8, 7), (128, 8, 7))])
@@ -647,24 +826,42 @@ class TestDecomposition:
         assert tab.size == q - last
 
     @pytest.mark.parametrize("kernel,n", [("chan_dft", 4096), ("frontend", 128),
-                                          ("frontend", 256), ("frontend", 512)])
+                                          ("frontend", 256), ("frontend", 512),
+                                          ("analysis", 128), ("analysis", 256),
+                                          ("analysis", 512), ("ifft_cluster", 384)])
     def test_swizzle_conflict_free(self, kernel, n):
         # each pass's shared-memory accesses, per half-warp of 16 lanes (the
         # unit of a 64-bit access), fall in 16 distinct eight-byte slots
         logn = n.bit_length() - 1
+        lanes = np.arange(16)
+        if kernel == "ifft_cluster":
+            # columns [m2][n1/4] dense, lanes on neighbouring columns; the
+            # exchange: lanes on neighbouring m1 of one row; the rows: lanes
+            # on 16 of the 32 rows of n1 + 1 points at one offset
+            cpc = n // itf.CLUSTER
+            for m2 in range(128):
+                assert len(set((m2 * cpc + lanes) % 16)) == 16
+            for off in range(0, n - 15, 16):
+                assert len(set((off + lanes) % 16)) == 16
+            for kl0 in (0, 16):
+                for pos in range(n):
+                    assert len(set(((kl0 + lanes) * (n + 1) + pos) % 16)) == 16
+            return
         passes, last = reg_plan(n)
         span = n // last
-        lanes = np.arange(16)
         if kernel == "chan_dft":  # the radix-8 passes: lanes on butterflies u
             phys = chan_phys(logn)
             per = n // 8
             groups = [([(u // h) * 8 * h + u % h for u in u0 + lanes], h, 8)
                       for s in range(passes - 1) for h in [n >> (3 * (s + 1))]
                       for u0 in range(0, per, 16)]
-        else:  # the radix-8 passes: lanes on channels, rows of L + 1, one offset
+        else:  # the radix-8 passes: lanes on rows (channels or spectra) of
+            # L + 1 points at one offset
             phys = frontend_phys(logn)
             assert len(set((lanes * (n + 1)) % 16)) == 16
             groups = []
+            if kernel == "analysis":  # the fold's stores: lanes on neighbouring j
+                groups = [(j0 + lanes, 1, 1) for j0 in range(0, n, 16)]
         for t0 in range(0, span, 16):  # the last pass: lanes on tq, one row
             groups.append((_rev8(t0 + lanes, passes - 1) * last, 1, last))
         for pos, stride, rad in groups:
@@ -710,6 +907,15 @@ ptxas info    : Used 118 registers, used 1 barriers, 444 bytes cmem[0]
             with pytest.raises(ValueError, match="takes L in"):
                 synthesis_fused(x, torch.empty(n_l), torch.empty(n_l // 2),
                                 torch.empty(64, dtype=torch.int32), n_l, n_l // 2, 0, 3)
+        for block in (64, 640, 2048):
+            with pytest.raises(ValueError, match="takes blocks"):
+                analysis_fused(torch.empty((2, 9000), dtype=torch.complex64, device=meta),
+                               torch.empty((4, block), device=meta),
+                               torch.empty((4, block), dtype=torch.complex64, device=meta), 192)
+        flat = torch.empty((2, 3, 256 * 192), dtype=torch.complex64, device=meta)
+        with pytest.raises(ValueError, match="cluster epilogue takes"):
+            fused_big_ifft(flat, shape_key=(256 * 192, 256, 192, 0, 0, 1.0))
+        assert af.BLOCKS == (128, 256, 384, 512, 768, 1024) and itf.N1S == (128, 384)
         assert sorted(cdf.BLOCKS) == [512, 1024, 2048, 3072, 4096]
         assert sorted(tsf.LENGTHS) == [128, 256, 512]
 
@@ -845,6 +1051,37 @@ class TestPlainVsPallas:
                               os_f.de / os_f.nu, nb).reshape(1, 1, -1).numpy()
         assert _rel_err(got, ref) < SYNTHESIS_TOL
 
+    @pytest.mark.parametrize("block,os_f", [(256, OS), (512, Rational(8, 7)), (384, OS)])
+    def test_analysis_emulation_vs_pallas(self, filt, block, os_f, pallas):
+        # the emulated kernel against the Pallas kernel in interpret mode
+        step = geometry.analysis_step(block, os_f)
+        f = filt if block == N_CHAN else fir.design_pfb_fir_filter(block, os_f, 4)
+        f2d = _prep_filter(f, block)
+        n_dat = f2d.shape[0] * block + step * 40 + 5
+        x = _noise((2, n_dat), 44)
+        ref = np.asarray(pallas[0].polyphase_analysis_fused(x[:, None, :], f, block, os_f,
+                                                            interpret=True))
+        got = emu_analysis(x, f2d, ramp_table(block, step), step, 0)
+        assert _rel_err(got.transpose(0, 2, 1), ref) < ANALYSIS_TOL
+
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_epilogue_emulation_vs_pallas(self, with_elem, pallas):
+        # the emulated cluster kernel against the Pallas epilogue in
+        # interpret mode, n_valid = 2 of 3 blocks
+        import jax.numpy as jnp
+
+        key = (N, *plan_ifft(N, LO), LO, ROLL, GAIN)
+        X = _noise((2, 3, N), 45)
+        elem = _noise((N,), 46)
+        jr, ji = pallas[2].fused_big_ifft(
+            jnp.asarray(np.ascontiguousarray(X.real)), jnp.asarray(np.ascontiguousarray(X.imag)),
+            *((jnp.asarray(elem.real.copy()), jnp.asarray(elem.imag.copy())) if with_elem
+              else (None, None)),
+            shape_key=key, has_elem=with_elem, n_valid=2, interpret=True,
+        )
+        got, _ = emu_cluster_epilogue(X, elem if with_elem else None, N, LO, ROLL, GAIN, 2)
+        assert _rel_err(got, np.asarray(jr) + 1j * np.asarray(ji)) < SYNTHESIS_TOL
+
     @pytest.mark.parametrize("with_elem", [False, True])
     def test_fused_big_ifft(self, with_elem, pallas):
         import jax.numpy as jnp
@@ -914,15 +1151,21 @@ class TestOnCard:
     """Each kernel against its plain version on the card, at small shapes
     (chip_smoke.py does the same at the main path's shapes)."""
 
-    def test_analysis(self, cuda, filt):
-        step = geometry.analysis_step(N_CHAN, OS)
-        x = torch.as_tensor(_noise((2, 100_000), 19), device=cuda)
-        f2d = torch.as_tensor(_prep_filter(filt, N_CHAN), device=cuda)
-        ramp = torch.as_tensor(ramp_table(N_CHAN, step), device=cuda)
+    @pytest.mark.parametrize("block,os_f,n_dat", [(256, OS, 100_000),
+                                                  (512, Rational(8, 7), 40_001)])
+    def test_analysis(self, cuda, filt, block, os_f, n_dat):
+        # the low geometry's own fold, and the direct fold at a second
+        # geometry with a ragged last tile and an odd stream length
+        step = geometry.analysis_step(block, os_f)
+        f = filt if block == N_CHAN else fir.design_pfb_fir_filter(block, os_f, 4)
+        x = torch.as_tensor(_noise((2, n_dat), 19), device=cuda)
+        f2d = torch.as_tensor(_prep_filter(f, block), device=cuda)
+        ramp = torch.as_tensor(ramp_table(block, step), device=cuda)
         before = analysis_fused.launches
         got = analysis_fused(x, f2d, ramp, step, 3)
         assert analysis_fused.launches == before + 1
         ref = analysis_core(x, f2d, ramp, step, 3)
+        assert (ref.shape[1] % af.tile_spectra(block)) != 0
         assert _rel_err(got.cpu(), ref.cpu()) < ANALYSIS_TOL
 
     def test_frontend(self, cuda, filt):
@@ -951,11 +1194,23 @@ class TestOnCard:
         assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
 
     @pytest.mark.parametrize("with_elem", [False, True])
-    def test_epilogue(self, cuda, with_elem):
-        X = torch.as_tensor(_noise((2, 3, N), 21), device=cuda)
+    @pytest.mark.parametrize("n_b,n_valid", [(3, 2), (272, 272)])
+    def test_epilogue(self, cuda, with_elem, n_b, n_valid):
+        # n_valid < B, and the low main path's full batch of 272 blocks
+        X = torch.as_tensor(_noise((2, n_b, N), 21), device=cuda)
         elem = torch.as_tensor(_noise((N,), 22), device=cuda) if with_elem else None
-        got = fused_big_ifft(X, elem, shape_key=(N, 128, 384, LO, ROLL, GAIN), n_valid=2)
-        ref = tsynth.epilogue(X, elem, LO, ROLL, GAIN, 2)
+        before = fused_big_ifft.launches
+        got = fused_big_ifft(X, elem, shape_key=(N, 128, 384, LO, ROLL, GAIN), n_valid=n_valid)
+        assert fused_big_ifft.launches == before + 1
+        ref = tsynth.epilogue(X, elem, LO, ROLL, GAIN, n_valid)
+        assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
+
+    def test_epilogue_n1_128(self, cuda):
+        n, lo = 128 * 128, 512
+        X = torch.as_tensor(_noise((2, 5, n), 47), device=cuda)
+        elem = torch.as_tensor(_noise((n,), 48), device=cuda)
+        got = fused_big_ifft(X, elem, shape_key=(n, 128, 128, lo, 31, 0.75), n_valid=4)
+        ref = tsynth.epilogue(X, elem, lo, 31, 0.75, 4)
         assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
 
     @pytest.mark.parametrize("block,os_f", [(512, Rational(4, 3)), (1024, Rational(8, 7))])

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Host time of each step of the port's channel-DFT and frontend wrappers on
-one CUDA card, at the SKA-Mid main path's shapes.
+"""Host time of each step of the port's kernel wrappers on one CUDA card:
+the channel DFT and the frontend at the SKA-Mid main path's shapes, the
+analysis and the cluster epilogue at the SKA-Low main path's.
 
     python3 tools/torch_host_overhead.py     # from the repository root
 
@@ -9,7 +10,9 @@ call in microseconds (time.perf_counter, median of ``WINDOWS`` windows; the
 card is synchronized between windows, and a window queues at most ``CALLS``
 launches, far from the launch queue's depth). The steps are those of
 ``chan_dft_ramp`` and ``synthesis_fused`` in the order they run, then each
-whole wrapper and the library call (torch.fft.fft) it is held against.
+whole wrapper and the library call (torch.fft.fft) it is held against; then
+the ctypes launch and the whole wrapper of ``analysis_fused`` and
+``fused_big_ifft`` (the epilogue beside torch.fft.ifft).
 """
 
 from __future__ import annotations
@@ -43,11 +46,13 @@ def main() -> int:
         print("torch_host_overhead: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from ska_pst_dsp_tpu_torch.entry import mid_round_trip
+    from ska_pst_dsp_tpu_torch.entry import low_round_trip, mid_round_trip
     from ska_pst_dsp_tpu_torch.ops.kernels import (
-        _build, device_pass_twiddles, require, stream_of,
+        SMEM_LIMIT, _build, device_pass_twiddles, require, stream_of,
     )
     from ska_pst_dsp_tpu_torch.ops.kernels.chan_dft_fused import chan_dft_ramp
+    from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import analysis_fused
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import fused_big_ifft, plan_ifft
     from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import LENGTHS, synthesis_fused
 
     smi = subprocess.run(
@@ -68,6 +73,18 @@ def main() -> int:
     fargs = (g, model.t_taper, model.dr, model.perm, L, keep, kpos, nb)
     fout = torch.empty((2, nb, 4096, geom.fn_width), dtype=torch.complex64, device=dev)
     ftw = device_pass_twiddles(L, -1, dev)
+
+    low = low_round_trip(dev)
+    x = torch.randn((2, 2 ** 23), dtype=torch.complex64, device=dev)
+    chan = analysis_fused(x, low.f2d, low.ramp, low.step)
+    lg = low.geom
+    n, lo = lg.output_fft_length, lg.output_overlap
+    lnb = lg.n_blocks(chan.shape[1])
+    flat = torch.randn((2, lnb, n), dtype=torch.complex64, device=dev)
+    key = (n, *plan_ifft(n, lo), lo, lg.fn_width // 2, 0.75)
+    ptw = device_pass_twiddles(256, -1, dev)
+    phases = low.f2d.shape[0]
+    nblocks = chan.shape[1]
 
     def device_context():
         with torch.cuda.device(dev):
@@ -94,6 +111,13 @@ def main() -> int:
             model.perm.data_ptr(), ftw.data_ptr(), *g.stride(), 2, 4096, nb, L,
             LENGTHS[L], keep, kpos, geom.fn_width, stream_of(g)),
         "synthesis_fused (whole wrapper)": lambda: synthesis_fused(*fargs),
+        "analysis_fused_launch (ctypes, launch)": lambda: lib.analysis_fused_launch(
+            x.data_ptr(), chan.data_ptr(), low.f2d.data_ptr(), ptw.data_ptr(), ptw.data_ptr(),
+            low.ramp.data_ptr(), 2, x.shape[1], nblocks, 256, 1, 8, low.step, phases,
+            low.ramp.shape[0], 0, SMEM_LIMIT, stream_of(x)),
+        "analysis_fused (whole wrapper)": lambda: analysis_fused(x, low.f2d, low.ramp, low.step),
+        "fused_big_ifft (whole wrapper)": lambda: fused_big_ifft(flat, None, shape_key=key),
+        "torch.fft.ifft (2, B, 49152)": lambda: torch.fft.ifft(flat, dim=-1),
     }
     with torch.cuda.device(dev):
         for name, fn in steps.items():
