@@ -26,11 +26,17 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    with verify.util.DomainPerformance; max spurious <= -60 dB.
 6. dada: fine channels -> io.dada save/load -> fused inversion, equal to the
    direct inversion; then no fallback: one low forward with the plain
-   versions and ``torch.fft`` patched to raise.
+   versions and ``torch.fft`` patched to raise; then, under the same patch,
+   the other inversion geometries the JAX package's fused path takes (512
+   and 128 channels at 4/3, 256 channels at 8/7 with L = 256): each runs on
+   the frontend kernel and the cluster epilogue (n1 = 192, 448) or the
+   out-of-core pair (98304 points), within 1.2e-5 * scale of the plain
+   inversion.
 7. SKA-Mid (``mid_round_trip``: 4096 ch, OS 8/7, the 100353-tap
    zero-padded analysis, L=512 / overlap 128, 1,835,008-point epilogue) at
    bench.py's size, 2 pol x 4,587,520 samples:
-   a. kernels: the padded fold and channel DFT (1e-5 * scale,
+   a. kernels: the padded fold (also at an odd, ragged stream length) and
+      channel DFT (1e-5 * scale,
       tests/test_pallas.py:268), the frontend at mid shapes (1.2e-5), both
       out-of-core IFFT launches and their pair, with and without ``elem``
       (1e-4, tests/test_pallas.py:423), each against its plain version,
@@ -212,7 +218,7 @@ def wrappers():
 
 def counted_forward(torch, model, x):
     """One forward with every launch count set to 0 just before it: its
-    output and the counts just after."""
+    output and the launch counts just after."""
     ws = wrappers()
     for w in ws.values():
         w.launches = 0
@@ -261,9 +267,10 @@ def more_times(torch, name, kern, lib, match, smi):
     return out
 
 
-def no_fallback(torch, model, x, phase):
-    """One forward with the plain versions and torch.fft patched to raise:
-    the CUDA path never falls back."""
+@contextlib.contextmanager
+def plain_versions_raise(torch):
+    """Patches the plain versions, wherever the port's modules hold them,
+    and torch.fft to raise; yields the count of names patched."""
     def boom(*args, **kwargs):
         raise AssertionError("a plain version ran on the CUDA path")
 
@@ -279,11 +286,60 @@ def no_fallback(torch, model, x, phase):
                         patched += 1
         for name in ("fft", "ifft", "fftn", "ifftn", "rfft", "irfft", "fft2", "ifft2"):
             stack.enter_context(mock.patch.object(torch.fft, name, boom))
+        yield patched
+
+
+def no_fallback(torch, model, x, phase):
+    """One forward with the plain versions and torch.fft patched to raise:
+    the CUDA path never falls back."""
+    with plain_versions_raise(torch) as patched:
         out = model(x)
         torch.cuda.synchronize()
     check(bool(torch.isfinite(torch.view_as_real(out)).all()), f"{phase}: no-fallback forward")
     log(phase, f"forward completed with {patched} plain-version names and "
         "torch.fft patched to raise")
+
+
+def other_geometries(torch, dev):
+    """The inversion geometries the JAX package's fused path takes beside
+    the two main paths', 40 blocks each: the drop-in runs on the kernels
+    alone (the plain versions raise) and agrees with the plain inversion."""
+    from ska_pst_dsp_tpu_torch.design import fir
+    from ska_pst_dsp_tpu_torch.ops import synthesis as plain_synth
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import plan_ifft
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import polyphase_synthesis_fused
+    from ska_pst_dsp_tpu_torch.utils import geometry
+    from ska_pst_dsp_tpu_torch.utils.rational import Rational
+
+    ws = wrappers()
+    for n_chan, os_f, n_l, ov in ((512, "4/3", 256, 48), (128, "4/3", 256, 48),
+                                  (256, "8/7", 256, 32)):
+        os_f = Rational.coerce(os_f)
+        filt = fir.design_pfb_fir_filter(n_chan, os_f, 4)
+        g = geometry.SynthesisGeometry(n_chan, n_l, ov, os_f)
+        x = torch.as_tensor(noise((2, n_chan, 2 * ov + 40 * g.input_keep), SEED + n_chan),
+                            device=dev)
+        kw = dict(input_overlap=ov, deripple_coeff=filt, temporal_taper="tukey")
+        ref = plain_synth.polyphase_synthesis(x, n_l, os_f, **kw)
+        before = {k: w.launches for k, w in ws.items()}
+        with plain_versions_raise(torch):
+            got = polyphase_synthesis_fused(x, n_l, os_f, **kw)
+            torch.cuda.synchronize()
+        ran = sorted(k for k, w in ws.items() if w.launches > before[k])
+        check(ran in (["ifft_fused", "synthesis_fused"],
+                      ["ifft_big_inner", "ifft_big_outer", "synthesis_fused"]),
+              f"{n_chan} channels at {os_f}: launched {ran}")
+        err = rel_err(got, ref)
+        check(err[1] <= SYNTHESIS_TOL, f"{n_chan} channels at {os_f}: {err[1]:.3g}")
+        n, lo, nb = g.output_fft_length, g.output_overlap, g.n_blocks(x.shape[2])
+        on_device = device_ms(torch, lambda: polyphase_synthesis_fused(x, n_l, os_f, **kw),
+                              "ifft_")
+        bnd = bound(2 * nb * (2 * n - 2 * lo) * 8, fft_flops(n, 2 * nb))
+        log("geometries", f"{n_chan} ch, OS {os_f}, L {n_l}, overlap {ov}: split "
+            f"{plan_ifft(n, lo)} on {', '.join(ran)}; max|err|/scale {err[1]:.3g} "
+            f"(tol {SYNTHESIS_TOL}); epilogue of 2 x {nb} blocks on the device: "
+            + (", ".join(f"{k} {v:.4f} ms" for k, v in on_device.items()) or "not measured")
+            + f", bound {bnd[0]:.4f} ms ({bnd[1]})")
 
 
 def main() -> int:
@@ -515,6 +571,7 @@ def main() -> int:
 
     # 6b. no fallback on the low path
     no_fallback(torch, model, x, "fallback")
+    other_geometries(torch, dev)
 
     # 7. SKA-Mid
     mid_entries, mid_front = run_mid(torch, dev, smi)
@@ -582,6 +639,15 @@ def run_mid(torch, dev, smi):
     entries[-1].update(more_times(torch, "analysis_padded_fused",
                                   lambda: padded_fold_fused(*fold_args), None,
                                   "padded_fold_kernel", smi))
+    # an odd stream length that is no multiple of the row width: the wrapper
+    # copies it to an even polarization stride, the last tile is ragged
+    xr = x[:, :1000 * step + 1237].contiguous()
+    err = rel_err(padded_fold_fused(xr, model.f2d_rev, step),
+                  padded_fold(xr, model.f2d_rev, step))
+    check(err[1] <= PADDED_TOL, f"padded fold at 2 x {xr.shape[1]}: {err[1]:.3g}")
+    log("kernels", f"analysis_padded_fused at 2 x {xr.shape[1]} samples (odd, ragged): "
+        f"max|err|/scale {err[1]:.3g} (tol {PADDED_TOL})")
+    del xr
     cargs = (fold, model.chan_const, 0, model.delay)
     chan = chan_dft_core(*cargs)
     block = fold.shape[-1]

@@ -3,6 +3,10 @@
 // a tensor map) and the transaction barriers (mbarrier) that report their
 // completion, plus the split cluster barrier.
 //
+// tensor_load_3d is the same engine with a tensor map (cp.async.bulk.tensor):
+// one instruction copies a box of a 3-D tensor, zeros where the box lies
+// outside it, and counts the whole box's bytes on the barrier.
+//
 // Use: one thread initialises a barrier with one arrival (mbar_init), then
 // fence_mbar_init() and __syncthreads(). Per use, one thread arms it with
 // the bytes to come (mbar_expect_tx), and the copies (bulk_load: 16-byte
@@ -66,6 +70,19 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the box of `map` (a CUtensorMap in kernel parameter space) at coordinates
+// (c0, c1, c2), innermost first, to shared dst (128-byte aligned),
+// completion counted on bar
+__device__ __forceinline__ void tensor_load_3d(void* dst, const void* map, int c0, int c1,
+                                               int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+      "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

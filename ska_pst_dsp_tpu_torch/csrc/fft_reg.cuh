@@ -5,8 +5,8 @@
 // but the last, of radix 2, 4 or 8 (FftRegPlan). Each butterfly loads its
 // RAD values into registers, transforms them there, multiplies by the pass
 // twiddle and stores them back, so a 512-point transform costs three
-// shared-memory round trips and a 4096-point one four (dft_smem.cuh's
-// radix-2 form costs nine and twelve, each with a __syncthreads).
+// shared-memory round trips and a 4096-point one four (a radix-2 form
+// costs nine and twelve, each with a __syncthreads).
 //
 // Pass s has radix r_s and span h_s = Q / (r_0 ... r_s). Its butterfly at
 // offset j < h_s of group g reads x[g*r_s*h_s + j + h_s*m], m < r_s, and

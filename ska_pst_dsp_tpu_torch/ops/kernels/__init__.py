@@ -3,14 +3,19 @@
 Counterpart of :mod:`ska_pst_dsp_tpu.ops.pallas`. Each kernel module holds a
 wrapper that launches its kernel for a CUDA tensor and runs the plain
 PyTorch version beside it for a CPU tensor (the only reason it ever takes
-the plain path), plus an integer ``launches`` counter on the wrapper that
-goes up by one each time the kernel is launched:
+the plain path), an integer ``launches`` counter on the wrapper that goes
+up by one each time the kernel is launched, and a pure predicate ``takes``
+that says which geometries the card has an instantiated kernel for. On a
+CUDA tensor the wrapper raises ValueError from that predicate, and so do the
+public drop-in functions (``polyphase_*_fused``, ``fused_inversion``) built
+on it: nothing on the card gives way to the plain version:
 
 * :mod:`.analysis_fused`  — fold + DFT + derotation ramp;
 * :mod:`.synthesis_fused` — inversion frontend, and the epilogue dispatch;
 * :mod:`.ifft_fused`      — the inversion's backward-FFT epilogue, one
   thread-block cluster per transform;
-* :mod:`.analysis_padded_fused` — the zero-padded (SKA-Mid) analysis fold;
+* :mod:`.analysis_padded_fused` — the zero-padded (SKA-Mid) analysis fold,
+  one persistent launch on asynchronous bulk copies;
 * :mod:`.chan_dft_fused`  — mid's channel DFT + derotation constant;
 * :mod:`.ifft_big`        — mid's out-of-core epilogue (two launches).
 
@@ -18,7 +23,7 @@ The sources live in ``ska_pst_dsp_tpu_torch/csrc/``; :mod:`._build` compiles
 them on first use. This module holds the host-side helpers the wrappers
 share: the odd-factor split of a transform length, exact phase tables, and
 the plan and twiddle tables of the register passes (``csrc/fft_reg.cuh``)
-that every kernel but the padded fold runs on.
+that every kernel with a DFT runs on.
 """
 
 from __future__ import annotations
@@ -33,8 +38,8 @@ import torch
 SMEM_LIMIT = 232_448
 
 #: odd factors of a transform length n = r * 2^k the port splits off:
-#: csrc/dft_smem.cuh's radix-r step takes all three, analysis_fused's is
-#: instantiated for r in {1, 3} (blocks 128 to 1024)
+#: csrc/ifft_big.cu's radix-r step takes all three, analysis_fused's and
+#: chan_dft_fused's are instantiated for r in {1, 3}
 RADICES = (1, 3, 7)
 
 

@@ -44,7 +44,8 @@ SIGNATURES = {
     "synthesis_fused_launch": [_P] * 6 + [_L] * 3 + [_I] * 8 + [_P],
     "ifft_fused_launch": [_P] * 9 + [_L] * 2 + [_I] * 6 + [_F, _P],
     "ifft_fused_clusters": [_I, _P],
-    "padded_fold_launch": [_P] * 3 + [_I, _L] + [_I] * 6 + [_P],
+    "padded_fold_launch": [_P] * 3 + [_I, _L, _L] + [_I] * 8 + [_P],
+    "padded_fold_slots": [_I] * 4 + [_P],
     "chan_dft_launch": [_P] * 5 + [_I] * 8 + [_P],
     "ifft_big_inner_launch": [_P] * 4 + [_L] * 2 + [_I] * 6 + [_P],
     "ifft_big_outer_launch": [_P] * 7 + [_I] * 7 + [_F, _P],

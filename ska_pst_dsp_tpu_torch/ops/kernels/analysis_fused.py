@@ -22,6 +22,9 @@ itself plus ``nblocks``.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple, Optional
+
 import torch
 
 from ska_pst_dsp_tpu_torch.utils import geometry
@@ -69,6 +72,33 @@ def span_stages(block: int, step: int, phases: int, period: int) -> int:
                  <= SMEM_LIMIT), 0)
 
 
+class AnalysisPlan(NamedTuple):
+    """What the launch needs of a geometry the kernel takes: block =
+    r * 2^logq and the span buffers it runs with."""
+    r: int
+    logq: int
+    stages: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(block: int, step: int, phases: int, period: int) -> Optional[AnalysisPlan]:
+    """The kernel's plan, computed once per geometry, or None for a
+    geometry it does not take: the block must be one of :data:`BLOCKS` and
+    one span buffer must fit in shared memory."""
+    if block not in BLOCKS or step <= 0 or phases <= 0 or period <= 0:
+        return None
+    stages = span_stages(block, step, phases, period)
+    if not stages:
+        return None
+    r, _, logq = radix(block)
+    return AnalysisPlan(r, logq, stages)
+
+
+def takes(block: int, step: int, phases: int, period: int) -> bool:
+    """Whether the card has an analysis kernel for this geometry."""
+    return plan(block, step, phases, period) is not None
+
+
 def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
                    step: int, block0: int = 0) -> torch.Tensor:
     """(n_pol, n_dat) complex64 -> time-major (n_pol, nblocks, block).
@@ -76,12 +106,20 @@ def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
     f2d: (phases, block) float32 polyphase filter; ramp: (period, block)
     complex64 derotation table (:func:`..analysis.ramp_table`). A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel, which
-    takes the blocks in :data:`BLOCKS` and raises ValueError for any other."""
+    takes the geometries of :func:`takes` (the blocks in :data:`BLOCKS`
+    whose span fits in shared memory) and raises ValueError for any other."""
     if x.device.type == "cpu":
         return analysis_core(x, f2d, ramp, step, block0)
     phases, block = f2d.shape
-    if block not in BLOCKS:
-        raise ValueError(f"analysis_fused takes blocks {BLOCKS} on the card, got {block}")
+    if ramp.ndim != 2 or ramp.shape[1] != block:
+        raise ValueError(f"ramp must be (period, {block}), got {tuple(ramp.shape)}")
+    period = ramp.shape[0]
+    p = plan(block, step, phases, period)
+    if p is None:
+        raise ValueError(
+            f"analysis_fused takes blocks {BLOCKS} on the card whose span fits in "
+            f"shared memory, got {phases} phases x {block} at step {step}"
+        )
     if x.device.type != "cuda":
         raise ValueError(f"analysis_fused runs on cuda or cpu, not {x.device}")
     dev = x.device
@@ -90,17 +128,9 @@ def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
     ramp = require(ramp, "ramp", torch.complex64, dev)
     if x.ndim != 2:
         raise ValueError(f"x must be (n_pol, n_dat), got {tuple(x.shape)}")
-    if ramp.ndim != 2 or ramp.shape[1] != block:
-        raise ValueError(f"ramp must be (period, {block}), got {tuple(ramp.shape)}")
     if block0 < 0:
         raise ValueError(f"block0 must be >= 0, got {block0}")
-    period = ramp.shape[0]
-    if not span_stages(block, step, phases, period):
-        raise ValueError(
-            f"analysis span of {phases} phases x {block} at step {step} does "
-            "not fit in shared memory"
-        )
-    r, q, logq = radix(block)
+    r, logq = p.r, p.logq
     n_pol, n_dat = x.shape
     nblocks = (n_dat - phases * block) // step
     if nblocks <= 0:
@@ -110,7 +140,7 @@ def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
     if x.data_ptr() % 16:  # the bulk copies start on 16 bytes
         x = x.clone()
     out = torch.empty((n_pol, nblocks, block), dtype=torch.complex64, device=dev)
-    tw_pass = device_pass_twiddles(q, -1, dev)
+    tw_pass = device_pass_twiddles(1 << logq, -1, dev)
     tw_n = twiddles(block, -1, dev) if r > 1 else tw_pass
     with torch.cuda.device(dev):
         status = _build.library().analysis_fused_launch(
@@ -136,7 +166,10 @@ def polyphase_analysis_fused(x, filt, block: int, os_factor, *,
     of the fused synthesis. ``keep_padding=True`` (pair input and
     time_major only) returns ``((re, im), nblocks)`` to hand to
     ``polyphase_synthesis_fused(..., time_major_in=True,
-    valid_len=nblocks)``."""
+    valid_len=nblocks)``.
+
+    On the card a geometry the kernel does not take (:func:`takes`) raises
+    ValueError, as :func:`analysis_fused` does."""
     z, pair = stream(x)
     os_factor = Rational.coerce(os_factor)
     step = geometry.analysis_step(block, os_factor)

@@ -26,9 +26,14 @@ BLOCKS = {512: (1, 9), 1024: (1, 10), 2048: (1, 11), 3072: (3, 10), 4096: (1, 12
 POINTS = 4096
 
 
+def takes(block: int) -> bool:
+    """Whether the card has a channel-DFT kernel for this block."""
+    return block in BLOCKS
+
+
 def kernel_split(block: int) -> Tuple[int, int]:
     """(r, log2 q) of a block the kernel takes; ValueError for any other."""
-    if block not in BLOCKS:
+    if not takes(block):
         raise ValueError(
             f"chan_dft_ramp takes blocks {sorted(BLOCKS)} on the card, got {block}"
         )

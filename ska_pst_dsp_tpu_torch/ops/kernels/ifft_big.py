@@ -74,12 +74,23 @@ def plan_big_ifft(n: int, lo: int) -> Optional[Tuple[int, int, int]]:
     return n2 // q, q, n1
 
 
+def _split(n: int) -> Tuple[int, int]:
+    logq = min((n & -n).bit_length() - 1, 9)
+    return n >> logq, logq
+
+
+def takes(n2: int, n1: int) -> bool:
+    """Whether the card has the pair of kernels for the split n = n2 * n1:
+    an inner kernel for n2 and an outer one for n1."""
+    return (n2 > 0 and n1 > 0 and _split(n2) in INNER_SPLITS
+            and _split(n1) in OUTER_SPLITS)
+
+
 def kernel_split(n: int, splits=INNER_SPLITS) -> Tuple[int, int]:
     """(r, log2 q) with n = r * 2^logq and 2^logq = min(512, the power of
     two in n): the radix-r step and the register-pass transform of the
     kernels. Raises for a split they are not instantiated for."""
-    logq = min((n & -n).bit_length() - 1, 9)
-    r = n >> logq
+    r, logq = _split(n)
     if (r, logq) not in splits:
         raise ValueError(f"DFT length {n} = {r} * 2^{logq}: the out-of-core kernels "
                          f"take {sorted(splits)}")

@@ -7,10 +7,11 @@ Counterpart of :mod:`ska_pst_dsp_tpu.ops.pallas.ifft_fused`:
 per assembled block, with ``elem`` (spectral taper x filter) pre-rolled by
 +roll. The CUDA kernel (``csrc/ifft_fused.cu``) runs the four-step split
 N = n2 * n1 = 128 * n1 of each block in one launch, on a cluster of four
-thread blocks that hold the block in their shared memory together and
-exchange it there (block c: columns [c*n1/4, (c+1)*n1/4), rows k2
-[32c, 32c + 32)); nothing passes through device memory between the steps,
-and only the kept output samples are computed. Its plain version is
+thread blocks (eight for n1 = 448) that hold the block in their shared
+memory together and exchange it there (block c of four: columns
+[c*n1/4, (c+1)*n1/4), rows k2 [32c, 32c + 32)); nothing passes through
+device memory between the steps, and only the kept output samples are
+computed. Its plain version is
 :func:`ska_pst_dsp_tpu_torch.ops.synthesis.epilogue`; its host tables come
 from :func:`cluster_tables`.
 """
@@ -28,11 +29,12 @@ from .. import cfft
 from ..synthesis import epilogue
 from . import _build, pass_twiddles, phase_table, require, stream_of, twiddle_table
 
-#: thread blocks of a cluster, and the column transform length n2 the
-#: kernel takes (csrc/ifft_fused.cu kCluster, kN2)
-CLUSTER, N2 = 4, 128
-#: row transform lengths n1 the kernel is instantiated for
-N1S = (128, 384)
+#: the column transform length n2 the kernel takes (csrc/ifft_fused.cu kN2)
+N2 = 128
+#: row transform length n1 -> (r1, q1, thread blocks of a cluster), n1 =
+#: r1 * q1: the kernel's instantiations (csrc/ifft_fused.cu cluster_dispatch)
+PLANS = {128: (1, 128, 4), 192: (3, 64, 4), 384: (3, 128, 4), 448: (7, 64, 8)}
+N1S = tuple(PLANS)
 #: the N-level twiddle w_N^(m1*k2) = tw_a[k2 // 16, m1] * tw_b[k2 % 16, m1]
 TW_SPLIT = 16
 
@@ -57,6 +59,11 @@ def plan_ifft(n: int, lo: int) -> Optional[Tuple[int, int]]:
             continue
         return n2, n1
     return None
+
+
+def takes(n2: int, n1: int) -> bool:
+    """Whether the card has a cluster kernel for the split n = n2 * n1."""
+    return n2 == N2 and n1 in PLANS
 
 
 def cluster_tables(n: int, n1: int, roll: int) -> Dict[str, np.ndarray]:
@@ -111,7 +118,7 @@ def fused_big_ifft(flat, elem=None, *, shape_key, n_valid: Optional[int] = None)
         n_valid = x.shape[1]
     if x.device.type == "cpu":
         return cfft.same_kind(epilogue(x, e, lo, roll, gain, n_valid), pair)
-    if n2 != N2 or n1 not in N1S:
+    if not takes(n2, n1):
         raise ValueError(f"the cluster epilogue takes n2 = {N2} and n1 in {N1S}, "
                          f"got ({n2}, {n1})")
     if x.device.type != "cuda":

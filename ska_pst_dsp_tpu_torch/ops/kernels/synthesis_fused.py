@@ -11,8 +11,12 @@ only the kept, derippled passband bins, already in assembled spectrum order
 The epilogue follows the JAX package's dispatch (synthesis_fused.py:419-427):
 the fused epilogue (:mod:`.ifft_fused`) where :func:`.ifft_fused.plan_ifft`
 applies (low); else the out-of-core pair (:mod:`.ifft_big`) where
-:func:`.ifft_big.plan_big_ifft` applies (mid's 1.8M-point IFFT); otherwise
-the composed epilogue.
+:func:`.ifft_big.plan_big_ifft` applies (mid's 1.8M-point IFFT); otherwise,
+as there, the composed epilogue. On the card a :func:`plan_ifft` split the
+cluster kernel is not instantiated for goes to the out-of-core pair where
+that has kernels for it (512 channels at 4/3: 98304 = 256 * 384 points do
+not fit in a cluster's shared memory), and raises ValueError where neither
+has.
 """
 
 from __future__ import annotations
@@ -27,13 +31,18 @@ from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .. import cfft
 from ..synthesis import epilogue, frontend, synthesis_constants
-from . import _build, device_pass_twiddles, require, stream_of
+from . import _build, device_pass_twiddles, ifft_big, ifft_fused, require, stream_of
 from .ifft_big import fused_big_ifft_oc, plan_big_ifft
 from .ifft_fused import fused_big_ifft, plan_ifft
 
 #: frame lengths L the frontend kernel is instantiated for, with log2 L
 #: (csrc/synthesis_fused.cu pick_kernel)
 LENGTHS = {128: 7, 256: 8, 512: 9}
+
+
+def takes(L: int) -> bool:
+    """Whether the card has a frontend kernel for frame length L."""
+    return L in LENGTHS
 
 
 def synthesis_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
@@ -46,7 +55,7 @@ def synthesis_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     takes L in 128, 256 and 512 and raises ValueError for any other."""
     if x_tc.device.type == "cpu":
         return frontend(x_tc, t_taper, dr, perm, L, keep, kpos, n_blocks)
-    if L not in LENGTHS:
+    if not takes(L):
         raise ValueError(
             f"synthesis_fused takes L in {sorted(LENGTHS)} on the card, got {L}"
         )
@@ -91,7 +100,13 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
                     valid_len: Optional[int] = None) -> torch.Tensor:
     """Frontend kernel + epilogue on a (n_pol, n_dat, n_chan) view; the
     first ``valid_len`` samples (default all) are data. Returns
-    (n_pol, 1, n_blocks * output_keep) complex64."""
+    (n_pol, 1, n_blocks * output_keep) complex64.
+
+    The epilogue is the cluster kernel for :func:`.ifft_fused.plan_ifft`'s
+    split, or the out-of-core pair for it where only that has kernels for
+    the split, or the pair for :func:`.ifft_big.plan_big_ifft`'s; where no
+    plan applies, the composed epilogue, as in the JAX package. On the card
+    a frame length or a split no kernel takes raises ValueError."""
     n_pol, n_dat, _ = x_tc.shape
     L = geom.input_fft_length
     if n_dat < L:
@@ -109,9 +124,11 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     roll = geom.fn_width // 2 if spans_nyquist else 0
     gain = geom.os_factor.de / geom.os_factor.nu
     plan = plan_ifft(n, lo)
-    if plan is not None:
+    if plan is not None and (ifft_fused.takes(*plan) or not ifft_big.takes(*plan)):
         out = fused_big_ifft(flat, elem, shape_key=(n, *plan, lo, roll, gain),
                              n_valid=n_blocks)
+    elif plan is not None:
+        out = fused_big_ifft_oc(flat, elem, shape_key=(n, 1, *plan, lo, roll, gain))
     elif (big := plan_big_ifft(n, lo)) is not None:
         out = fused_big_ifft_oc(flat, elem, shape_key=(n, *big, lo, roll, gain))
     else:

@@ -8,11 +8,12 @@ out-of-core IFFT).
 
 The CUDA kernels cannot run here, so their decomposition is emulated in
 numpy: the same host tables (twiddle_table, pass_twiddles, ramp_table), the
-same index maps (strided loads, dft_rq_pos, the register passes' rev8
+same index maps (strided loads, the register passes' rev8
 outputs, the shared-memory swizzles, the four-step t = k2 + n2*k1) and the
-same split of each DFT (radix r, then radix-2 DIF in dft_smem.cuh or radix-8
-register passes in fft_reg.cuh) as csrc/*.cu, checked against np.fft and
-the plain versions. An index bug then shows here before the card. Tests marked ``cuda`` compare each kernel with its plain version
+same split of each DFT (radix r, then radix-8 register passes in
+fft_reg.cuh) and the same staging (work units, slots, bulk copies and the
+bytes each barrier expects) as csrc/*.cu, checked against np.fft and the
+plain versions. An index bug then shows here before the card. Tests marked ``cuda`` compare each kernel with its plain version
 on a card and skip without one; this module imports JAX only inside the
 tests that need it, so on a machine with a card and no JAX they run with
 ``python -m pytest --noconftest tests/test_torch_kernels.py -m cuda``.
@@ -33,7 +34,7 @@ from ska_pst_dsp_tpu_torch.ops.analysis import (
     ramp_table,
 )
 from ska_pst_dsp_tpu_torch.ops.kernels import (
-    pass_twiddles, radix, reg_plan, twiddle_table,
+    SMEM_LIMIT, pass_twiddles, radix, reg_plan, twiddle_table,
 )
 from ska_pst_dsp_tpu_torch.ops.kernels import chan_dft_fused as cdf
 from ska_pst_dsp_tpu_torch.ops.kernels import synthesis_fused as tsf
@@ -102,75 +103,125 @@ def _rel_err(got, ref):
 
 
 # ---------------------------------------------------------------------------
-# numpy emulation of csrc/dft_smem.cuh, csrc/fft_reg.cuh and the kernels
+# numpy emulation of csrc/fft_reg.cuh and the kernels
 # ---------------------------------------------------------------------------
 
-def _bitrev(v, bits):
-    v = np.asarray(v)
-    out = np.zeros_like(v)
-    for b in range(bits):
-        out |= ((v >> b) & 1) << (bits - 1 - b)
-    return out
+def emu_padded_fold(x, f2d_rev, step, slots=3, tiles=None):
+    """padded_fold_kernel on ``slots`` persistent blocks. Unit u (column
+    group fastest, then run, then polarization) holds its run's rows in
+    stream order: slot i is stream row S*k_run - D*phases + i. Step n (one
+    tile) waits for barrier n & 1 at parity (n >> 1) & 1; the boxes of step
+    n + 1 are issued before step n folds unless they are the next unit's
+    first and this tile's window still covers the buffer's start. Tile 0
+    loads slots [0, window_pad), tile t > 0 the ``slide`` slots after those
+    loaded before it, as boxes of box_rows rows x C columns of the tensor
+    (column, row < n_dat // W, polarization): rows outside it arrive as
+    zeros and count on the barrier like the others. The fold is the
+    residue-class one at the geometries of apf.SPECIALISED and direct
+    elsewhere.
 
-
-def _pos(k, n):
-    r, q, logq = radix(n)
-    k = np.asarray(k)
-    return (k % r) * q + _bitrev(k // r, logq)
-
-
-def emu_dft_rq(x, tab, tstride):
-    """dft_rq_inplace on rows of x (complex64), in the kernel's order."""
-    rows, n = x.shape
-    r, q, _ = radix(n)
-    y = x.astype(np.complex64)
-    if r > 1:
-        v = y.reshape(rows, r, q)  # v[:, i, col] = row[col + q*i]
-        col = np.arange(q)
-        out = np.empty_like(v)
-        for kr in range(r):
-            acc = v[:, 0, :].copy()
-            for i in range(1, r):
-                acc = acc + v[:, i, :] * tab[((i * kr) % r) * q * tstride]
-            out[:, kr, :] = acc * tab[((col * kr) % n) * tstride]
-        y = out.reshape(rows, n)
-    h = q // 2
-    while h >= 1:
-        s = y.reshape(rows, r, q // (2 * h), 2, h)
-        a, c = s[..., 0, :], s[..., 1, :]
-        w = tab[np.arange(h) * (n // (2 * h)) * tstride]
-        y = np.stack([a + c, (a - c) * w], axis=-2).reshape(rows, n)
-        h //= 2
-    return y
-
-
-def emu_padded_fold(x, f2d_rev, step):
-    """padded_fold_kernel: per (K_TILE spectra, C_TILE columns) tile, stage
-    the W-row view's rows S*k0 - D*phases + [0, rows) (zeros outside the
-    stream) and fold row S*k + D*m + d, column c into output j = d*W + c."""
+    Checked on the way: every box lies in the buffer on 128 bytes; each
+    barrier expects the bytes of its boxes; no box touches the window being
+    folded; every slot a tile reads was loaded for this unit's stream row,
+    exactly once. Returns the output (NaN where nothing was stored) and the
+    counts of rows {"copied", "before", "past", "advance"} (loaded from the
+    stream, zeros before its start, zeros past its last whole row, and the
+    rows the stored spectra advance by)."""
     n_pol, n_dat = x.shape
     phases, block = f2d_rev.shape
-    w, d_rows, s_rows = apf.fold_rows(block, step)
+    p = apf.plan(block, step, phases)
     kt, ct = apf.K_TILE, apf.C_TILE
-    rows = s_rows * (kt - 1) + d_rows * phases
-    assert rows * ct * 8 == apf.smem_bytes(block, step, phases)
-    nblocks = n_dat // step
-    f3 = f2d_rev.reshape(phases, d_rows, w)
-    out = np.zeros((n_pol, nblocks, d_rows, w), np.complex64)
-    k, d = np.arange(kt)[:, None], np.arange(d_rows)[None, :]
-    for p in range(n_pol):
-        for k0 in range(0, nblocks, kt):
+    nblocks, n_rows = n_dat // step, n_dat // p.w
+    n_cg = p.w // ct
+    if tiles is None:
+        tiles = apf.seg_tiles(p, nblocks, n_pol * n_cg, slots)
+    assert 1 <= tiles <= p.max_tiles and p.slide % p.box_rows == 0
+    assert p.box_rows <= apf.BOX_ROWS and 2 * ct <= 256  # the engine's box limits
+    assert apf.smem_bytes(block, step, phases, tiles) <= SMEM_LIMIT
+    n_seg = -(-(-(-nblocks // kt)) // tiles)
+    n_units = n_pol * n_seg * n_cg
+    buf_rows = p.window_pad + p.slide * (tiles - 1)
+    assert apf.smem_bytes(block, step, phases, tiles) == apf.HEADER + buf_rows * ct * 8
+    special = (phases, p.s, p.d) in apf.SPECIALISED
+    f3 = f2d_rev.reshape(phases, p.d, p.w)
+    out = np.full((n_pol, nblocks, p.d, p.w), np.nan, np.complex64)
+    counts = {"copied": 0, "before": 0, "past": 0, "advance": 0}
+    d_i, c_i = np.arange(p.d)[:, None], np.arange(ct)[None, :]
+
+    def unit_of(u):
+        cg, rest = u % n_cg, u // n_cg
+        seg, pol = rest % n_seg, rest // n_seg
+        k_run = seg * tiles * kt
+        return dict(id=u, pol=pol, c0=cg * ct, k_run=k_run,
+                    tiles=min(tiles, -(-(nblocks - k_run) // kt)),
+                    r0=p.s * k_run - p.d * phases)
+
+    for blk in range(min(slots, n_units)):
+        buf = np.full((buf_rows, ct), np.nan, np.complex64)
+        tag = np.full((buf_rows, 2), -1, np.int64)  # (unit, stream row) of each slot
+        writes = {}
+        done = [0, 0]  # completed phases of the two barriers
+
+        def issue(u, t, bar, live):
+            lo = 0 if t == 0 else p.window_pad + p.slide * (t - 1)
+            hi = p.window_pad + p.slide * t
+            assert hi <= buf_rows and (hi - lo) % p.box_rows == 0
+            assert live is None or hi <= live[0] or lo >= live[1]
+            expect, copied = (hi - lo) * ct * 8, 0
+            for slot in range(lo, hi, p.box_rows):
+                assert (apf.HEADER + slot * ct * 8) % 128 == 0
+                r = u["r0"] + slot + np.arange(p.box_rows)
+                inside = (r >= 0) & (r < n_rows)
+                src = np.clip(r, 0, n_rows - 1)[:, None] * p.w + u["c0"] + c_i
+                buf[slot:slot + p.box_rows] = np.where(inside[:, None], x[u["pol"]][src], 0)
+                copied += p.box_rows * ct * 8
+                counts["copied"] += int(inside.sum())
+                counts["before"] += int((r < 0).sum())
+                counts["past"] += int((r >= n_rows).sum())
+            assert copied == expect and expect < 2 ** 20  # the barrier's tx-count range
+            for slot in range(lo, hi):
+                tag[slot] = (u["id"], u["r0"] + slot)
+                writes[(u["id"], slot)] = writes.get((u["id"], slot), 0) + 1
+            done[bar] += 1
+
+        unit, t, n = blk, 0, 0
+        u = unit_of(unit)
+        issue(u, 0, 0, None)
+        while unit < n_units:
+            nxt_unit, nxt_t = (unit, t + 1) if t + 1 < u["tiles"] else (unit + slots, 0)
+            has_next = nxt_unit < n_units
+            nu = unit_of(nxt_unit) if has_next and nxt_t == 0 else u
+            base = p.slide * t
+            early = has_next and (nxt_t > 0 or base >= p.window_pad)
+            if early:
+                issue(nu, nxt_t, (n + 1) & 1, (base, base + p.window))
+            assert done[n & 1] == (n >> 1) + 1  # the wait's parity is this phase's
+            sl = slice(base, base + p.window)
+            assert (tag[sl, 0] == unit).all()
+            assert (tag[sl, 1] == u["r0"] + np.arange(sl.start, sl.stop)).all()
+            k0 = u["k_run"] + t * kt
             kv = min(kt, nblocks - k0)
-            for c0 in range(0, w, ct):
-                s = (s_rows * k0 - d_rows * phases + np.arange(rows))[:, None] * w \
-                    + c0 + np.arange(ct)[None, :]
-                ok = (s >= 0) & (s < n_dat)
-                buf = np.where(ok, x[p, np.clip(s, 0, n_dat - 1)], 0).astype(np.complex64)
-                acc = np.zeros((kt, d_rows, ct), np.complex64)
+            taps = f3[:, :, u["c0"]:u["c0"] + ct]
+            acc = np.zeros((kt, p.d, ct), np.complex64)
+            if special:
+                u_n = kt // p.d
+                n_row = p.s * (u_n - 1) + phases
+                for rho in range(p.d):
+                    i = np.arange(n_row)[:, None, None]
+                    v = buf[base + p.s * rho + d_i[None] + p.d * i, c_i[None]]
+                    for q in range(u_n):
+                        acc[rho + p.d * q] = (taps * v[p.s * q:p.s * q + phases]).sum(0)
+            else:
+                kk = np.arange(kt)[:, None, None]
                 for m in range(phases):
-                    acc += f3[m, :, c0:c0 + ct][None] * buf[s_rows * k + d_rows * m + d]
-                out[p, k0:k0 + kv, :, c0:c0 + ct] = acc[:kv]
-    return out.reshape(n_pol, nblocks, block)
+                    acc += taps[m][None] * buf[base + p.s * kk + p.d * m + d_i[None], c_i[None]]
+            out[u["pol"], k0:k0 + kv, :, u["c0"]:u["c0"] + ct] = acc[:kv]
+            counts["advance"] += p.s * kv
+            if has_next and not early:
+                issue(nu, nxt_t, (n + 1) & 1, None)
+            unit, t, u, n = nxt_unit, nxt_t, nu, n + 1
+        assert set(writes.values()) <= {1}
+    return out.reshape(n_pol, nblocks, block), counts
 
 
 def _dft_matrix(rad, sign=1):
@@ -453,60 +504,67 @@ def emu_analysis(x, f2d, ramp, step, block0):
     return out
 
 
-def emu_8x16(v, tw_pass, sign=1):
-    """The cluster kernel's 128-point transform of v [..., 128]: the radix-8
-    pass of span 16 (butterfly j reads points j + 16*m, output d times the
-    per-pass table's w_128^(j*d), to point j + 16*d), then the 16-point DFT
-    of each group d in registers. Returns [..., d, k] holding output
-    d + 8*k."""
-    x = v.reshape(*v.shape[:-1], 8, 16)  # [m, j]
+def emu_8xg(v, tw_pass, sign=1):
+    """The cluster kernel's transform of v [..., Q], Q = 8*G in {64, 128}:
+    the radix-8 pass of span G (butterfly j reads points j + G*m, output d
+    times w_Q^(j*d) = the 128-point per-pass table's entry
+    (d - 1)*16 + (16/G)*j, to point j + G*d), then the G-point DFT of each
+    group d in registers. Returns [..., d, k] holding output d + 8*k."""
+    g = v.shape[-1] // 8
+    x = v.reshape(*v.shape[:-1], 8, g)  # [m, j]
     y = np.einsum("...mj,md->...dj", x, _dft_matrix(8, sign))
-    j, d = np.arange(16)[None, :], np.arange(8)[:, None]
-    tw = np.where((j == 0) | (d == 0), np.complex64(1), tw_pass[((d - 1) * 16 + j) % 112])
-    return (y * tw) @ _dft_matrix(16, sign)  # [..., d, k]
+    j, d = np.arange(g)[None, :], np.arange(8)[:, None]
+    tw = np.where((j == 0) | (d == 0), np.complex64(1),
+                  tw_pass[((d - 1) * 16 + (16 // g) * j) % 112])
+    return (y * tw) @ _dft_matrix(g, sign)  # [..., d, k]
 
 
 def emu_cluster_epilogue(X, elem, n, lo, roll, gain, n_valid):
-    """ifft_cluster_kernel on each transform, four blocks of a cluster:
-    block c's columns m1 in [c*n1/4, (c+1)*n1/4) of all 128 rows (the bulk
-    copies), times elem; the 128-point transforms over m2 (emu_8x16, sign
-    +1); output k2 = d + 8*k of group d times tw_a[k2 // 16, m1] *
-    tw_b[k2 % 16, m1], written to row k2 % 32 of block k2 // 32's receive
-    buffer (each slot exactly once); each block's rows, m1 = j + 16*m +
-    128*alpha: the radix-r1 DFT over alpha times w_n1^((j + 16*m)*kr), then
-    emu_8x16 over (m, j) of each sub-row kr; the kept k1 = kr + r1*(d + 8*k)
-    only, times roll_row[k2] * gain/N * roll_col[k1], at t - lo = k2 +
-    128*(k1 - k1_lo). Returns the output (NaN where nothing was stored) and
-    the count of stores per sample."""
+    """ifft_cluster_kernel on each transform, the CL blocks of a cluster
+    (itf.PLANS: n1 = r1 * q1, q1 = 8*G): block c's columns m1 in
+    [c*n1/CL, (c+1)*n1/CL) of all 128 rows (the bulk copies, each a whole
+    number of 16 bytes from a 16-byte offset), times elem; the 128-point
+    transforms over m2 (emu_8xg, sign +1); output k2 = d + 8*k of group d
+    times tw_a[k2 // 16, m1] * tw_b[k2 % 16, m1], written to row
+    k2 % (128/CL) of block k2 // (128/CL)'s receive buffer (each slot
+    exactly once); each block's rows, m1 = j + G*m + q1*alpha: the radix-r1
+    DFT over alpha times w_n1^((j + G*m)*kr), then emu_8xg over (m, j) of
+    each sub-row kr; the kept k1 = kr + r1*(d + 8*k) only, times
+    roll_row[k2] * gain/N * roll_col[k1], at t - lo = k2 + 128*(k1 - k1_lo).
+    Returns the output (NaN where nothing was stored) and the count of
+    stores per sample."""
     n2 = itf.N2
     n1 = n // n2
-    r1 = n1 // 128
-    cpc, rows = n1 // itf.CLUSTER, n2 // itf.CLUSTER
+    r1, q1, cl = itf.PLANS[n1]
+    assert r1 * q1 == n1
+    cpc, rows = n1 // cl, n2 // cl
+    assert cpc * cl == n1 and (cpc * 8) % 16 == 0  # whole, aligned bulk copies
     tab = itf.cluster_tables(n, n1, roll % n)
     k1_lo, n1_keep = lo // n2, (n - 2 * lo) // n2
     n_pol = X.shape[0]
     out = np.full((n_pol, n_valid, n - 2 * lo), np.nan, np.complex64)
     stores = np.zeros(out.shape, np.int64)
-    dk = np.arange(8)[:, None] + 8 * np.arange(16)[None, :]  # [d, k]: d + 8*k
+    dk16 = np.arange(8)[:, None] + 8 * np.arange(16)[None, :]  # [d, k]: d + 8*k
+    dk = np.arange(8)[:, None] + 8 * np.arange(q1 // 8)[None, :]
     for p in range(n_pol):
         for b in range(n_valid):
             w = X[p, b] if elem is None else X[p, b] * elem
-            recv = np.full((itf.CLUSTER, rows, n1), np.nan, np.complex64)
-            for c in range(itf.CLUSTER):
+            recv = np.full((cl, rows, n1), np.nan, np.complex64)
+            for c in range(cl):
                 m1 = c * cpc + np.arange(cpc)
                 col = np.ascontiguousarray(w.reshape(n2, n1)[:, m1].T)  # [c, m2]
-                y = emu_8x16(col, tab["tw_pass"])  # [c, d, k]
-                k2 = dk.ravel()
+                y = emu_8xg(col, tab["tw_pass"])  # [c, d, k]
+                k2 = dk16.ravel()
                 tw = tab["tw_a"][k2 >> 4][:, m1] * tab["tw_b"][k2 & 15][:, m1]  # [k2, c]
                 blk, kl = k2 // rows, k2 % rows
                 assert np.isnan(recv[blk[:, None], kl[:, None], m1[None, :]]).all()
                 recv[blk[:, None], kl[:, None], m1[None, :]] = y.reshape(cpc, 128).T * tw
             assert not np.isnan(recv).any()  # every slot of every block written
-            for blk in range(itf.CLUSTER):
-                v = recv[blk].reshape(rows, r1, 128)  # [kl, alpha, j + 16*m]
+            for blk in range(cl):
+                v = recv[blk].reshape(rows, r1, q1)  # [kl, alpha, j + G*m]
                 if r1 > 1:
-                    v = emu_radix_step(v, tab["tw_n1"], 128)  # [kl, kr, j + 16*m]
-                y = emu_8x16(v, tab["tw_pass"])  # [kl, kr, d, k]
+                    v = emu_radix_step(v, tab["tw_n1"], q1)  # [kl, kr, j + G*m]
+                y = emu_8xg(v, tab["tw_pass"])  # [kl, kr, d, k]
                 k2 = blk * rows + np.arange(rows)
                 k1 = np.arange(r1)[:, None, None] + r1 * dk[None]  # [kr, d, k]
                 kept = (k1 >= k1_lo) & (k1 < k1_lo + n1_keep)
@@ -561,37 +619,12 @@ def emu_ifft_big(X, elem, n2, n1, lo, roll, gain):
 
 
 class TestDecomposition:
-    @pytest.mark.parametrize("n", [8, 96, 128, 256, 384])
-    @pytest.mark.parametrize("sign", [-1, 1])
-    def test_dft_rq_matches_numpy(self, n, sign):
-        x = _noise((5, n), n)
-        y = emu_dft_rq(x, twiddle_table(n, sign), 1)[:, _pos(np.arange(n), n)]
-        ref = np.fft.fft(x) if sign < 0 else np.fft.ifft(x) * n
-        assert _rel_err(y, ref) < 2e-6
-
-    def test_strided_table(self):
-        # the epilogue reads its 128- and 384-point twiddles from one
-        # 49152-point table at strides n/n2 and n/n1
-        tab = twiddle_table(N, 1)
-        x = _noise((3, 384), 9)
-        y = emu_dft_rq(x, tab, N // 384)[:, _pos(np.arange(384), 384)]
-        assert _rel_err(y, np.fft.ifft(x) * 384) < 2e-6
-
     def test_radix_split(self):
         assert radix(256) == (1, 256, 8)
         assert radix(384) == (3, 128, 7)
         assert radix(3584) == (7, 512, 9)
         with pytest.raises(ValueError, match="odd factors"):
             radix(320)
-
-    @pytest.mark.parametrize("n", [56, 896, 3584])
-    @pytest.mark.parametrize("sign", [-1, 1])
-    def test_dft_r7_matches_numpy(self, n, sign):
-        # 3584 = 7 * 512: mid's inner IFFT length (radix-7 step, then radix 2)
-        x = _noise((3, n), n + 1)
-        y = emu_dft_rq(x, twiddle_table(n, sign), 1)[:, _pos(np.arange(n), n)]
-        ref = np.fft.fft(x) if sign < 0 else np.fft.ifft(x) * n
-        assert _rel_err(y, ref) < 2e-6
 
     def test_twiddle_table_exact_phase(self):
         tab = twiddle_table(49152, 1)
@@ -689,6 +722,43 @@ class TestDecomposition:
         ref = tsynth.epilogue(torch.as_tensor(X), torch.as_tensor(elem), lo, 31, 0.75, 2)
         assert _rel_err(got, ref.numpy()) < SYNTHESIS_TOL
 
+    @pytest.mark.parametrize("n_chan,os_f,ov,n1", [
+        (128, Rational(4, 3), 48, 192),  # 3 * 64 on a cluster of four
+        (256, Rational(8, 7), 32, 448),  # 7 * 64 on a cluster of eight
+    ])
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_epilogue_emulation_q64(self, n_chan, os_f, ov, n1, with_elem):
+        # the instantiations whose row transform is r1 * 64, at the
+        # inversion geometries that reach them (L = 256)
+        g = geometry.SynthesisGeometry(n_chan, 256, ov, os_f)
+        n, lo = g.output_fft_length, g.output_overlap
+        assert plan_ifft(n, lo) == (itf.N2, n1) and itf.PLANS[n1][1] == 64
+        X = _noise((1, 2, n), 44)
+        elem = _noise((n,), 45) if with_elem else None
+        roll, gain = g.fn_width // 2, os_f.de / os_f.nu
+        got, stores = emu_cluster_epilogue(X, elem, n, lo, roll, gain, 2)
+        assert (stores == 1).all()
+        ref = tsynth.epilogue(torch.as_tensor(X),
+                              None if elem is None else torch.as_tensor(elem),
+                              lo, roll, gain, 2).numpy()
+        assert _rel_err(got, ref) < SYNTHESIS_TOL
+
+    @pytest.mark.parametrize("n1", list(itf.PLANS))
+    def test_cluster_plan_fits(self, n1):
+        # csrc/ifft_fused.cu ClusterPlan: columns, rows of n1 + 1 points and
+        # tables of one block of the cluster fit in its shared memory
+        r1, q1, cl = itf.PLANS[n1]
+
+        def smem(blocks):
+            cpc, rows = n1 // blocks, itf.N2 // blocks
+            return 16 + 8 * (itf.N2 * cpc + rows * (n1 + 1) + 126 + (n1 if r1 > 1 else 0)
+                             + 24 * cpc + rows + n1)
+
+        assert r1 * q1 == n1 and q1 in (64, 128) and cl in (4, 8)
+        assert smem(cl) <= SMEM_LIMIT
+        # four blocks would not hold 448: that is why it runs on eight
+        assert cl == 4 or smem(4) > SMEM_LIMIT
+
     def test_cluster_tables_exact(self):
         # the N-level twiddle over every (m1, k2) and the factored roll phase
         # over every kept t, within 2 ulp of the phase of the exact integer
@@ -703,31 +773,127 @@ class TestDecomposition:
         got = t["roll_row"][tt % 128] * t["roll_col"][tt // 128]
         assert np.abs(got - np.exp(-2j * np.pi * ((ROLL * tt) % N) / N)).max() <= 2 * ulp
         assert t["tw_pass"].size == 126 and t["tw_a"].shape == (8, 384)
-        # emu_8x16 is the 128-point backward DFT with outputs d + 8*k
+        # emu_8xg is the 128-point backward DFT with outputs d + 8*k
         x = _noise((3, 128), 49)
-        y = emu_8x16(x, t["tw_pass"]).reshape(3, 8, 16)
+        y = emu_8xg(x, t["tw_pass"]).reshape(3, 8, 16)
         got = np.empty_like(x)
         got[:, (np.arange(8)[:, None] + 8 * np.arange(16)[None, :]).ravel()] = y.reshape(3, 128)
         assert _rel_err(got, np.fft.ifft(x) * 128) < 2e-6
 
-    @pytest.mark.parametrize("block,os_f,wds", [(512, Rational(4, 3), (128, 4, 3)),
-                                                (1024, Rational(8, 7), (128, 8, 7))])
-    def test_padded_fold_emulation(self, block, os_f, wds):
+    # (block, os, n_pol, spectra, extra samples, resident blocks, tiles per
+    # run or None for the wrapper's choice). K = apf.K_TILE = 32.
+    PADDED_CASES = {
+        # 2.3 tiles: the first reads before the stream start, the last is
+        # ragged; n_dat odd (the wrapper hands the tensor map a copy with an
+        # even polarization stride) and not a multiple of W
+        "512-4/3": (512, Rational(4, 3), 2, 73, 11, 3, None),
+        "1024-8/7": (1024, Rational(8, 7), 2, 73, 11, 3, None),
+        # mid's own geometry (25 phases, S = 7, D = 8: the residue-class
+        # fold) at a cut length, odd n_dat
+        "mid": (4096, Rational(8, 7), 2, 70, 5, 5, None),
+        # one polarization, every tile a run of its own
+        "mid-1pol-runs-of-1": (4096, Rational(8, 7), 1, 40, 513, 4, 1),
+        # a stream shorter than one tile
+        "mid-short": (4096, Rational(8, 7), 2, 9, 100, 7, None),
+        # runs of two tiles: the stream ends on a run boundary, whole tiles,
+        # n_dat a multiple of W ...
+        "runs-end-on-tile": (1024, Rational(8, 7), 2, 128, 0, 2, 2),
+        # ... and in the middle of a run's second tile
+        "runs-end-ragged": (1024, Rational(8, 7), 2, 101, 7, 2, 2),
+        # three polarizations of odd length on two blocks, the longest runs
+        "3pol-odd": (512, Rational(4, 3), 3, 150, 1, 2, 16),
+    }
+
+    @staticmethod
+    def _padded_case(name):
+        block, os_f, n_pol, spectra, extra, slots, tiles = TestDecomposition.PADDED_CASES[name]
         step = geometry.analysis_step(block, os_f)
-        assert apf.fold_rows(block, step) == wds
-        f2d_rev = _prep_filter(fir.design_pfb_fir_filter(block, os_f, 4), block,
-                               reverse=True)
-        # 2.3 spectrum tiles: the first reads before the stream start, the
-        # last is ragged
-        x = _noise((2, (2 * apf.K_TILE + 9) * step + 11), 25)
-        got = emu_padded_fold(x, f2d_rev, step)
+        if block == 4096:  # 25 phases as the mid filter's, any coefficients
+            f = np.random.default_rng(4).standard_normal(100353)
+        else:
+            f = fir.design_pfb_fir_filter(block, os_f, 4)
+        f2d_rev = _prep_filter(f, block, reverse=True)
+        x = _noise((n_pol, spectra * step + extra), 25)
+        return x, f2d_rev, step, slots, tiles
+
+    def _check_padded_emulation(self, name):
+        x, f2d_rev, step, slots, tiles = self._padded_case(name)
+        got, _ = emu_padded_fold(x, f2d_rev, step, slots, tiles)
+        assert not np.isnan(got).any()  # every spectrum's every channel stored
         ref = padded_fold(torch.as_tensor(x), torch.as_tensor(f2d_rev), step).numpy()
         assert _rel_err(got, ref) < PADDED_TOL
 
+    @pytest.mark.parametrize("block,os_f,wds", [(512, Rational(4, 3), (128, 4, 3)),
+                                                (1024, Rational(8, 7), (128, 8, 7))])
+    def test_padded_fold_emulation(self, block, os_f, wds):
+        assert apf.fold_rows(block, geometry.analysis_step(block, os_f)) == wds
+        self._check_padded_emulation(f"{block}-{os_f.nu}/{os_f.de}")
+
+    @pytest.mark.parametrize("name", list(PADDED_CASES)[2:])
+    def test_padded_fold_emulation_cases(self, name):
+        self._check_padded_emulation(name)
+
+    @pytest.mark.parametrize("name", ["512-4/3", "mid", "runs-end-ragged"])
+    def test_padded_fold_rows_staged_once(self, name):
+        # emu_padded_fold asserts that every box lies in the buffer, that
+        # each barrier's expected bytes are its boxes' and that every slot
+        # is loaded once per unit before it is read; here the totals: each
+        # run stages its window in whole boxes plus one slide per further
+        # tile, the first run of each (polarization, column group) gets the
+        # D*phases rows before the stream as zeros, and only the boxes that
+        # overhang the last whole row read past it
+        x, f2d_rev, step, slots, tiles = self._padded_case(name)
+        _, counts = emu_padded_fold(x, f2d_rev, step, slots, tiles)
+        n_pol, n_dat = x.shape
+        phases, block = f2d_rev.shape
+        p = apf.plan(block, step, phases)
+        nblocks, lanes = n_dat // step, n_pol * (p.w // apf.C_TILE)
+        if tiles is None:
+            tiles = apf.seg_tiles(p, nblocks, lanes, slots)
+        assert counts["before"] == lanes * p.d * phases
+        assert counts["advance"] == lanes * p.s * nblocks
+        staged, past = 0, 0
+        for k_run in range(0, nblocks, tiles * apf.K_TILE):
+            n_t = min(tiles, -(-(nblocks - k_run) // apf.K_TILE))
+            rows = p.window_pad + p.slide * (n_t - 1)
+            staged += rows
+            past += max(0, p.s * k_run - p.d * phases + rows - n_dat // p.w)
+        assert counts["copied"] + counts["before"] + counts["past"] == lanes * staged
+        assert counts["past"] == lanes * past
+
     def test_padded_fold_mid_smem(self):
-        # mid: W = 512, D = 8, S = 7, 25 phases -> 417 staged rows x 32
+        # mid: W = 512, D = 8, S = 7, 25 phases -> a window of 417 rows, 224
+        # more per tile in one box, the window in two (448 rows) of 16
+        # samples, seven tiles in 227 KB; at the main path's size (1280
+        # spectra, 2 x 32 column groups, 132 resident blocks) runs of seven
+        # tiles: 384 units in three rounds, the input staged 1792 / 1568 =
+        # 1.14 times
         assert apf.fold_rows(4096, 3584) == (512, 8, 7)
-        assert apf.smem_bytes(4096, 3584, 25) == 417 * 32 * 8 == 106_752
+        p = apf.plan(4096, 3584, 25)
+        assert p == apf.FoldPlan(512, 8, 7, 417, 224, 224, 448, 7)
+        assert apf.smem_bytes(4096, 3584, 25) == 128 + 448 * 16 * 8 == 57_472
+        assert apf.smem_bytes(4096, 3584, 25, 7) == 128 + 1792 * 128 <= SMEM_LIMIT
+        assert apf.smem_bytes(4096, 3584, 25, 8) > SMEM_LIMIT
+        assert apf.seg_tiles(p, 1280, 64, 132) == 7
+        assert apf.seg_tiles(p, 9, 64, 132) == 1
+        assert (25, 7, 8) in apf.SPECIALISED
+
+    @pytest.mark.parametrize("block,step,phases,ok", [
+        (4096, 3584, 25, True), (1024, 896, 5, True), (512, 384, 5, True),
+        (256, 224, 5, True),     # W = 32: two column groups
+        (4096, 3584, 200, False),  # a window of 1817 rows does not fit
+        (200, 175, 5, False),    # W = 25
+        (384, 336, 5, True),     # W = 48: a multiple of 16, not of 32
+    ])
+    def test_padded_fold_takes(self, block, step, phases, ok):
+        # the predicate, and the raw wrapper raising from it before any
+        # launch (meta tensors: no data, no card)
+        assert apf.takes(block, step, phases) == ok
+        meta = torch.device("meta")
+        x = torch.empty((2, 40 * step), dtype=torch.complex64, device=meta)
+        f = torch.empty((phases, block), device=meta)
+        with pytest.raises(ValueError, match="runs on cuda or cpu" if ok else "the card needs"):
+            apf.padded_fold_fused(x, f, step)
 
     @pytest.mark.parametrize("block", [512, 1024, 3072, 4096])
     @pytest.mark.parametrize("block0,delay", [(0, 0), (5, 3), (3, 40)])
@@ -838,7 +1004,7 @@ class TestDecomposition:
             # columns [m2][n1/4] dense, lanes on neighbouring columns; the
             # exchange: lanes on neighbouring m1 of one row; the rows: lanes
             # on 16 of the 32 rows of n1 + 1 points at one offset
-            cpc = n // itf.CLUSTER
+            cpc = n // itf.PLANS[n][2]
             for m2 in range(128):
                 assert len(set((m2 * cpc + lanes) % 16)) == 16
             for off in range(0, n - 15, 16):
@@ -915,7 +1081,8 @@ ptxas info    : Used 118 registers, used 1 barriers, 444 bytes cmem[0]
         flat = torch.empty((2, 3, 256 * 192), dtype=torch.complex64, device=meta)
         with pytest.raises(ValueError, match="cluster epilogue takes"):
             fused_big_ifft(flat, shape_key=(256 * 192, 256, 192, 0, 0, 1.0))
-        assert af.BLOCKS == (128, 256, 384, 512, 768, 1024) and itf.N1S == (128, 384)
+        assert af.BLOCKS == (128, 256, 384, 512, 768, 1024)
+        assert itf.N1S == (128, 192, 384, 448)
         assert sorted(cdf.BLOCKS) == [512, 1024, 2048, 3072, 4096]
         assert sorted(tsf.LENGTHS) == [128, 256, 512]
 
@@ -1146,6 +1313,182 @@ class TestPlainVsPallas:
                         np.asarray(jr) + 1j * np.asarray(ji)) < BIG_IFFT_TOL
 
 
+#: geometries the JAX package's fused path computes beside the two main
+#: paths' (channels, OS, L, overlap, the split plan_ifft gives, and the
+#: epilogue kernel that split goes to on the card)
+EXTRA = {
+    "512ch-4/3": (512, Rational(4, 3), 256, 48, (256, 384), "pair"),
+    "128ch-4/3": (128, Rational(4, 3), 256, 48, (128, 192), "cluster"),
+    "256ch-8/7": (256, Rational(8, 7), 256, 32, (128, 448), "cluster"),
+}
+
+
+class TestDropIns:
+    """The public fused functions take on the card every geometry the JAX
+    package's fused path takes, on a hand-written kernel; what no kernel is
+    instantiated for they refuse there (ValueError before any launch) and
+    run as the plain version on the CPU only."""
+
+    @pytest.mark.parametrize("name", ["low", "low_alt", "sps", "low_external", "mid",
+                                      "mid_external"])
+    def test_configurations_are_taken(self, name):
+        # every configuration of config/test.config.json on a fused path:
+        # each kernel its geometry reaches has an instantiation
+        from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+        cfg = load_config(name)
+        block, os_f = cfg.channels, Rational(cfg.os_factor.nu, cfg.os_factor.de)
+        step = geometry.analysis_step(block, os_f)
+        phases = geometry.padded_filter_length(cfg.fir_filter_taps, block) // block
+        if cfg.analysis_function == "polyphase_analysis_padded":
+            assert apf.takes(block, step, phases) and cdf.takes(block)
+        else:
+            assert af.takes(block, step, phases, block // math.gcd(step, block))
+        if name == "sps":  # stage one of a cascade: its own inversion is not integral
+            return
+        assert tsf.takes(cfg.input_fft_length)
+        g = geometry.SynthesisGeometry(block, cfg.input_fft_length, cfg.input_overlap, os_f)
+        small = plan_ifft(g.output_fft_length, g.output_overlap)
+        large = plan_big_ifft(g.output_fft_length, g.output_overlap)
+        expect = {"mid": (None, (7, 512, 512)),
+                  "mid_external": (None, (7, 256, 512))}.get(name, ((128, 384), None))
+        assert (small, large) == expect
+        assert small is None or itf.takes(*small)
+        assert large is None or big.takes(large[0] * large[1], large[2])
+
+    @pytest.mark.parametrize("name", list(EXTRA))
+    def test_extra_geometries_are_taken(self, name):
+        # the analysis and the frontend have kernels for them; the epilogue's
+        # split goes to the cluster kernel, or, where a block does not fit in
+        # a cluster's shared memory, to the out-of-core pair
+        n_chan, os_f, n_l, ov, split, kernel = EXTRA[name]
+        g = geometry.SynthesisGeometry(n_chan, n_l, ov, os_f)
+        n, lo = g.output_fft_length, g.output_overlap
+        step = geometry.analysis_step(n_chan, os_f)
+        assert af.takes(n_chan, step, 5, n_chan // math.gcd(step, n_chan)) and tsf.takes(n_l)
+        assert plan_ifft(n, lo) == split and plan_big_ifft(n, lo) is None
+        assert itf.takes(*split) == (kernel == "cluster")
+        assert itf.takes(*split) or big.takes(*split)
+        if kernel == "pair":  # the raw cluster wrapper refuses it from the same predicate
+            flat = torch.empty((1, 2, n), dtype=torch.complex64, device="meta")
+            with pytest.raises(ValueError, match="cluster epilogue takes"):
+                fused_big_ifft(flat, shape_key=(n, *split, lo, 0, 1.0))
+
+    @pytest.mark.parametrize("name", list(EXTRA))
+    def test_extra_epilogue_dispatch(self, name, monkeypatch):
+        # fused_inversion hands each split to the wrapper of the kernel that
+        # takes it, with that wrapper's key
+        n_chan, os_f, n_l, ov, split, kernel = EXTRA[name]
+        g = geometry.SynthesisGeometry(n_chan, n_l, ov, os_f)
+        n, lo = g.output_fft_length, g.output_overlap
+        calls = []
+
+        def record(which, wrapped):
+            def fn(flat, elem=None, **kw):
+                calls.append((which, kw["shape_key"][:-3]))
+                return wrapped(flat, elem, **kw)
+            return fn
+
+        monkeypatch.setattr(tsf, "fused_big_ifft", record("cluster", fused_big_ifft))
+        monkeypatch.setattr(tsf, "fused_big_ifft_oc", record("pair", fused_big_ifft_oc))
+        x = _noise((1, n_chan, 2 * ov + g.input_keep), 55)
+        got = polyphase_synthesis_fused(x, n_l, os_f, input_overlap=ov)
+        key = (n, *split) if kernel == "cluster" else (n, 1, *split)
+        assert calls == [(kernel, key)]
+        ref = tsynth.polyphase_synthesis(torch.as_tensor(x), n_l, os_f, input_overlap=ov)
+        assert torch.equal(got, ref)
+
+    @pytest.mark.parametrize("name", list(EXTRA))
+    def test_extra_analysis_matches_jax(self, name, pallas):
+        n_chan, os_f = EXTRA[name][:2]
+        f = fir.design_pfb_fir_filter(n_chan, os_f, 4)
+        step = geometry.analysis_step(n_chan, os_f)
+        x = _noise((1, 1, f.size + 40 * step + 5), 50)
+        got = polyphase_analysis_fused(x, f, n_chan, os_f).numpy()
+        ref = np.asarray(pallas[0].polyphase_analysis_fused(x, f, n_chan, os_f,
+                                                            interpret=True))
+        assert _rel_err(got, ref) < ANALYSIS_TOL
+
+    @pytest.mark.parametrize("name", list(EXTRA))
+    def test_extra_synthesis_matches_jax(self, name, pallas):
+        n_chan, os_f, n_l, ov = EXTRA[name][:4]
+        f = fir.design_pfb_fir_filter(n_chan, os_f, 4)
+        g = geometry.SynthesisGeometry(n_chan, n_l, ov, os_f)
+        x = _noise((1, n_chan, 2 * ov + 2 * g.input_keep), 51)
+        kw = dict(input_overlap=ov, deripple_coeff=f, temporal_taper="tukey")
+        got = polyphase_synthesis_fused(x, n_l, os_f, **kw).numpy()
+        ref = np.asarray(pallas[1].polyphase_synthesis_fused(x, n_l, os_f, interpret=True,
+                                                             **kw))
+        assert _rel_err(got, ref) < SYNTHESIS_TOL
+
+    @pytest.mark.parametrize("block,os_f", [(2048, Rational(4, 3)),  # W = 512, S = 3
+                                            (640, Rational(4, 3))])
+    def test_analysis_not_taken(self, block, os_f):
+        # a block the analysis kernel is not instantiated for: the plain
+        # version on the CPU, ValueError off it (a meta tensor: no data, no card)
+        f = fir.design_pfb_fir_filter(block, os_f, 4)
+        step = geometry.analysis_step(block, os_f)
+        x = _noise((1, f.size + 9 * step), 52)
+        assert not af.takes(block, step, 5, block // math.gcd(step, block))
+        got = polyphase_analysis_fused(x, f, block, os_f, block0=2, time_major=True)
+        ref = analysis_core(torch.as_tensor(x), torch.as_tensor(_prep_filter(f, block)),
+                            torch.as_tensor(ramp_table(block, step)), step, 2)
+        assert torch.equal(got, ref)
+        before = analysis_fused.launches
+        with pytest.raises(ValueError, match="takes blocks"):
+            polyphase_analysis_fused(torch.as_tensor(x, device="meta"), f, block, os_f)
+        assert analysis_fused.launches == before
+
+    @pytest.mark.parametrize("block,os_f,match", [
+        (256, Rational(8, 7), "chan_dft_ramp takes blocks"),  # the fold takes W = 32
+        (200, Rational(8, 7), "chan_dft_ramp takes blocks"),  # W = 25: neither kernel
+        (1024, Rational(8, 7), None),                         # both kernels take it
+    ])
+    @pytest.mark.parametrize("time_major", [False, True])
+    def test_padded_not_taken(self, block, os_f, match, time_major):
+        from ska_pst_dsp_tpu.ops import polyphase_analysis_padded as jax_padded
+
+        f = fir.design_pfb_fir_filter(block, os_f, 4)
+        x = _noise((2, 30 * block), 53)
+        got = apf.polyphase_analysis_padded_fused(x, f, block, os_f, block0=3,
+                                                  time_major=time_major).numpy()
+        ref = np.asarray(jax_padded(x, f, block, os_f, block0=3))
+        assert _rel_err(got.transpose(0, 2, 1) if time_major else got, ref) < PADDED_TOL
+        step = geometry.analysis_step(block, os_f)
+        assert (apf.takes(block, step, 5) and cdf.takes(block)) == (match is None)
+        if match is not None:
+            before = (apf.padded_fold_fused.launches, chan_dft_ramp.launches)
+            with pytest.raises(ValueError, match=match):
+                apf.polyphase_analysis_padded_fused(torch.as_tensor(x, device="meta"), f,
+                                                    block, os_f)
+            assert (apf.padded_fold_fused.launches, chan_dft_ramp.launches) == before
+
+    def test_padded_fold_not_taken(self):
+        # W = 25 is no multiple of the kernel's 16 columns: the raw fold
+        # wrapper raises from the predicate
+        f2d_rev = torch.empty((5, 200), device="meta")
+        assert not apf.takes(200, 175, 5)
+        with pytest.raises(ValueError, match="padded fold of 5 phases x 200"):
+            apf.padded_fold_fused(torch.empty((2, 6000), dtype=torch.complex64,
+                                              device="meta"), f2d_rev, 175)
+
+    def test_frontend_not_taken(self, filt):
+        # L = 384 has no frontend kernel: the plain inversion on the CPU,
+        # ValueError off it before anything is launched
+        n_l, ov = 384, 48
+        assert not tsf.takes(n_l) and plan_ifft(256 * 288, 48 * 192) == (256, 288)
+        assert not itf.takes(256, 288) and not big.takes(256, 288)
+        x = _noise((1, N_CHAN, 2 * ov + 2 * (n_l - 2 * ov)), 54)
+        kw = dict(input_overlap=ov, deripple_coeff=filt, temporal_taper="tukey")
+        got = polyphase_synthesis_fused(x, n_l, OS, **kw)
+        ref = tsynth.polyphase_synthesis(torch.as_tensor(x), n_l, OS, **kw)
+        assert torch.equal(got, ref)
+        before = synthesis_fused.launches
+        with pytest.raises(ValueError, match="takes L in"):
+            polyphase_synthesis_fused(torch.as_tensor(x, device="meta"), n_l, OS, **kw)
+        assert synthesis_fused.launches == before
+
+
 @pytest.mark.cuda
 class TestOnCard:
     """Each kernel against its plain version on the card, at small shapes
@@ -1213,17 +1556,74 @@ class TestOnCard:
         ref = tsynth.epilogue(X, elem, lo, 31, 0.75, 4)
         assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
 
-    @pytest.mark.parametrize("block,os_f", [(512, Rational(4, 3)), (1024, Rational(8, 7))])
-    def test_padded_fold(self, cuda, block, os_f):
+    @pytest.mark.parametrize("block,os_f,n_pol,spectra,extra", [
+        (512, Rational(4, 3), 2, 80, 5), (1024, Rational(8, 7), 2, 80, 5),
+        (4096, Rational(8, 7), 2, 200, 5),   # mid's own fold, cut, odd n_dat
+        (4096, Rational(8, 7), 1, 70, 513),  # one polarization
+        (4096, Rational(8, 7), 2, 9, 100),   # shorter than one tile
+    ])
+    def test_padded_fold(self, cuda, block, os_f, n_pol, spectra, extra):
         step = geometry.analysis_step(block, os_f)
-        f2d_rev = torch.as_tensor(_prep_filter(fir.design_pfb_fir_filter(block, os_f, 4),
-                                               block, reverse=True), device=cuda)
-        x = torch.as_tensor(_noise((2, 80 * step + 5), 31), device=cuda)
+        f = (np.random.default_rng(4).standard_normal(100353) if block == 4096
+             else fir.design_pfb_fir_filter(block, os_f, 4))
+        f2d_rev = torch.as_tensor(_prep_filter(f, block, reverse=True), device=cuda)
+        x = torch.as_tensor(_noise((n_pol, spectra * step + extra), 31), device=cuda)
+        ref = padded_fold(x, f2d_rev, step).cpu()
         before = apf.padded_fold_fused.launches
-        got = apf.padded_fold_fused(x, f2d_rev, step)
-        assert apf.padded_fold_fused.launches == before + 1
-        ref = padded_fold(x, f2d_rev, step)
-        assert _rel_err(got.cpu(), ref.cpu()) < PADDED_TOL
+        # twice on the same tensors: a barrier left in the wrong phase, or a
+        # row left from the first call, shows on the second
+        for _ in range(2):
+            got = apf.padded_fold_fused(x, f2d_rev, step)
+            assert _rel_err(got.cpu(), ref) < PADDED_TOL
+        assert apf.padded_fold_fused.launches == before + 2
+
+    @pytest.mark.parametrize("n1,lo_rows,n_b,n_valid", [
+        (192, 36, 5, 4),     # 3 * 64 on a cluster of four; n_valid < B
+        (448, 56, 70, 70),   # 7 * 64 on a cluster of eight; more blocks than clusters
+    ])
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_epilogue_q64(self, cuda, n1, lo_rows, n_b, n_valid, with_elem):
+        n, lo = 128 * n1, 128 * lo_rows
+        X = torch.as_tensor(_noise((2, n_b, n), 56), device=cuda)
+        elem = torch.as_tensor(_noise((n,), 57), device=cuda) if with_elem else None
+        before = fused_big_ifft.launches
+        for _ in range(2):  # a barrier left in the wrong phase shows on the second call
+            got = fused_big_ifft(X, elem, shape_key=(n, 128, n1, lo, 37, 0.75),
+                                 n_valid=n_valid)
+            ref = tsynth.epilogue(X, elem, lo, 37, 0.75, n_valid)
+            assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
+        assert fused_big_ifft.launches == before + 2
+
+    @pytest.mark.parametrize("name", list(EXTRA))
+    def test_extra_geometries_on_kernels(self, cuda, name):
+        # the drop-in runs the frontend and the epilogue on their kernels:
+        # the cluster kernel, or the out-of-core pair for the 98304-point block
+        n_chan, os_f, n_l, ov, split, kernel = EXTRA[name]
+        f = fir.design_pfb_fir_filter(n_chan, os_f, 4)
+        g = geometry.SynthesisGeometry(n_chan, n_l, ov, os_f)
+        x = torch.as_tensor(_noise((2, n_chan, 2 * ov + 5 * g.input_keep), 51), device=cuda)
+        kw = dict(input_overlap=ov, deripple_coeff=f, temporal_taper="tukey")
+        ws = (synthesis_fused, fused_big_ifft, ifft_big_inner, ifft_big_outer)
+        before = [w.launches for w in ws]
+        got = polyphase_synthesis_fused(x, n_l, os_f, **kw)
+        ran = [w.launches - b for w, b in zip(ws, before)]
+        assert ran == ([1, 1, 0, 0] if kernel == "cluster" else [1, 0, 1, 1])
+        ref = tsynth.polyphase_synthesis(x, n_l, os_f, **kw)
+        assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
+
+    def test_not_taken_raises_on_card(self, cuda, filt):
+        # nothing on the card gives way to the plain version
+        f = fir.design_pfb_fir_filter(2048, OS, 4)
+        x = torch.as_tensor(_noise((1, f.size + 9 * 1536), 52), device=cuda)
+        with pytest.raises(ValueError, match="takes blocks"):
+            polyphase_analysis_fused(x, f, 2048, OS)
+        f = fir.design_pfb_fir_filter(256, Rational(8, 7), 4)
+        x = torch.as_tensor(_noise((2, 30 * 256), 53), device=cuda)
+        with pytest.raises(ValueError, match="chan_dft_ramp takes blocks"):
+            apf.polyphase_analysis_padded_fused(x, f, 256, Rational(8, 7))
+        x = torch.as_tensor(_noise((1, N_CHAN, 2 * 48 + 2 * 288), 54), device=cuda)
+        with pytest.raises(ValueError, match="takes L in"):
+            polyphase_synthesis_fused(x, 384, OS, input_overlap=48, deripple_coeff=filt)
 
     @pytest.mark.parametrize("block", [1024, 4096, 512, 2048, 3072])
     def test_chan_dft(self, cuda, block):

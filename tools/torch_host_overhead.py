@@ -12,7 +12,10 @@ launches, far from the launch queue's depth). The steps are those of
 ``chan_dft_ramp`` and ``synthesis_fused`` in the order they run, then each
 whole wrapper and the library call (torch.fft.fft) it is held against; then
 the ctypes launch and the whole wrapper of ``analysis_fused`` and
-``fused_big_ifft`` (the epilogue beside torch.fft.ifft).
+``fused_big_ifft`` (the epilogue beside torch.fft.ifft), and of
+``padded_fold_fused`` at the mid main path's shape, its launch with the
+stream's tensor map found among those the library keeps and with it encoded
+anew.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ def main() -> int:
         SMEM_LIMIT, _build, device_pass_twiddles, require, stream_of,
     )
     from ska_pst_dsp_tpu_torch.ops.kernels.chan_dft_fused import chan_dft_ramp
+    from ska_pst_dsp_tpu_torch.ops.kernels import analysis_padded_fused as apf
     from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import analysis_fused
     from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import fused_big_ifft, plan_ifft
     from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import LENGTHS, synthesis_fused
@@ -86,6 +90,23 @@ def main() -> int:
     phases = low.f2d.shape[0]
     nblocks = chan.shape[1]
 
+    xm = torch.randn((2, 4_587_520), dtype=torch.complex64, device=dev)
+    fp = apf.plan(4096, model.step, model.f2d_rev.shape[0])
+    fold_tiles = apf.seg_tiles(fp, 1280, 2 * (fp.w // apf.C_TILE),
+                               apf.resident_blocks(fp, model.f2d_rev.shape[0], dev))
+    gm = torch.empty((2, 1280, 4096), dtype=torch.complex64, device=dev)
+    # nine views of one buffer, 16 bytes apart: taken in turn they never find
+    # their tensor map among the eight the library keeps
+    xwide = torch.randn((2, 4_587_520 + 16), dtype=torch.complex64, device=dev)
+    shifted = [xwide[:, 2 * i: 2 * i + 4_587_520] for i in range(9)]
+    turn = iter(range(10 ** 9))
+
+    def fold_launch(xv):
+        return lib.padded_fold_launch(
+            xv.data_ptr(), gm.data_ptr(), model.f2d_rev.data_ptr(), 2, xv.shape[1],
+            xv.stride(0), 1280, 4096, fp.w, fp.d, fp.s, model.f2d_rev.shape[0], fold_tiles,
+            SMEM_LIMIT, stream_of(xv))
+
     def device_context():
         with torch.cuda.device(dev):
             pass
@@ -116,6 +137,11 @@ def main() -> int:
             low.ramp.data_ptr(), 2, x.shape[1], nblocks, 256, 1, 8, low.step, phases,
             low.ramp.shape[0], 0, SMEM_LIMIT, stream_of(x)),
         "analysis_fused (whole wrapper)": lambda: analysis_fused(x, low.f2d, low.ramp, low.step),
+        "padded_fold_launch (ctypes, launch, tensor map kept)": lambda: fold_launch(xm),
+        "padded_fold_launch (ctypes, launch, tensor map encoded)": lambda: fold_launch(
+            shifted[next(turn) % 9]),
+        "padded_fold_fused (whole wrapper)": lambda: apf.padded_fold_fused(
+            xm, model.f2d_rev, model.step),
         "fused_big_ifft (whole wrapper)": lambda: fused_big_ifft(flat, None, shape_key=key),
         "torch.fft.ifft (2, B, 49152)": lambda: torch.fft.ifft(flat, dim=-1),
     }
