@@ -54,6 +54,24 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    f. timing: the mid kernel chain and plain chain, as in phase 8.
 8. timing: the low kernel chain and the plain chain (CUDA events, warm-up,
    median of repetitions), in Msamples/s with the card's name and limit.
+9. streaming: ``FilterBank`` then ``InverseFilterBank`` over blocks of
+   1,000,000 samples, low (2 x 2^23) and mid (2 x 4,587,520), with the
+   plain versions and ``torch.fft`` patched to raise: every expected launch
+   counter rises, streamed spectra and inversion equal the one-shot drop-ins
+   to 1e-6 * scale; chain, host and device time per block.
+10. two-stage: the low cascade's inverted cases (oversampled: cluster
+    epilogue; critical: composed epilogue, 36864 points; critical with
+    combine 16: the ifft_big pair at 589824 points), 2 pol x 2^25 samples
+    in 4 blocks, each within 3e-5 * scale of the same chain on the plain
+    versions; the oversampled tone and impulse pass TestPureTone and
+    TestImpulse at -60 dB; each kernel at the cascades' geometries and the
+    corner turn, timed against its plain version, bound and library call.
+11. sps -> lowpsi: the SKA-Low PST chain (LowCBF over 512 streams, the
+    216-channel monotonic inversion, composed epilogue), as phase 10.
+12. dedispersion: the chirp as the epilogue's ``elem`` (low: cluster
+    epilogue, dm 1.5; mid: the pair, dm 50) against the plain inversion
+    (1.2e-5 / 1e-4 * scale), and block-wise against whole-stream
+    dedispersion in dB.
 
 The line before the last is a JSON object with one entry per kernel (one
 per pallas_call of the JAX package); the last line is
@@ -268,14 +286,18 @@ def more_times(torch, name, kern, lib, match, smi):
 
 
 @contextlib.contextmanager
-def plain_versions_raise(torch):
+def plain_versions_raise(torch, composed: bool = False):
     """Patches the plain versions, wherever the port's modules hold them,
-    and torch.fft to raise; yields the count of names patched."""
+    and torch.fft to raise; yields the count of names patched. With
+    ``composed`` the plain epilogue and torch.fft stay: the path runs a
+    geometry neither package has an epilogue plan for."""
     def boom(*args, **kwargs):
         raise AssertionError("a plain version ran on the CUDA path")
 
     plain = ("padded_fold", "chan_dft_core", "frontend", "epilogue",
              "big_ifft_inner", "big_ifft_outer", "analysis_core")
+    if composed:
+        plain = tuple(p for p in plain if p != "epilogue")
     with contextlib.ExitStack() as stack:
         patched = 0
         for mod_name, mod in list(sys.modules.items()):
@@ -284,8 +306,9 @@ def plain_versions_raise(torch):
                     if hasattr(mod, name):
                         stack.enter_context(mock.patch.object(mod, name, boom))
                         patched += 1
-        for name in ("fft", "ifft", "fftn", "ifftn", "rfft", "irfft", "fft2", "ifft2"):
-            stack.enter_context(mock.patch.object(torch.fft, name, boom))
+        if not composed:
+            for name in ("fft", "ifft", "fftn", "ifftn", "rfft", "irfft", "fft2", "ifft2"):
+                stack.enter_context(mock.patch.object(torch.fft, name, boom))
         yield patched
 
 
@@ -574,12 +597,19 @@ def main() -> int:
     other_geometries(torch, dev)
 
     # 7. SKA-Mid
-    mid_entries, mid_front = run_mid(torch, dev, smi)
+    mid_entries, mid_front, mid_ms = run_mid(torch, dev, smi)
     next(k for k in kernels if k["name"] == "synthesis_fused").update(mid_front)
     kernels.extend(mid_entries)
 
     # 8. timing: kernel chain vs plain chain, interleaved
-    chain_timing(torch, model, x, "timing", "2 x 2^23 samples", smi)
+    low_ms = chain_timing(torch, model, x, "timing", "2 x 2^23 samples", smi)
+    del model, x, xp
+
+    # 9-12. streaming, the two-stage cascades, dedispersion
+    run_streaming(torch, dev, smi, {"low": low_ms, "mid": mid_ms})
+    run_two_stage(torch, dev, smi)
+    run_sps_lowpsi(torch, dev, smi)
+    run_dedispersion(torch, dev, smi)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -590,7 +620,8 @@ def main() -> int:
 
 def chain_timing(torch, model, x, phase, what, smi):
     """The kernel chain and the plain chain in turns (plain, kernels,
-    kernels, plain), each the median of REPS CUDA-event timings."""
+    kernels, plain), each the median of REPS CUDA-event timings; returns
+    the kernel chain's lesser median, in ms."""
     msps = {}
     for name in ("plain", "kernels", "kernels", "plain"):
         fn_ = model.reference if name == "plain" else model
@@ -600,6 +631,7 @@ def chain_timing(torch, model, x, phase, what, smi):
         log(phase, f"{name} chain, {what}: "
             + ", ".join(f"{ms:.3f} ms = {r:.1f} Msamples/s" for ms, r in runs)
             + f" (median of {REPS}; {smi})")
+    return min(ms for ms, _ in msps["kernels"])
 
 
 def run_mid(torch, dev, smi):
@@ -824,8 +856,498 @@ def run_mid(torch, dev, smi):
     no_fallback(torch, model, x, "mid-fallback")
 
     # f. timing
-    chain_timing(torch, model, x, "mid-timing", f"2 x {n_dat} samples", smi)
-    return entries, mid_front
+    ms = chain_timing(torch, model, x, "mid-timing", f"2 x {n_dat} samples", smi)
+    return entries, mid_front, ms
+
+
+# ---------------------------------------------------------------------------
+# phases 9-12: streaming, the two-stage cascades and dedispersion
+# ---------------------------------------------------------------------------
+
+#: bench.py's mid size, 2 pol x (2 * 128 + 4 * 256) * 3584 samples
+MID_N_DAT = 4_587_520
+STREAM_BLOCK = 1_000_000  # a multiple of neither 192 nor 3584: the carry works
+STREAM_TOL = 1e-6
+CASCADE_TOL = 3e-5
+CASCADE_N_DAT, CASCADE_BLOCKS = 2 ** 25, 4
+#: the cascades' tone: 257/1024 lies a quarter channel off coarse channel
+#: 64's centre, an exact bin after each stage's baseband shift
+TONE = 257 / 1024
+IMPULSE_AT = 2 ** 23 + 777
+#: coherent dedispersion (tools/dedispersion_tpu.py:57-64): low at dm 1.5,
+#: whose 7184-sample band delay fits low's 9216-sample overlap; mid at dm 50,
+#: 239469 samples inside mid's 458752
+DM_LOW, DM_MID, F0_MHZ, BW_MHZ = 1.5, 50.0, 1405.0, 40.0
+DEDISP_TOL = {"low": 1.2e-5, "mid": 1e-4}
+
+
+def events(torch):
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+
+def reset_counts():
+    """Every launch count and the composed-epilogue count set to 0; the
+    wrappers."""
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import fused_inversion
+
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    fused_inversion.composed_epilogues = 0
+    return ws
+
+
+def read_counts(torch, ws):
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import fused_inversion
+
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in ws.items()}
+    counts["composed_epilogues"] = fused_inversion.composed_epilogues
+    return counts
+
+
+def expect_launches(phase, counts, kernels, composed):
+    """The path launched exactly ``kernels``, each at least once; the
+    composed epilogue ran once per inversion where ``composed``, else
+    never."""
+    ran = sorted(k for k, v in counts.items() if v > 0 and k != "composed_epilogues")
+    check(ran == sorted(kernels), f"{phase}: launched {ran}, expected {sorted(kernels)}")
+    want = counts["synthesis_fused"] if composed else 0
+    check(counts["composed_epilogues"] == want,
+          f"{phase}: {counts['composed_epilogues']} composed epilogues, expected {want}")
+
+
+def breakdown(torch, fn):
+    """(device busy ms, "name ms, ..." of the five largest) of one call of
+    fn, from torch.profiler: every kernel and copy on the card, by name
+    (template arguments and namespaces dropped)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        if us and not ev.key.startswith(("aten::", "cuda")):
+            key = (ev.key.removeprefix("void ").replace("at::native::", "")
+                   .replace("(anonymous namespace)::", ""))
+            name = key.split("<")[0].split("(")[0] or key[:40]
+            times[name] = times.get(name, 0.0) + us / 1e3
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
+    return sum(times.values()), ", ".join(f"{k} {v:.3f}" for k, v in top)
+
+
+def run_streaming(torch, dev, smi, one_shot_ms):
+    """Phase 9: FilterBank then InverseFilterBank over blocks of 1,000,000
+    samples, low (2 x 2^23) and mid (2 x 4,587,520), on the kernels (the
+    plain versions and torch.fft raise). The streamed spectra equal the
+    one-shot drop-in's and the streamed inversion the one-shot fused
+    inversion of the same spectra, to 1e-6 * scale."""
+    from ska_pst_dsp_tpu_torch.models import FilterBank, GaussianNoise, InverseFilterBank
+    from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import polyphase_analysis_fused
+    from ska_pst_dsp_tpu_torch.ops.kernels.analysis_padded_fused import (
+        polyphase_analysis_padded_fused,
+    )
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import polyphase_synthesis_fused
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+    kernels = {"low": ("analysis_fused", "synthesis_fused", "ifft_fused"),
+               "mid": ("analysis_padded_fused", "chan_dft_fused", "synthesis_fused",
+                       "ifft_big_inner", "ifft_big_outer")}
+    for name, n_dat in (("low", N_DAT), ("mid", MID_N_DAT)):
+        cfg = load_config(name)
+        filt = cfg.load_fir_filter_coeff()
+        x = GaussianNoise(seed=SEED, n_pol=2, device=dev).generate(0, n_dat)[:, 0]
+        fb, inv = FilterBank(cfg, device=dev), InverseFilterBank(cfg, device=dev)
+
+        def stream():
+            """One pass over the stream from fresh states: the spectra, the
+            inverted stream, and per block the chain's ms (CUDA events) and
+            the host's ms to issue it."""
+            fs, ist = fb.init_state(), inv.init_state()
+            chans, outs, marks, host = [], [], [], []
+            for a in range(0, n_dat, STREAM_BLOCK):
+                ev = events(torch)
+                t0 = time.perf_counter()
+                ev[0].record()
+                fs, y = fb.execute(fs, x[:, a:a + STREAM_BLOCK])
+                ist, z = inv.execute(ist, y)
+                ev[1].record()
+                host.append((time.perf_counter() - t0) * 1e3)
+                chans.append(y)
+                outs.append(z)
+                marks.append(ev)
+            torch.cuda.synchronize()
+            return (torch.cat(chans, 2), torch.cat(outs, 2),
+                    [s.elapsed_time(e) for s, e in marks], host)
+
+        stream()  # the first pass builds the inversion's constants and plans
+        ws = reset_counts()
+        with plain_versions_raise(torch):
+            chan, out, ms, host = stream()
+        counts = read_counts(torch, ws)
+        busy, top = breakdown(torch, stream)
+        log("stream", f"{name}: launch counts over the streamed run: {counts}")
+        expect_launches(f"stream-{name}", counts, kernels[name], composed=False)
+        if name == "low":
+            one = polyphase_analysis_fused(x, filt, cfg.channels, cfg.os_factor)
+        else:
+            one = polyphase_analysis_padded_fused(x, filt, cfg.channels, cfg.os_factor)
+        aerr = rel_err(chan, one[:, :, :chan.shape[2]])
+        check(aerr[1] <= STREAM_TOL, f"stream-{name}: analysis vs one-shot {aerr[1]:.3g}")
+        inv_one = polyphase_synthesis_fused(
+            chan, cfg.input_fft_length, cfg.os_factor, input_overlap=cfg.input_overlap,
+            deripple_coeff=filt if cfg.deripple else None, temporal_taper=cfg.temporal_taper)
+        ierr = rel_err(out, inv_one[:, :, :out.shape[2]])
+        check(ierr[1] <= STREAM_TOL, f"stream-{name}: inversion vs one-shot {ierr[1]:.3g}")
+        check(out.shape[2] > 0 and bool(torch.isfinite(torch.view_as_real(out)).all()),
+              f"stream-{name}: empty or non-finite output")
+        log("stream", f"{name}: {chan.shape[2]} spectra, {out.shape[2]} samples out; streamed "
+            f"vs one-shot: analysis max|err| {aerr[0]:.3g} (/scale {aerr[1]:.3g}), inversion "
+            f"{ierr[0]:.3g} (/scale {ierr[1]:.3g}) (tol {STREAM_TOL})")
+        log("stream", f"{name}: chain per block of 2 x {STREAM_BLOCK}: "
+            + ", ".join(f"{t:.3f}" for t in ms) + " ms; "
+            + ", ".join(f"{2 * min(STREAM_BLOCK, n_dat - i * STREAM_BLOCK) / (t * 1e3):.1f}"
+                        for i, t in enumerate(ms))
+            + f" Msamples/s; total {sum(ms):.3f} ms = {x.numel() / (sum(ms) * 1e3):.1f} "
+            f"Msamples/s, one-shot module {one_shot_ms[name]:.3f} ms; host time to issue "
+            "each block " + ", ".join(f"{t:.3f}" for t in host) + f" ms; device busy "
+            f"{busy:.3f} ms of the pass (torch.profiler; largest: {top}) ({smi})")
+        del x, chan, out, one, inv_one
+
+
+def cascade(torch, fb, inv, blocks, testers=()):
+    """One pass of a two-stage cascade from fresh states, block by block:
+    ``fb`` (TwoStageFilterBank) then ``inv`` (TwoStageInverseFilterBank).
+    Returns the joined inverse output, the chain's ms (CUDA events) and
+    each tester's (state, results)."""
+    fs, ist = fb.init_state(), inv.init_state()
+    outs = []
+    start, end = events(torch)
+    start.record()
+    for xb in blocks:
+        fs, y = fb.execute(fs, xb)
+        ist, z = inv.execute(ist, y)
+        outs.append(z)
+    end.record()
+    torch.cuda.synchronize()
+    judged = []
+    for t in testers:
+        state, results = t.init_state(), []
+        for z in outs:
+            if z.shape[-1]:
+                state, r = t.test(state, z)
+                results.append(r)
+        judged.append((state, results))
+    return torch.cat(outs, 2), start.elapsed_time(end), judged
+
+
+def cascade_blocks(torch, gen):
+    """CASCADE_BLOCKS blocks of a generator's samples, both polarizations
+    alike: (2, n) each."""
+    bs = CASCADE_N_DAT // CASCADE_BLOCKS
+    return [gen.generate(i * bs, bs)[:, 0].repeat(2, 1) for i in range(CASCADE_BLOCKS)]
+
+
+def cascade_testers(cfg1, cfg2, impulse=False):
+    """TestPureTone (or TestImpulse) as cli/sgcht.py:276-471 builds it for
+    ``--two_stage --invert``: the tested stream is stage 1's coarse
+    channels after the stage-2 round trip."""
+    from fractions import Fraction
+
+    from ska_pst_dsp_tpu_torch.models import TestImpulse, TestPureTone
+    from ska_pst_dsp_tpu_torch.ops import lowcbf
+    from ska_pst_dsp_tpu_torch.utils import geometry
+
+    filt1, filt2 = cfg1.load_fir_filter_coeff(), cfg2.load_fir_filter_coeff()
+    os1, n1 = cfg1.os_factor, cfg1.channels
+    step1 = geometry.analysis_step(n1, os1)
+    lc2 = cfg2.analysis_function == "polyphase_analysis_lowcbf"
+    if impulse:
+        fl1 = geometry.padded_filter_length(filt1.size, n1)
+        t1 = (IMPULSE_AT - fl1 / 2) / step1 - geometry.total_sample_shift(
+            cfg2.channels, cfg2.os_factor, filt2.size, cfg2.input_overlap)
+        filter_offset = os1.normalize(cfg1.input_overlap) * n1 - 1 + cfg1.kludge_offset
+        return TestImpulse(offset=IMPULSE_AT + cfg1.fir_offset_direction * (filt1.size // 2)
+                           - filter_offset, chan_peak_col=int(math.floor(t1 + 0.5)),
+                           chan_support=fl1 // step1 + 2)
+    fl2 = lowcbf.NFILT + lowcbf.FIRST_CALL_PAD if lc2 else filt2.size
+    resample = None
+    if lc2:  # the stage-2 LowCBF round trip keeps its 216-channel sub-band
+        resample = (Fraction(cfg2.channels, lowcbf.KEPT),
+                    Fraction(cfg2.channels // 2 - lowcbf.KEPT_LO, lowcbf.KEPT))
+    return TestPureTone(frequency=TONE, stages=[(n1, os1)], resample=resample,
+                        lowcbf_stages=(False,), skip=-(-filt1.size // step1) + 2 + 2 * fl2)
+
+
+def run_case(torch, dev, smi, phase, cfg1, cfg2, label, fwd, inv_kw, kernels, composed,
+             blocks, testers=()):
+    """One cascade on the kernels (plain versions patched to raise; the
+    plain epilogue and torch.fft stay where ``composed``), its launches,
+    its testers and its match with the same chain on the plain versions."""
+    from ska_pst_dsp_tpu_torch.models import TwoStageFilterBank, TwoStageInverseFilterBank
+
+    def modules(plain):
+        return (TwoStageFilterBank(cfg1, cfg2, device=dev, plain=plain, **fwd),
+                TwoStageInverseFilterBank(cfg1, cfg2, device=dev, plain=plain, **inv_kw))
+
+    kern = modules(False)
+    cascade(torch, *kern, blocks)  # the first pass builds the constants and plans
+    ws = reset_counts()
+    with plain_versions_raise(torch, composed=composed):
+        out, ms, judged = cascade(torch, *kern, blocks, testers=testers)
+    counts = read_counts(torch, ws)
+    expect_launches(f"{phase} {label}", counts, kernels, composed)
+    busy, top = breakdown(torch, lambda: cascade(torch, *kern, blocks))
+    ref, plain_ms, _ = cascade(torch, *modules(True), blocks)
+    err = rel_err(out, ref)
+    check(out.shape[2] > 0 and err[1] <= CASCADE_TOL,
+          f"{phase} {label}: {tuple(out.shape)}, vs plain {err[1]:.3g}")
+    n = sum(b.numel() for b in blocks)
+    log(phase, f"{label}: out {tuple(out.shape)}; launches {counts}; vs plain chain max|err| "
+        f"{err[0]:.3g}, /scale {err[1]:.3g} (tol {CASCADE_TOL}); kernels {ms:.3f} ms = "
+        f"{n / (ms * 1e3):.1f} Msamples/s, plain {plain_ms:.3f} ms; device busy {busy:.3f} ms "
+        f"(torch.profiler; largest: {top}) ({smi})")
+    for t, (state, results) in zip(testers, judged):
+        seen = (state.judged > 0 if hasattr(t, "skip")
+                else 0 <= t.chan_peak_col < state.current)
+        check(seen, f"{phase} {label}: {type(t).__name__} judged nothing")
+        check(all(r == 0 for r in results),
+              f"{phase} {label}: {type(t).__name__} failed: {state.detail}")
+        log(phase, f"{label}: {type(t).__name__} passed on {len(results)} blocks "
+            f"(db_max {t.db_max} dB)")
+    return out
+
+
+def measure(torch, phase, name, kern, plain, bnd, lib, match, smi):
+    """A kernel at a cascade's geometry: its time, its plain version's, its
+    device time, its bound and its library call's (None where there is
+    none), logged with the card."""
+    err = rel_err(kern(), plain())
+    ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
+    lib_ms = None if lib is None else time_ms(torch, lib)
+    dev_ms = device_ms(torch, kern, match)
+    log(phase, f"{name}: max|err|/scale {err[1]:.3g}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, device " + (", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items())
+                                         or "not measured")
+        + f" ms, bound {bnd[0]:.4f} ms ({bnd[1]}), library "
+        + ("none" if lib_ms is None else f"{lib_ms:.4f} ms") + f" ({smi})")
+    return err
+
+
+def cascade_kernel_times(torch, dev, smi):
+    """The kernels at the cascades' geometries, each against its plain
+    version: the analysis at sps (25 x 256 at hop 216), LowCBF (12 x 256,
+    the quarter-turn table) and low stage 2 over 512 streams; the corner
+    turn; the frontend at 256, 192, 216 and 3072 channels; the pair at
+    1536 x 384 (589824 points); the composed epilogues."""
+    from ska_pst_dsp_tpu_torch.ops import lowcbf
+    from ska_pst_dsp_tpu_torch.ops import synthesis as ps
+    from ska_pst_dsp_tpu_torch.ops.analysis import _prep_filter, analysis_core, ramp_table
+    from ska_pst_dsp_tpu_torch.ops.framing import frame
+    from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import analysis_fused
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import fused_big_ifft_oc, pair_split
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import synthesis_fused
+    from ska_pst_dsp_tpu_torch.utils import geometry
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+    phase = "cascade-kernels"
+    bs = CASCADE_N_DAT // CASCADE_BLOCKS
+    low, sps, lowpsi = (load_config(n) for n in ("low", "sps", "lowpsi"))
+    # stage 1's spectra of one block (whole chunks of nu): stage 2's streams
+    t_low, t_sps = (bs - 3328) // 192 // 3 * 3, (bs - 6400) // 216 // 32 * 32
+    analyses = (
+        ("analysis_fused sps stage 1 (2 streams)", (2, bs), _prep_filter(
+            sps.load_fir_filter_coeff(), 256), ramp_table(256, 216), 216),
+        ("analysis_fused low stage 2 (512 streams)", (512, t_low), _prep_filter(
+            low.load_fir_filter_coeff(), 256), ramp_table(256, 192), 192),
+        ("analysis_fused LowCBF stage 2 (512 streams, first call)",
+         (512, t_sps + lowcbf.FIRST_CALL_PAD),
+         lowcbf.lowcbf_filter(lowpsi.load_fir_filter_coeff()), lowcbf.lowcbf_ramp(), 192),
+    )
+    for name, shape, f2d, ramp, step in analyses:
+        x = torch.as_tensor(noise(shape, SEED + shape[1]), device=dev)
+        f2d, ramp = torch.as_tensor(f2d, device=dev), torch.as_tensor(ramp, device=dev)
+        out = analysis_core(x, f2d, ramp, step)
+        n_spec, phases = out.shape[0] * out.shape[1], f2d.shape[0]
+        err = measure(torch, phase, name, lambda: analysis_fused(x, f2d, ramp, step),
+                      lambda: analysis_core(x, f2d, ramp, step),
+                      bound(nbytes(x, f2d, ramp, out),
+                            n_spec * 256 * (4 * phases + 6) + fft_flops(256, n_spec)), None,
+                      "analysis_fused_kernel", smi)
+        check(err[1] <= ANALYSIS_TOL, f"{name}: {err[1]:.3g}")
+        del x, out
+    # the corner turn of one block's stage-1 spectra, time-major, to 512 streams
+    y = torch.as_tensor(noise((2, t_low, 256), SEED), device=dev).transpose(1, 2)
+    ct = time_ms(torch, lambda: y.reshape(512, t_low))
+    log(phase, f"corner turn (2, {t_low}, 256) -> (512, {t_low}): {ct:.4f} ms, "
+        f"{2 * nbytes(y) / (ct * 1e6):.1f} GB/s read + written ({smi})")
+    del y
+    os_f = low.os_factor
+    for n_chan, kw in ((256, {}), (192, {"spans_nyquist": False}), (216, {"monotonic": True}),
+                       (3072, {"spans_nyquist": False, "combine": 16})):
+        g = geometry.SynthesisGeometry(n_chan, 256, 48, os_f)
+        c = ps.synthesis_constants(n_chan, 256, os_f, 48, temporal_taper="tukey",
+                                   deripple_coeff=low.load_fir_filter_coeff(), **kw)
+        n_slab = 32 if n_chan == 3072 else 512  # the cascades' slabs
+        t_len = 2 * 48 + 4 * g.input_keep
+        x_tc = torch.as_tensor(noise((n_slab, n_chan, t_len), SEED + n_chan),
+                               device=dev).transpose(1, 2)
+        args = [torch.as_tensor(c[k], device=dev) for k in ("t_taper", "dr", "perm")]
+        fargs = (x_tc, *args, 256, g.input_keep, (128 + g.discard) % 256, 4)
+        fn = ps.frontend(*fargs)
+        frames = (frame(x_tc.index_select(-1, args[2]).transpose(1, 2), 256, g.input_keep, 4)
+                  .transpose(1, 2) * args[0]).contiguous()
+        n_frames = frames.shape[0] * frames.shape[1] * frames.shape[2]
+        err = measure(torch, phase, f"synthesis_fused at {n_chan} channels ({n_slab} slabs)",
+                      lambda: synthesis_fused(*fargs), lambda: ps.frontend(*fargs),
+                      bound(nbytes(x_tc, *args, fn), fft_flops(256, n_frames) + 512 * n_frames),
+                      lambda: torch.fft.fft(frames, dim=-1), "synthesis_frontend_kernel", smi)
+        check(err[1] <= SYNTHESIS_TOL, f"frontend at {n_chan}: {err[1]:.3g}")
+        n, lo = g.output_fft_length, g.output_overlap
+        flat = fn.reshape(n_slab, 4, n)
+        roll = g.fn_width // 2 if kw.get("spans_nyquist", True) else 0
+        if n_chan == 3072:
+            n2, n1 = pair_split(n, lo)
+            key = (n, 1, n2, n1, lo, roll, 0.75)
+            err = measure(torch, phase, f"ifft_big pair at {n2} x {n1} ({n} points, "
+                          f"{n_slab} x 4 blocks)",
+                          lambda: fused_big_ifft_oc(flat, None, shape_key=key),
+                          lambda: ps.epilogue(flat, None, lo, roll, 0.75, 4),
+                          bound(nbytes(flat) + n_slab * 4 * (n - 2 * lo) * 8,
+                                fft_flops(n, n_slab * 4)),
+                          lambda: torch.fft.ifft(flat, dim=-1), "ifft_big", smi)
+            check(err[1] <= BIG_IFFT_TOL, f"pair at {n}: {err[1]:.3g}")
+        elif n_chan in (192, 216):
+            ms = time_ms(torch, lambda: ps.epilogue(flat, None, lo, roll, 0.75, 4))
+            log(phase, f"composed epilogue at {n} points ({n_slab} x 4 blocks): {ms:.4f} ms "
+                f"({smi})")
+        del x_tc, fn, frames, flat
+
+
+def run_two_stage(torch, dev, smi):
+    """Phase 10: the low two-stage cascade (256 x 256 fine channels a
+    polarization), 2 pol x 2^25 samples in 4 blocks, for the sweep's
+    inverted cases (cli/test_sgcht.py:22-32): oversampled (cluster
+    epilogue), critical (composed epilogue) and critical with combine 16
+    (the ifft_big pair at 589824 points); the oversampled case's tone and
+    impulse pass TestPureTone and TestImpulse at -60 dB."""
+    from ska_pst_dsp_tpu_torch.models import Impulse, PureTone
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+    low = load_config("low")
+    tone = cascade_blocks(torch, PureTone(TONE, device=dev))
+    cases = (
+        ("oversampled", {}, {"nch2": 256}, ("analysis_fused", "synthesis_fused", "ifft_fused"),
+         False),
+        ("critical", {"critical": True}, {"nch2": 192}, ("analysis_fused", "synthesis_fused"),
+         True),
+        ("critical, combine 16", {"critical": True}, {"nch2": 192, "combine": 16},
+         ("analysis_fused", "synthesis_fused", "ifft_big_inner", "ifft_big_outer"), False),
+    )
+    for label, fwd, inv_kw, kernels, composed in cases:
+        testers = (cascade_testers(low, low),) if label == "oversampled" else ()
+        run_case(torch, dev, smi, "two-stage", low, low, f"{label}, tone", fwd, inv_kw,
+                 kernels, composed, tone, testers)
+    del tone
+    impulse = cascade_blocks(torch, Impulse(offset=IMPULSE_AT, device=dev))
+    run_case(torch, dev, smi, "two-stage", low, low, "oversampled, impulse", {}, {"nch2": 256},
+             cases[0][3], False, impulse, (cascade_testers(low, low, impulse=True),))
+    del impulse
+    cascade_kernel_times(torch, dev, smi)
+
+
+def run_sps_lowpsi(torch, dev, smi):
+    """Phase 11: the SKA-Low PST chain, sps (256 ch, OS 32/27) then the
+    LowCBF firmware filterbank (lowpsi: 216 of 256 channels kept) over 512
+    streams, and the oversampled monotonic inversion of the 216-channel
+    slabs (composed epilogue: 41472 points have no plan), 2 pol x 2^25
+    samples in 4 blocks; the tone passes TestPureTone at -60 dB."""
+    from ska_pst_dsp_tpu_torch.models import PureTone
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+    sps, lowpsi = load_config("sps"), load_config("lowpsi")
+    tone = cascade_blocks(torch, PureTone(TONE, device=dev))
+    run_case(torch, dev, smi, "sps-lowpsi", sps, lowpsi, "oversampled, tone", {},
+             {"nch2": lowpsi.kept_channels}, ("analysis_fused", "synthesis_fused"), True, tone,
+             (cascade_testers(sps, lowpsi),))
+
+
+def run_dedispersion(torch, dev, smi):
+    """Phase 12: a dispersed square wave through the analysis and the
+    inversion with the dedispersion chirp as its spectral filter: on the
+    cluster epilogue's ``elem`` (low, 2 pol x 2^23) and on the ifft_big
+    pair's complex ``elem`` (mid, 2 pol x 4,587,520), each within 1.2e-5 /
+    1e-4 * scale of the plain inversion with the same filter; the
+    block-wise against the whole-stream dedispersion in dB, as
+    tools/dedispersion_tpu.py records it."""
+    from ska_pst_dsp_tpu_torch.models import SquareWave
+    from ska_pst_dsp_tpu_torch.ops import dedispersion as dd
+    from ska_pst_dsp_tpu_torch.ops import synthesis as ps
+    from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import polyphase_analysis_fused
+    from ska_pst_dsp_tpu_torch.ops.kernels.analysis_padded_fused import (
+        polyphase_analysis_padded_fused,
+    )
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import (
+        fused_inversion, polyphase_synthesis_fused,
+    )
+    from ska_pst_dsp_tpu_torch.utils import geometry
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+    for name, n_dat, dm in (("low", N_DAT, DM_LOW), ("mid", MID_N_DAT, DM_MID)):
+        cfg = load_config(name)
+        filt = cfg.load_fir_filter_coeff()
+        g = geometry.SynthesisGeometry(cfg.channels, cfg.input_fft_length, cfg.input_overlap,
+                                       cfg.os_factor)
+        delay = dd.dispersion_delay(dm, F0_MHZ - BW_MHZ / 2, F0_MHZ + BW_MHZ / 2) * BW_MHZ * 1e6
+        check(delay < g.output_overlap, f"dedisp-{name}: delay {delay:.0f} samples")
+        clean = torch.cat([SquareWave(period=4096, duty_cycle=0.1, on_amp=4.0, off_amp=0.04,
+                                      seed=11 + p, device=dev).generate(0, n_dat)[:, 0]
+                           for p in range(2)])
+        x = dd.dedisperse(clean, dm, F0_MHZ, BW_MHZ, inverse=True)
+        analysis = (polyphase_analysis_fused if name == "low"
+                    else polyphase_analysis_padded_fused)
+        chan = analysis(x, filt, cfg.channels, cfg.os_factor, time_major=True)
+        h = dd.chirp_filter(cfg.channels * g.fn_width, dm, F0_MHZ, BW_MHZ)
+        kw = dict(input_overlap=cfg.input_overlap, temporal_taper=cfg.temporal_taper,
+                  deripple_coeff=filt if cfg.deripple else None)
+        inv = lambda sf: polyphase_synthesis_fused(  # noqa: E731
+            chan, cfg.input_fft_length, cfg.os_factor, time_major_in=True, spectral_filter=sf,
+            **kw)
+        inv(h)
+        ws = reset_counts()
+        with plain_versions_raise(torch):
+            b = inv(h)
+        counts = read_counts(torch, ws)
+        kernels = (("synthesis_fused", "ifft_fused") if name == "low"
+                   else ("synthesis_fused", "ifft_big_inner", "ifft_big_outer"))
+        expect_launches(f"dedisp-{name}", counts, kernels, composed=False)
+        c = ps.polyphase_synthesis(chan.transpose(1, 2), cfg.input_fft_length, cfg.os_factor,
+                                   spectral_filter=h, **kw)
+        err = rel_err(b, c)
+        check(err[1] <= DEDISP_TOL[name], f"dedisp-{name}: {err[1]:.3g}")
+        a = dd.dedisperse(inv(None), dm, F0_MHZ, BW_MHZ)
+        guard = a.shape[2] // 8
+        diff = (b - a)[..., guard:-guard].abs() ** 2
+        ref = a[..., guard:-guard].abs() ** 2
+        # the inversion with its constants built once, as a module holds them
+        c = ps.synthesis_constants(cfg.channels, cfg.input_fft_length, cfg.os_factor,
+                                   spectral_filter=h, **kw)
+        consts = [torch.as_tensor(c[k], device=dev) for k in ("t_taper", "dr", "perm", "elem")]
+        ms = time_ms(torch, lambda: fused_inversion(chan, *consts, g, spans_nyquist=True))
+        log("dedisp", f"{name}: dm {dm}, {F0_MHZ} MHz, {BW_MHZ} MHz: band delay {delay:.0f} "
+            f"samples < output overlap {g.output_overlap}; launches {counts}; vs plain "
+            f"inversion max|err| {err[0]:.3g}, /scale {err[1]:.3g} (tol {DEDISP_TOL[name]}); "
+            f"block-wise vs whole-stream dedispersion: mean "
+            f"{10 * math.log10(float(diff.mean() / ref.mean())):.2f} dB, max "
+            f"{10 * math.log10(float(diff.max() / ref.max())):.2f} dB; inversion with the "
+            f"chirp {ms:.3f} ms, its constants built once ({smi})")
+        del clean, x, chan, a, b, c
 
 
 def model_filter():

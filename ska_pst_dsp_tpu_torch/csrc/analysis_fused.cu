@@ -75,7 +75,7 @@ __device__ __forceinline__ uint32_t span_chunk(uint32_t bytes) {
 }
 
 struct Span {
-  long long n_dat;
+  long long n_dat, pol_stride;  // samples of a polarization; elements between two
   int step, span, n_kt, kspec;
 };
 
@@ -86,7 +86,7 @@ __device__ __forceinline__ void issue_span(float2* dst, int* off, uint64_t* bar,
   const int lane = threadIdx.x;
   const int pol = tile / s.n_kt;
   const long long s0 = static_cast<long long>(tile - pol * s.n_kt) * s.kspec * s.step;
-  const long long e0 = pol * s.n_dat + s0;
+  const long long e0 = pol * s.pol_stride + s0;
   const int o = static_cast<int>(e0 & 1);
   const long long avail = s.n_dat - s0;
   const int nv = (avail < s.span ? static_cast<int>(avail) : s.span) + o;
@@ -372,7 +372,8 @@ static size_t analysis_smem(int r, int logq, int step, int phases, int period, i
          (*ramp_staged ? static_cast<size_t>(ramp_bytes) : 0);
 }
 
-// x: (n_pol, n_dat) complex64; out: (n_pol, nblocks, block) complex64;
+// x: (n_pol, n_dat) complex64, pol_stride elements between polarizations
+// (>= n_dat), samples contiguous; out: (n_pol, nblocks, block) complex64;
 // f2d: (phases, block) float32; tw_pass: the per-pass table of the Q-point
 // forward transform (fft_reg_pass_tw); tw_n: (block,) exp(-2*pi*i*m/block),
 // read only when r > 1; ramp: (period, block) complex64; 0 <= b0 = block0
@@ -381,11 +382,13 @@ static size_t analysis_smem(int r, int logq, int step, int phases, int period, i
 // One persistent thread block per resident slot.
 extern "C" int analysis_fused_launch(const void* x, void* out, const void* f2d,
                                      const void* tw_pass, const void* tw_n, const void* ramp,
-                                     int n_pol, long long n_dat, int nblocks, int block,
+                                     int n_pol, long long n_dat, long long pol_stride,
+                                     int nblocks, int block,
                                      int r, int logq, int step, int phases, int period,
                                      int b0, int smem_limit, void* stream) {
   const AnalysisKern kern = pick_kernel(r, logq, phases, step);
   if (kern == nullptr || (r << logq) != block || n_pol <= 0 || nblocks <= 0 || step <= 0 ||
+      (n_pol > 1 && pol_stride < n_dat) ||
       phases <= 0 || period <= 0 || b0 < 0 || b0 >= period ||
       static_cast<long long>(nblocks - 1) * step + static_cast<long long>(phases) * block >
           n_dat) {
@@ -408,7 +411,7 @@ extern "C" int analysis_fused_launch(const void* x, void* out, const void* f2d,
   const cudaError_t e =
       prepare_persistent(reinterpret_cast<const void*>(kern), kThreads, smem_limit, &slots);
   if (e != cudaSuccess) return e;
-  const Span sp = {n_dat, step, (k - 1) * step + phases * block, n_kt, k};
+  const Span sp = {n_dat, pol_stride, step, (k - 1) * step + phases * block, n_kt, k};
   const int tiles = static_cast<int>(n_tiles);
   kern<<<tiles < slots ? tiles : slots, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(x), static_cast<float2*>(out),

@@ -11,7 +11,9 @@ Format recap:
     then polarization), re/im interleaved when NDIM=2, dtype from NBIT.
 
 Arrays follow the reference kernel convention (P, F, T) complex. LowCBF
-heap files (INSTRUMENT=LowCBF) are not read here.
+heap files (INSTRUMENT=LowCBF: 32-sample heaps, :mod:`.lowcbf`) are read
+through the heap reshape, in windows of whole heaps; :func:`save_lowcbf`
+writes one.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from .lowcbf import NSAMP_PER_HEAP, flatten_low_cbf_stream, reshape_low_cbf_data
 
 DEFAULT_HDR_SIZE = 4096
 
@@ -107,11 +111,13 @@ def load(path: str, count: Optional[int] = None, offset_samples: int = 0
 
     Complex data (NDIM=2) come back as complex64/complex128; real as the
     stored dtype. ``count``/``offset_samples`` select a time-sample window
-    for streaming reads (DADARead.generate equivalent).
+    for streaming reads (DADARead.generate equivalent); in a LowCBF heap
+    file both must be whole 32-sample heaps.
     """
     header = read_header(path)
-    if header.get("INSTRUMENT") == "LowCBF":
-        raise ValueError(f"{path} is a LowCBF heap file; the port reads TFP streams only")
+    lowcbf = header.get("INSTRUMENT") == "LowCBF"
+    if lowcbf and (offset_samples % NSAMP_PER_HEAP or (count or 0) % NSAMP_PER_HEAP):
+        raise ValueError("LowCBF windows must be whole 32-sample heaps")
     hdr_size = int(header["HDR_SIZE"])
     n_dim = int(header.get("NDIM", 2))
     n_pol = int(header.get("NPOL", 1))
@@ -131,6 +137,8 @@ def load(path: str, count: Optional[int] = None, offset_samples: int = 0
         data = raw
     # TFP stream → (T, F, P) → transpose to (P, F, T)
     data = data.reshape(-1, n_chan, n_pol).transpose(2, 1, 0)
+    if lowcbf:
+        data = reshape_low_cbf_data(data, header)
     return data, header
 
 
@@ -186,3 +194,23 @@ def save(path: str, data: np.ndarray, header: Dict[str, str],
         f.write(serialize_header(hdr))
         flat.tofile(f)
 
+
+def save_lowcbf(path: str, data: np.ndarray, header: Dict[str, str]) -> None:
+    """Write a (n_pol, n_chan, n_dat) complex array as a LowCBF heap file
+    (INSTRUMENT=LowCBF): the stream of whole 32-sample heaps of
+    :func:`.lowcbf.flatten_low_cbf_stream` (a trailing partial heap is
+    dropped), re/im interleaved in the array's real dtype; :func:`load`
+    reads it back."""
+    if data.ndim != 3 or not np.iscomplexobj(data):
+        raise ValueError(f"expected a complex (n_pol, n_chan, n_dat) array, got {data.shape}")
+    flat = flatten_low_cbf_stream(data)
+    base = np.dtype(data.real.dtype)
+    hdr = {k: str(v) for k, v in header.items()}
+    hdr.update(INSTRUMENT="LowCBF", NBIT=str(_DTYPE_TO_NBIT[base]), NDIM="2",
+               NPOL=str(data.shape[0]), NCHAN=str(data.shape[1]))
+    words = np.empty(flat.size * 2, dtype=base)
+    words[0::2] = flat.real
+    words[1::2] = flat.imag
+    with open(path, "wb") as f:
+        f.write(serialize_header(hdr))
+        words.tofile(f)

@@ -30,7 +30,7 @@ from ..ops.kernels.analysis_fused import analysis_fused
 from ..ops.kernels.analysis_padded_fused import padded_fold_fused
 from ..ops.kernels.chan_dft_fused import chan_dft_ramp
 from ..ops.kernels.synthesis_fused import fused_inversion
-from ..ops.synthesis import epilogue, frontend
+from ..ops.synthesis import inversion_core
 
 
 class PFBRoundTrip(nn.Module):
@@ -58,9 +58,10 @@ class PFBRoundTrip(nn.Module):
 
     @classmethod
     def from_filter(cls, filt, n_chan: int, os_factor, input_fft_length: int,
-                    input_overlap: int, *, device="cpu", **state_kwargs):
+                    input_overlap: int, *, device="cuda", **state_kwargs):
         """Build the state with :attr:`make_state` (keyword arguments go to
-        it) and load it onto ``device``."""
+        it) and load it onto ``device`` (the card unless the caller asks
+        for the CPU)."""
         m = cls(n_chan, os_factor, input_fft_length, input_overlap)
         return m.load_state(
             cls.make_state(filt, n_chan, os_factor, input_fft_length,
@@ -93,18 +94,8 @@ class PFBRoundTrip(nn.Module):
         )
 
     def _invert_plain(self, chan: torch.Tensor) -> torch.Tensor:
-        g = self.geom
-        n_pol = chan.shape[0]
-        n_blocks = g.n_blocks(chan.shape[1])
-        L = g.input_fft_length
-        fn = frontend(chan, self.t_taper, self.dr, self.perm, L, g.input_keep,
-                      (L // 2 + g.discard) % L, n_blocks)
-        out = epilogue(
-            fn.reshape(n_pol, n_blocks, g.output_fft_length), self.elem,
-            g.output_overlap, g.fn_width // 2,
-            self.os_factor.de / self.os_factor.nu, n_blocks,
-        )
-        return out.reshape(n_pol, 1, -1)
+        return inversion_core(chan, self.t_taper, self.dr, self.perm, self.elem,
+                              self.geom, spans_nyquist=True)
 
 
 class PaddedPFBRoundTrip(PFBRoundTrip):

@@ -1,0 +1,346 @@
+"""Streaming channelizer / de-channelizer layer.
+
+Counterpart of :mod:`ska_pst_dsp_tpu.models.streaming` (FilterBank.m:65-126,
+InverseFilterBank.m:92-150): arbitrarily long streams are processed in
+blocks, with unconsumed samples carried between calls so that streamed
+output is *identical* to one-shot output. The state is an explicit
+dataclass (buffer + absolute counters) returned alongside each output.
+
+The carry is the JAX module's (streaming.py:14-29):
+
+* analysis output is truncated to a multiple of ``chunk_spectra`` spectra,
+  itself a multiple of os_factor.nu, so the derotation schedules restart
+  cleanly (FilterBank.m:93-104);
+* consumed input = emitted_spectra * step; the remainder (holding the
+  filter history) is buffered (FilterBank.m:119-126);
+* the zero-padded (SKA-Mid) analysis carries a filter length of history,
+  so its streamed output equals its one-shot output (the reference re-pads
+  at every block boundary);
+* the LowCBF first-call zero pad counts in the consumed samples;
+* the inversion consumes n_blocks*input_keep fine-channel samples,
+  buffering the 2*overlap overlap-save history (InverseFilterBank.m:104-135);
+  ``sample_offset`` applies once;
+* ``chunk_spectra`` / ``chunk_blocks`` adapt to the first block.
+
+How the port runs it: each stage is an ``nn.Module`` whose filter, ramp and
+inversion constants are buffers on its device (default the card), built
+once per geometry; the carried buffer and the chunks are tensors there,
+joined with ``torch.cat``. A call runs all the whole chunks its input holds
+in one launch of each kernel (the JAX classes launch once per chunk): every
+spectrum and every inversion block is computed on its own, so the output
+and the carried state are the same. The analysis runs the fused kernels
+(:func:`..ops.kernels.analysis_fused.analysis_fused`; the padded fold then
+the channel DFT at ``block0`` = the chunk's first raw spectrum and no
+delay roll; LowCBF on the analysis kernel, :mod:`..ops.lowcbf`) and the
+inversion :func:`..ops.kernels.synthesis_fused.fused_inversion` on a
+time-major view of the chunk. ``plain=True`` runs the kernels' plain
+versions on the same device instead: the reference chain.
+
+Optional input/output integer rounding with rms scaling reproduces the
+reference's quantization-study hooks (FilterBank.m:75-113, sgcht
+rndInput/rmsInput/rndOutput/rmsOutput); output is rounded per chunk of
+``chunk_spectra`` spectra, as in the JAX module.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ska_pst_dsp_tpu_torch.utils import geometry
+from ska_pst_dsp_tpu_torch.utils.rational import Rational
+
+from ..ops import lowcbf
+from ..ops.analysis import (
+    _prep_filter, analysis_core, chan_dft_core, padded_chan_const, padded_fold, ramp_table,
+)
+from ..ops.kernels.analysis_fused import analysis_fused
+from ..ops.kernels.analysis_padded_fused import padded_fold_fused
+from ..ops.kernels.chan_dft_fused import chan_dft_ramp
+from ..ops.kernels.synthesis_fused import fused_inversion
+from ..ops.synthesis import inversion_core, synthesis_constants
+
+PLAIN, PADDED, LOWCBF = ("polyphase_analysis", "polyphase_analysis_padded",
+                         "polyphase_analysis_lowcbf")
+
+
+def _round_rms(x: torch.Tensor, rms: float) -> torch.Tensor:
+    """Round to integers, optionally pre-scaling to a target rms
+    (FilterBank.m:75-83), on x's device: the population variance of both
+    quadratures (``np.var``) and round half to even (``np.round``)."""
+    scale = 1.0
+    if rms > 0:
+        std = torch.sqrt(torch.var(torch.stack([x.real, x.imag]), correction=0) * 2.0)
+        scale = rms / std
+    return torch.complex(torch.round(x.real * scale), torch.round(x.imag * scale))
+
+
+def as_tensor(x, device: torch.device) -> torch.Tensor:
+    """A complex tensor or array as complex64 on ``device``."""
+    return torch.as_tensor(x, device=device).to(torch.complex64)
+
+
+@dataclasses.dataclass
+class FilterBankState:
+    """Carry between FilterBank.execute calls.
+
+    ``buffer`` (n_pol, nbuf) holds input samples from absolute position
+    ``base`` onward that have not been fully consumed; ``emitted`` counts
+    output spectra already produced (in the delayed timeline for the padded
+    analysis)."""
+
+    buffer: Optional[torch.Tensor] = None
+    base: int = 0
+    emitted: int = 0
+
+
+class FilterBank(nn.Module):
+    """Streaming analysis filterbank (the reference's Channelizer role)."""
+
+    def __init__(self, config, *, rnd_input=False, rms_input=0.0, rnd_output=False,
+                 rms_output=0.0, chunk_spectra=None, device="cuda", plain=False):
+        super().__init__()
+        self.config = config
+        self.analysis_function = config.analysis_function
+        self.filt_coeff = np.asarray(config.load_fir_filter_coeff())
+        self.n_chan = config.channels
+        self.os_factor = Rational.coerce(config.os_factor)
+        self.step = geometry.analysis_step(self.n_chan, self.os_factor)
+        self.fl = geometry.padded_filter_length(self.filt_coeff.size, self.n_chan)
+        self.rnd_input = rnd_input or rms_input > 0
+        self.rms_input = rms_input
+        self.rnd_output = rnd_output or rms_output > 0
+        self.rms_output = rms_output
+        #: spectra per chunk: the output comes in whole chunks
+        self.chunk_spectra = chunk_spectra
+        self.device = torch.device(device)
+        self.plain = plain
+        self._analyse = analysis_core if plain else analysis_fused
+        name = self.analysis_function
+        kept = None
+        if name == PLAIN:
+            f2d, ramp = _prep_filter(self.filt_coeff, self.n_chan), ramp_table(self.n_chan, self.step)
+        elif name == PADDED:
+            self.delay = geometry.padded_sample_delay_shift(
+                self.filt_coeff.size, self.n_chan, self.os_factor)
+            f2d = _prep_filter(self.filt_coeff, self.n_chan, reverse=True)
+            ramp = padded_chan_const(self.n_chan, self.step)
+        elif name == LOWCBF:
+            f2d, ramp, kept = lowcbf.lowcbf_filter(self.filt_coeff), lowcbf.lowcbf_ramp(), \
+                lowcbf.kept_bins()
+        else:
+            raise ValueError(f"unknown analysis function {name!r}")
+        #: the fold's filter (reversed for the padded analysis), the per-bin
+        #: table (the derotation ramp, the padded channel-DFT constant or
+        #: the LowCBF quarter turns) and the LowCBF kept bins
+        self.register_buffer("f2d", torch.as_tensor(f2d, device=self.device))
+        self.register_buffer("ramp", torch.as_tensor(ramp, device=self.device))
+        self.register_buffer("kept", None if kept is None
+                             else torch.as_tensor(kept, device=self.device))
+
+    def init_state(self) -> FilterBankState:
+        return FilterBankState()
+
+    @property
+    def n_chan_out(self) -> int:
+        if self.analysis_function == LOWCBF:
+            return self.config.kept_channels or lowcbf.KEPT
+        return self.n_chan
+
+    def execute(self, state: FilterBankState, x) -> Tuple[FilterBankState, torch.Tensor]:
+        """Process one block of (n_pol, [1,] n) samples: returns (new_state,
+        (n_pol, n_chan_out, n_out)), a channel-major view of time-major
+        spectra on the module's device."""
+        x = as_tensor(x, self.device)
+        if x.ndim == 3:
+            x = x[:, 0, :]
+        if self.rnd_input:
+            x = _round_rms(x, self.rms_input)
+        if state.buffer is not None and state.buffer.shape[-1] > 0:
+            x = torch.cat([state.buffer, x], dim=-1)
+        n_dat = x.shape[-1]
+        nu = self.os_factor.nu
+        name = self.analysis_function
+        if self.chunk_spectra is None:
+            # adapt once to the caller's first block size
+            if name == LOWCBF:
+                usable = (n_dat + lowcbf.FIRST_CALL_PAD - lowcbf.NFILT) // lowcbf.STEP
+            elif name == PADDED:
+                usable = n_dat // self.step
+            else:
+                usable = (n_dat - self.fl) // self.step
+            self.chunk_spectra = max(nu, (usable // nu) * nu)
+        step_fn = {PLAIN: self._execute_plain, PADDED: self._execute_padded,
+                   LOWCBF: self._execute_lowcbf}[name]
+        state, out, rest = step_fn(state, x)
+        if out is None:
+            out = x.new_zeros((x.shape[0], 0, self.n_chan_out))
+        elif self.rnd_output:
+            out = torch.cat([_round_rms(c, self.rms_output)
+                             for c in out.split(self.chunk_spectra, dim=1)], dim=1)
+        return dataclasses.replace(state, buffer=rest), out.transpose(1, 2)
+
+    def _whole(self, spectra: int) -> int:
+        """The spectra of the whole chunks among ``spectra``."""
+        return max(spectra, 0) // self.chunk_spectra * self.chunk_spectra
+
+    # -- single-stage (Bunton) ------------------------------------------
+    def _execute_plain(self, state, x):
+        n = self._whole((x.shape[-1] - self.fl) // self.step)
+        if n == 0:
+            return state, None, x
+        out = self._analyse(x[:, :self.fl + n * self.step], self.f2d, self.ramp, self.step,
+                            state.emitted)
+        consumed = n * self.step
+        return (FilterBankState(base=state.base + consumed, emitted=state.emitted + n),
+                out, x[:, consumed:])
+
+    # -- zero-padded (Gunaratne / SKA-Mid) ------------------------------
+    def _execute_padded(self, state, x):
+        step, base = self.step, state.base
+        raw0 = base // step
+        need = state.emitted + self.delay  # next absolute raw spectrum to emit
+        n = self._whole(raw0 + x.shape[-1] // step - need)
+        if n == 0:
+            return state, None, x
+        chunk = x[:, :(need + n - raw0) * step]
+        if self.plain:
+            raw = chan_dft_core(padded_fold(chunk, self.f2d, step), self.ramp, raw0)
+        else:
+            raw = chan_dft_ramp(padded_fold_fused(chunk, self.f2d, step), self.ramp, raw0)
+        out = raw[:, need - raw0:need - raw0 + n]
+        emitted = state.emitted + n
+        # carry the filter length of history before raw spectrum emitted + delay
+        new_base = max(0, (emitted + self.delay) * step - self.fl)
+        new_base -= new_base % step
+        new_base = min(new_base, base + x.shape[-1])
+        return FilterBankState(base=new_base, emitted=emitted), out, x[:, new_base - base:]
+
+    # -- LowCBF firmware model ------------------------------------------
+    def _execute_lowcbf(self, state, x):
+        first = state.base == 0 and state.emitted == 0
+        pad = lowcbf.FIRST_CALL_PAD if first else 0
+        n = self._whole((x.shape[-1] + pad - lowcbf.NFILT) // lowcbf.STEP)
+        if n == 0:
+            return state, None, x
+        out = lowcbf.lowcbf_core(x[:, :lowcbf.NFILT + n * lowcbf.STEP - pad], self.f2d,
+                                 self.ramp, self.kept, first, self._analyse)
+        consumed = n * lowcbf.STEP - pad
+        return (FilterBankState(base=state.base + consumed, emitted=state.emitted + n),
+                out, x[:, consumed:])
+
+
+@dataclasses.dataclass
+class InverseFilterBankState:
+    buffer: Optional[torch.Tensor] = None  # (n_pol, n_chan, nbuf)
+    consumed: int = 0                      # absolute fine-channel samples consumed
+
+
+class InverseFilterBank(nn.Module):
+    """Streaming PFB inversion (DeChannelizer): the Golden inversion with
+    the reference's buffered-carry semantics."""
+
+    def __init__(self, config, *, critical: bool = False, combine: int = 1,
+                 sample_offset: int = 0, spectral_taper="no_window",
+                 deripple: Optional[bool] = None, chunk_blocks: Optional[int] = None,
+                 monotonic: bool = False, device="cuda", plain: bool = False):
+        super().__init__()
+        self.config = config
+        self.filt_coeff = np.asarray(config.load_fir_filter_coeff())
+        self.n_fft = config.input_fft_length
+        self.n_chan = config.channels
+        self.os_factor = Rational.coerce(config.os_factor)
+        self.overlap = config.input_overlap
+        self.deripple = bool(config.deripple) if deripple is None else deripple
+        self.temporal_taper = config.temporal_taper
+        self.spectral_taper = spectral_taper
+        self.critical = critical
+        self.combine = combine
+        #: fine channels arrive in monotonic (fftshifted) frequency order
+        #: (chomped LowCBF cascades): the DSB combine reordering is skipped
+        self.monotonic = monotonic
+        self.sample_offset = sample_offset
+        self._offset_pending = sample_offset
+        #: overlap-save blocks per chunk: the output comes in whole chunks
+        self.chunk_blocks = chunk_blocks
+        self.device = torch.device(device)
+        self.plain = plain
+        #: channel count the constant buffers were built for
+        self._n_chan_built = None
+        self.geom = None
+        for name in ("t_taper", "dr", "perm", "elem"):
+            self.register_buffer(name, None)
+
+    def frequency_taper(self, name) -> "InverseFilterBank":
+        """Install a spectral taper (InverseFilterBank.m:48-61)."""
+        self.spectral_taper = name
+        self._n_chan_built = None
+        return self
+
+    def init_state(self) -> InverseFilterBankState:
+        self._offset_pending = self.sample_offset
+        return InverseFilterBankState()
+
+    def _constants(self, n_chan: int) -> None:
+        """The inversion's constants for ``n_chan`` input channels, as
+        buffers; built once per channel count."""
+        if self._n_chan_built == n_chan:
+            return
+        c = synthesis_constants(
+            n_chan, self.n_fft, self.os_factor, self.overlap,
+            spans_nyquist=not self.critical,
+            deripple_coeff=self.filt_coeff if self.deripple else None,
+            temporal_taper=self.temporal_taper, spectral_taper=self.spectral_taper,
+            combine=self.combine, monotonic=self.monotonic,
+        )
+        for name in ("t_taper", "dr", "perm", "elem"):
+            setattr(self, name, None if c[name] is None
+                    else torch.as_tensor(c[name], device=self.device))
+        self.geom = geometry.SynthesisGeometry(n_chan, self.n_fft, self.overlap,
+                                               self.os_factor)
+        self._n_chan_built = n_chan
+
+    def execute(self, state: InverseFilterBankState, x
+                ) -> Tuple[InverseFilterBankState, torch.Tensor]:
+        """Invert one block of (n_pol, n_chan, n) fine channels: returns
+        (new_state, (n_pol, 1, n_out)) on the module's device."""
+        x = as_tensor(x, self.device)
+        if state.buffer is not None and state.buffer.shape[-1] > 0:
+            x = torch.cat([state.buffer, x], dim=2)
+        n_pol, n_chan, n_dat = x.shape
+        offset = self._offset_pending
+        keep = self.n_fft - 2 * self.overlap
+        if self.chunk_blocks is None:
+            self.chunk_blocks = max(1, (n_dat - offset - 2 * self.overlap) // keep)
+        B = self.chunk_blocks
+        n_blocks = max(0, (n_dat - offset - 2 * self.overlap) // keep) // B * B
+        if n_blocks == 0:
+            return (InverseFilterBankState(buffer=x, consumed=state.consumed),
+                    x.new_zeros((n_pol, 1, 0)))
+        self._constants(n_chan)
+        chunk = x[:, :, offset:offset + 2 * self.overlap + n_blocks * keep].transpose(1, 2)
+        invert = inversion_core if self.plain else fused_inversion
+        out = invert(chunk, self.t_taper, self.dr, self.perm, self.elem, self.geom,
+                     spans_nyquist=not self.critical)
+        consumed = offset + n_blocks * keep
+        self._offset_pending = 0
+        return (InverseFilterBankState(buffer=x[:, :, consumed:],
+                                       consumed=state.consumed + consumed), out)
+
+
+class StatefulPipeline:
+    """Chains streaming stages with held state, mirroring the reference's
+    ``[obj, x] = execute(obj, x)`` block loop."""
+
+    def __init__(self, *stages):
+        self.stages = list(stages)
+        self.states = [s.init_state() for s in stages]
+
+    def execute(self, x):
+        for i, stage in enumerate(self.stages):
+            self.states[i], x = stage.execute(self.states[i], x)
+        return x

@@ -123,11 +123,11 @@ def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"analysis_fused runs on cuda or cpu, not {x.device}")
     dev = x.device
-    x = require(x, "x", torch.complex64, dev)
+    if x.dtype != torch.complex64 or x.ndim != 2:
+        raise TypeError(f"x must be a (n_pol, n_dat) complex64 tensor, got {x.dtype} "
+                        f"{tuple(x.shape)}")
     f2d = require(f2d, "f2d", torch.float32, dev)
     ramp = require(ramp, "ramp", torch.complex64, dev)
-    if x.ndim != 2:
-        raise ValueError(f"x must be (n_pol, n_dat), got {tuple(x.shape)}")
     if block0 < 0:
         raise ValueError(f"block0 must be >= 0, got {block0}")
     r, logq = p.r, p.logq
@@ -137,15 +137,18 @@ def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
         raise ValueError(
             f"input stream too short: {n_dat} samples yield {nblocks} spectra"
         )
-    if x.data_ptr() % 16:  # the bulk copies start on 16 bytes
-        x = x.clone()
+    # a view whose samples are contiguous is read in place (a chunk of a
+    # longer stream); the bulk copies start on 16 bytes of its base
+    if x.stride(1) != 1 or x.data_ptr() % 16 or (n_pol > 1 and x.stride(0) < n_dat):
+        x = x.clone(memory_format=torch.contiguous_format)
+    pol_stride = x.stride(0) if n_pol > 1 else n_dat
     out = torch.empty((n_pol, nblocks, block), dtype=torch.complex64, device=dev)
     tw_pass = device_pass_twiddles(1 << logq, -1, dev)
     tw_n = twiddles(block, -1, dev) if r > 1 else tw_pass
     with torch.cuda.device(dev):
         status = _build.library().analysis_fused_launch(
             x.data_ptr(), out.data_ptr(), f2d.data_ptr(), tw_pass.data_ptr(),
-            tw_n.data_ptr(), ramp.data_ptr(), n_pol, n_dat, nblocks, block, r, logq,
+            tw_n.data_ptr(), ramp.data_ptr(), n_pol, n_dat, pol_stride, nblocks, block, r, logq,
             step, phases, period, block0 % period, SMEM_LIMIT, stream_of(x),
         )
     _build.check(status, "analysis_fused")

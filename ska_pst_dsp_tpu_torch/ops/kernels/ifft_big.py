@@ -86,6 +86,21 @@ def takes(n2: int, n1: int) -> bool:
             and _split(n1) in OUTER_SPLITS)
 
 
+def pair_split(n: int, lo: int) -> Optional[Tuple[int, int]]:
+    """(n2, n1) split of an n-point epilogue that the pair has kernels for:
+    :func:`plan_big_ifft`'s own where the pair takes it, else the first
+    n1 in 512, 384, 256, 128 whose n2 = n / n1 it takes with the overlap lo
+    and the keep region whole n2 rows (589824 = 1152 * 512 points, the
+    critical inversion of 3072 channels, becomes 1536 * 384: an 1152-point
+    inner transform is 9 * 128, no split of the inner kernel); None where
+    neither applies. Any split gives the same transform."""
+    big = plan_big_ifft(n, lo)
+    splits = [] if big is None else [(big[0] * big[1], big[2])]
+    splits += [(n // n1, n1) for n1 in (512, 384, 256, 128) if n % n1 == 0]
+    return next(((n2, n1) for n2, n1 in splits if takes(n2, n1) and (n - 2 * lo) > 0
+                 and lo % n2 == 0 and (n - 2 * lo) % n2 == 0), None)
+
+
 def kernel_split(n: int, splits=INNER_SPLITS) -> Tuple[int, int]:
     """(r, log2 q) with n = r * 2^logq and 2^logq = min(512, the power of
     two in n): the radix-r step and the register-pass transform of the

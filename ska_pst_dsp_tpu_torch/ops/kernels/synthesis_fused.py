@@ -104,9 +104,11 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
 
     The epilogue is the cluster kernel for :func:`.ifft_fused.plan_ifft`'s
     split, or the out-of-core pair for it where only that has kernels for
-    the split, or the pair for :func:`.ifft_big.plan_big_ifft`'s; where no
-    plan applies, the composed epilogue, as in the JAX package. On the card
-    a frame length or a split no kernel takes raises ValueError."""
+    the split, or the pair where :func:`.ifft_big.plan_big_ifft` applies
+    (on :func:`.ifft_big.pair_split`'s split); where no plan applies, the
+    composed epilogue, as in the JAX package, counted in
+    ``fused_inversion.composed_epilogues``. On the card a frame length or a
+    split no kernel takes raises ValueError."""
     n_pol, n_dat, _ = x_tc.shape
     L = geom.input_fft_length
     if n_dat < L:
@@ -130,10 +132,19 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     elif plan is not None:
         out = fused_big_ifft_oc(flat, elem, shape_key=(n, 1, *plan, lo, roll, gain))
     elif (big := plan_big_ifft(n, lo)) is not None:
-        out = fused_big_ifft_oc(flat, elem, shape_key=(n, *big, lo, roll, gain))
+        split = ifft_big.pair_split(n, lo)
+        key = (n, *big) if split in (None, (big[0] * big[1], big[2])) else (n, 1, *split)
+        out = fused_big_ifft_oc(flat, elem, shape_key=(*key, lo, roll, gain))
     else:
         out = epilogue(flat, elem, lo, roll, gain, n_blocks)
+        fused_inversion.composed_epilogues += 1
     return out.reshape(n_pol, 1, -1)
+
+
+#: epilogues :func:`fused_inversion` ran composed because neither package
+#: has a plan for their length (36864 and 41472 points, say): the
+#: reference's own dispatch, counted so that it shows
+fused_inversion.composed_epilogues = 0
 
 
 def polyphase_synthesis_fused(

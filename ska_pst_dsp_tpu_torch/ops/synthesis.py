@@ -145,6 +145,26 @@ def epilogue(flat: torch.Tensor, elem: Optional[torch.Tensor], lo: int,
     return cfft.ifft(z)[..., lo:n - lo] * gain
 
 
+def inversion_core(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
+                   perm: torch.Tensor, elem: Optional[torch.Tensor],
+                   geom: geometry.SynthesisGeometry, *, spans_nyquist: bool) -> torch.Tensor:
+    """:func:`frontend` then :func:`epilogue` on a (n_pol, n_dat, n_chan)
+    view: the plain version of the fused inversion
+    (:func:`.kernels.synthesis_fused.fused_inversion`). Returns
+    (n_pol, 1, n_blocks * output_keep)."""
+    n_pol, n_dat, _ = x_tc.shape
+    L = geom.input_fft_length
+    n_blocks = geom.n_blocks(n_dat)
+    fn = frontend(x_tc, t_taper, dr, perm, L, geom.input_keep,
+                  (L // 2 + geom.discard) % L, n_blocks)
+    out = epilogue(
+        fn.reshape(n_pol, n_blocks, geom.output_fft_length), elem,
+        geom.output_overlap, geom.fn_width // 2 if spans_nyquist else 0,
+        geom.os_factor.de / geom.os_factor.nu, n_blocks,
+    )
+    return out.reshape(n_pol, 1, -1)
+
+
 def _phase(idx: torch.Tensor, n: int) -> torch.Tensor:
     """exp(+2j*pi*idx/n) as complex64, the angle taken in float64 from the
     exact integer idx mod n."""
@@ -202,7 +222,7 @@ def polyphase_synthesis(
     z, pair = cfft.as_complex(x)
     if sample_offset:
         z = z[:, :, sample_offset:]
-    n_pol, n_chan, n_dat = z.shape
+    n_chan = z.shape[1]
     L = input_fft_length
     if input_overlap is None:
         input_overlap = L // 8
@@ -213,19 +233,7 @@ def polyphase_synthesis(
         spectral_taper=spectral_taper, combine=combine, monotonic=monotonic,
         spectral_filter=spectral_filter,
     )
-    dev = z.device
-    n_blocks = geom.n_blocks(n_dat)
-    fn = frontend(
-        z.transpose(1, 2),
-        torch.as_tensor(c["t_taper"], device=dev),
-        torch.as_tensor(c["dr"], device=dev),
-        torch.as_tensor(c["perm"], device=dev),
-        L, geom.input_keep, (L // 2 + geom.discard) % L, n_blocks,
-    )
-    elem = None if c["elem"] is None else torch.as_tensor(c["elem"], device=dev)
-    out = epilogue(
-        fn.reshape(n_pol, n_blocks, geom.output_fft_length), elem,
-        geom.output_overlap, geom.fn_width // 2 if spans_nyquist else 0,
-        os_factor.de / os_factor.nu, n_blocks,
-    )
-    return cfft.same_kind(out.reshape(n_pol, 1, -1), pair)
+    consts = [None if c[k] is None else torch.as_tensor(c[k], device=z.device)
+              for k in ("t_taper", "dr", "perm", "elem")]
+    out = inversion_core(z.transpose(1, 2), *consts, geom, spans_nyquist=spans_nyquist)
+    return cfft.same_kind(out, pair)

@@ -29,6 +29,7 @@ from ska_pst_dsp_tpu.design import fir
 from ska_pst_dsp_tpu.utils import geometry
 from ska_pst_dsp_tpu.utils.rational import Rational
 from ska_pst_dsp_tpu_torch.ops import synthesis as tsynth
+from ska_pst_dsp_tpu_torch.ops import lowcbf
 from ska_pst_dsp_tpu_torch.ops.analysis import (
     _prep_filter, analysis_core, chan_dft_core, padded_chan_const, padded_fold,
     ramp_table,
@@ -1661,3 +1662,110 @@ class TestOnCard:
         got = ifft_big_outer(a_ref, lo, 224, 0.875)
         ref = tsynth.big_ifft_outer(a_ref, lo, 224, 0.875)
         assert _rel_err(got.cpu(), ref.cpu()) < BIG_IFFT_TOL
+
+
+#: (block, os, phases, step) of each analysis geometry the cascades run on
+#: the card, with the ramp: sps stage 1 (25 phases at hop 216, a ramp of 32
+#: rows, too large to stage in shared memory), the LowCBF firmware model (12
+#: phases, the quarter-turn table of 4 rows, the direct fold) and low stage 2
+CASCADE_ANALYSIS = {
+    "sps": lambda rng: (_prep_filter(rng.standard_normal(6145), 256), ramp_table(256, 216), 216),
+    "lowcbf": lambda rng: (lowcbf.lowcbf_filter(rng.standard_normal(3072)), lowcbf.lowcbf_ramp(),
+                           192),
+    "low": lambda rng: (_prep_filter(fir.design_pfb_fir_filter(256, OS, 12), 256),
+                        ramp_table(256, 192), 192),
+}
+
+
+@pytest.mark.cuda
+class TestCascadesOnCard:
+    """The kernels at the geometries the streaming classes and the two-stage
+    cascades give them, each against its plain version on the card."""
+
+    @pytest.mark.parametrize("geom,shape,layout", [
+        ("sps", (2, 40_001), "contiguous"), ("lowcbf", (2, 30_000), "contiguous"),
+        ("lowcbf", (512, 3_999), "contiguous"),   # stage 2: 512 short streams, odd length
+        ("low", (512, 4_001), "contiguous"), ("low", (3, 20_001), "contiguous"),
+        ("low", (2, 30_000), "view"),      # a chunk of a longer buffer, read in place
+        ("low", (2, 30_000), "view_odd"),  # one starting at an odd sample: copied
+    ])
+    def test_analysis(self, cuda, geom, shape, layout):
+        rng = np.random.default_rng(60)
+        f2d, ramp, step = (torch.as_tensor(t, device=cuda) if not isinstance(t, int) else t
+                           for t in CASCADE_ANALYSIS[geom](rng))
+        buf = torch.as_tensor(_noise((shape[0], shape[1] + 9), 61), device=cuda)
+        x = {"contiguous": buf[:, :shape[1]].contiguous(), "view": buf[:, :shape[1]],
+             "view_odd": buf[:, 1:shape[1] + 1]}[layout]
+        before = analysis_fused.launches
+        got = analysis_fused(x, f2d, ramp, step, 5)
+        assert analysis_fused.launches == before + 1
+        ref = analysis_core(x, f2d, ramp, step, 5)
+        assert _rel_err(got.cpu(), ref.cpu()) < ANALYSIS_TOL
+
+    @pytest.mark.parametrize("n_chan,kw,n_slab,kernels", [
+        (216, {"monotonic": True}, 6, [1, 0, 0, 0]),                 # lowpsi slabs, composed
+        (192, {"spans_nyquist": False}, 6, [1, 0, 0, 0]),           # critical, composed
+        (3072, {"spans_nyquist": False, "combine": 16}, 2, [1, 0, 1, 1]),  # the pair
+    ])
+    def test_inversion(self, cuda, filt, n_chan, kw, n_slab, kernels):
+        # channel-major slabs read time-major by the frontend kernel, then
+        # the epilogue the dispatch picks
+        g = geometry.SynthesisGeometry(n_chan, L, OV, OS)
+        c = tsynth.synthesis_constants(n_chan, L, OS, OV, deripple_coeff=filt,
+                                       temporal_taper="tukey", **kw)
+        x = torch.as_tensor(_noise((n_slab, n_chan, 2 * OV + 3 * g.input_keep), 62),
+                            device=cuda).transpose(1, 2)
+        args = [torch.as_tensor(c[k], device=cuda) for k in ("t_taper", "dr", "perm")]
+        spans = kw.get("spans_nyquist", True)
+        ws = (synthesis_fused, fused_big_ifft, ifft_big_inner, ifft_big_outer)
+        before = [w.launches for w in ws]
+        composed = tsf.fused_inversion.composed_epilogues
+        got = tsf.fused_inversion(x, *args, None, g, spans_nyquist=spans)
+        assert [w.launches - b for w, b in zip(ws, before)] == kernels
+        assert tsf.fused_inversion.composed_epilogues - composed == (kernels[2] == 0)
+        ref = tsynth.inversion_core(x, *args, None, g, spans_nyquist=spans)
+        assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
+
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_ifft_big_589824(self, cuda, with_elem):
+        # the critical combine-16 inversion's 589824 points on 1536 x 384
+        n, lo = 589_824, 110_592
+        n2, n1 = big.pair_split(n, lo)
+        X = torch.as_tensor(_noise((2, 2, n), 63), device=cuda)
+        elem = torch.as_tensor(_noise((n,), 64), device=cuda) if with_elem else None
+        got = fused_big_ifft_oc(X, elem, shape_key=(n, 1, n2, n1, lo, 0, 0.75))
+        ref = tsynth.epilogue(X, elem, lo, 0, 0.75, 2)
+        assert (n2, n1) == (1536, 384) and _rel_err(got.cpu(), ref.cpu()) < BIG_IFFT_TOL
+
+    @pytest.mark.parametrize("name,chunks", [("low", [100_001, 333_333, 250_000]),
+                                             ("lowpsi", [50_001, 200_000]),
+                                             ("mid", [1_000_000, 1_500_001])])
+    def test_streaming_equals_oneshot(self, cuda, name, chunks):
+        from ska_pst_dsp_tpu_torch.models.streaming import FilterBank, InverseFilterBank
+        from ska_pst_dsp_tpu_torch.ops.kernels.analysis_padded_fused import (
+            polyphase_analysis_padded_fused,
+        )
+        from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+        cfg = load_config(name)
+        f = cfg.load_fir_filter_coeff()
+        x = torch.as_tensor(_noise((2, sum(chunks)), 65), device=cuda)
+        fb, inv = FilterBank(cfg, device=cuda), InverseFilterBank(cfg, device=cuda)
+        fs, ist, chans, outs, pos = fb.init_state(), inv.init_state(), [], [], 0
+        for c in chunks:
+            fs, y = fb.execute(fs, x[:, pos:pos + c])
+            ist, z = inv.execute(ist, y)
+            chans.append(y)
+            outs.append(z)
+            pos += c
+        chan, out = torch.cat(chans, 2), torch.cat(outs, 2)
+        one = {"low": lambda: polyphase_analysis_fused(x, f, 256, cfg.os_factor),
+               "lowpsi": lambda: lowcbf.polyphase_analysis_lowcbf(x, f),
+               "mid": lambda: polyphase_analysis_padded_fused(x, f, 4096, cfg.os_factor)}[name]()
+        assert chan.shape[2] > 0 and _rel_err(chan.cpu(), one[:, :, :chan.shape[2]].cpu()) < 1e-6
+        if name == "lowpsi":
+            return
+        ref = polyphase_synthesis_fused(chan, cfg.input_fft_length, cfg.os_factor,
+                                        input_overlap=cfg.input_overlap, deripple_coeff=f,
+                                        temporal_taper="tukey")
+        assert out.shape[2] > 0 and _rel_err(out.cpu(), ref[:, :, :out.shape[2]].cpu()) < 1e-6

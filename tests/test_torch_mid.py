@@ -66,7 +66,7 @@ def stream():
 
 @pytest.fixture(scope="module")
 def model(filt):
-    return PaddedPFBRoundTrip.from_filter(filt, N_CHAN, OS, L, OV)
+    return PaddedPFBRoundTrip.from_filter(filt, N_CHAN, OS, L, OV, device="cpu")
 
 
 @pytest.fixture(scope="module")

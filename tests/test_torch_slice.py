@@ -131,7 +131,7 @@ class TestState:
             state["perm"], combine_channel_permutation(N_CHAN, 16).astype(np.int32))
 
     def test_load_state_buffers(self, filt):
-        m = PFBRoundTrip.from_filter(filt, N_CHAN, OS, L, OV)
+        m = PFBRoundTrip.from_filter(filt, N_CHAN, OS, L, OV, device="cpu")
         names = {n for n, _ in m.named_buffers()}
         assert names == {"f2d", "ramp", "t_taper", "dr", "perm"}
         assert m.ramp.dtype == torch.complex64 and m.perm.dtype == torch.int32
