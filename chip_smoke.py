@@ -73,6 +73,28 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     (1.2e-5 / 1e-4 * scale), and block-wise against whole-stream
     dedispersion in dB.
 
+13. data_gen: the file-level tools on the card, in a temporary directory,
+    with the plain versions and torch.fft patched to raise: at low a
+    complex sinusoid of 2 pol x 2^23 through generate_test_vector ->
+    channelize -> synthesize (pipeline, then dispose), kernels 1-3, the
+    synthesized file within 1.2e-5 * scale of the plain chain on the card
+    from the same files, its headers equal to the numpy backend's and, on a
+    2^19-sample prefix, the numpy (fp64 oracle) backend within 3e-6 *
+    scale; at mid channelize --use-padded (4096 channels, 2 pol x
+    4,587,520) then synthesize, kernels 4, 5, 2, 6, 7, within 1.2e-5 *
+    scale of plain; StageTimer's read / compute / write seconds and the
+    share of the wall time off the device.
+14. drivers: test_sgcht -c low and -c lowpsi at their defaults (16 cases
+    each) and -c mid's three single-stage entries (at the committed
+    report's 1048576-sample blocks), each case with the plain versions
+    patched to raise (torch.fft and the plain epilogue left where the
+    inversion has no epilogue plan, 36864 and 41472 points, whose composed
+    epilogues are counted instead), its launches as expected and each
+    status equal to the committed products/report.test_sgcht.<cfg>.json;
+    current_performance -c low -d both -n 8 --strict (every in-window point
+    <= -60 dB); at3 565 at its defaults, each variant's SNR within 0.5 dB
+    of the committed products/report.at3_565.json. Each run's seconds.
+
 The line before the last is a JSON object with one entry per kernel (one
 per pallas_call of the JAX package); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -611,6 +633,13 @@ def main() -> int:
     run_sps_lowpsi(torch, dev, smi)
     run_dedispersion(torch, dev, smi)
 
+    # 13-14. the file-level data_gen tools and the CLI drivers
+    for phase, run in (("data_gen", lambda: run_data_gen(torch, dev, smi)),
+                       ("drivers", lambda: run_drivers(torch, smi))):
+        t0 = time.perf_counter()
+        run()
+        log(phase, f"phase done in {time.perf_counter() - t0:.1f} s ({smi})")
+
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
@@ -918,9 +947,9 @@ def expect_launches(phase, counts, kernels, composed):
 
 
 def breakdown(torch, fn):
-    """(device busy ms, "name ms, ..." of the five largest) of one call of
-    fn, from torch.profiler: every kernel and copy on the card, by name
-    (template arguments and namespaces dropped)."""
+    """(device busy ms, "name ms, ..." of the five largest, ms of host <->
+    device copies) of one call of fn, from torch.profiler: every kernel and
+    copy on the card, by name (template arguments and namespaces dropped)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -939,7 +968,8 @@ def breakdown(torch, fn):
             name = key.split("<")[0].split("(")[0] or key[:40]
             times[name] = times.get(name, 0.0) + us / 1e3
     top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
-    return sum(times.values()), ", ".join(f"{k} {v:.3f}" for k, v in top)
+    copies = sum(v for k, v in times.items() if k.startswith("Memcpy"))
+    return sum(times.values()), ", ".join(f"{k} {v:.3f}" for k, v in top), copies
 
 
 def run_streaming(torch, dev, smi, one_shot_ms):
@@ -991,7 +1021,7 @@ def run_streaming(torch, dev, smi, one_shot_ms):
         with plain_versions_raise(torch):
             chan, out, ms, host = stream()
         counts = read_counts(torch, ws)
-        busy, top = breakdown(torch, stream)
+        busy, top, _ = breakdown(torch, stream)
         log("stream", f"{name}: launch counts over the streamed run: {counts}")
         expect_launches(f"stream-{name}", counts, kernels[name], composed=False)
         if name == "low":
@@ -1103,7 +1133,7 @@ def run_case(torch, dev, smi, phase, cfg1, cfg2, label, fwd, inv_kw, kernels, co
         out, ms, judged = cascade(torch, *kern, blocks, testers=testers)
     counts = read_counts(torch, ws)
     expect_launches(f"{phase} {label}", counts, kernels, composed)
-    busy, top = breakdown(torch, lambda: cascade(torch, *kern, blocks))
+    busy, top, _ = breakdown(torch, lambda: cascade(torch, *kern, blocks))
     ref, plain_ms, _ = cascade(torch, *modules(True), blocks)
     err = rel_err(out, ref)
     check(out.shape[2] > 0 and err[1] <= CASCADE_TOL,
@@ -1348,6 +1378,311 @@ def run_dedispersion(torch, dev, smi):
             f"{10 * math.log10(float(diff.max() / ref.max())):.2f} dB; inversion with the "
             f"chirp {ms:.3f} ms, its constants built once ({smi})")
         del clean, x, chan, a, b, c
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: the file-level data_gen tools and the CLI drivers
+# ---------------------------------------------------------------------------
+
+PRODUCTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "products")
+#: the mid data_gen tone, in cycles per sample (an integer bin of 4,587,520)
+MID_TONE = 0.1
+LOW_KERNELS = ("analysis_fused", "synthesis_fused", "ifft_fused")
+MID_KERNELS = ("analysis_padded_fused", "chan_dft_fused", "synthesis_fused", "ifft_big_inner",
+               "ifft_big_outer")
+PAIR = ("ifft_big_inner", "ifft_big_outer")
+#: at3 565's SNRs against the committed report, dB
+AT3_TOL_DB = 0.5
+
+
+def stage_line(timers):
+    """"name: stage s, ..." of each StageTimer, and their sum in seconds."""
+    parts, total = [], 0.0
+    for name, t in timers.items():
+        total += sum(t.seconds.values())
+        parts.append(f"{name}: " + ", ".join(f"{k} {v:.3f} s" for k, v in t.seconds.items()))
+    return "; ".join(parts), total
+
+
+def data_gen_round_trip(torch, dev, smi, tmp, name):
+    """One file-level round trip at production width on the card, under
+    plain_versions_raise: generate_test_vector -> channelize -> synthesize
+    through pipeline, then dispose. Checks the launches, the synthesized
+    file against the plain chain on the card (read from the same files);
+    returns the (input, channelized, synthesized) DADAFiles."""
+    from ska_pst_dsp_tpu_torch import data_gen
+    from ska_pst_dsp_tpu_torch.io import dada
+    from ska_pst_dsp_tpu_torch.ops import analysis as pa
+    from ska_pst_dsp_tpu_torch.ops import synthesis as ps
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+    from ska_pst_dsp_tpu_torch.utils.profiling import StageTimer
+
+    cfg = load_config(name)
+    filt = cfg.load_fir_filter_coeff()  # designed and cached before channelize reads it
+    check(os.path.exists(cfg.fir_filter_path), f"{cfg.fir_filter_path} not cached")
+    padded = name == "mid"
+    n_dat, tone = (MID_N_DAT, MID_TONE) if padded else (N_DAT, TONE)
+    timers = {"channelize": StageTimer(dev), "synthesize": StageTimer(dev)}
+    pipe = data_gen.pipeline(
+        data_gen.generate_test_vector(domain_name="freq", n_bins=n_dat),
+        data_gen.channelize(channels=cfg.channels, os_factor_str=str(cfg.os_factor),
+                            fir_filter_path=cfg.fir_filter_path, use_padded=padded,
+                            device=dev, timer=timers["channelize"]),
+        data_gen.synthesize(input_fft_length=cfg.input_fft_length,
+                            input_overlap=cfg.input_overlap, device=dev,
+                            timer=timers["synthesize"]),
+        output_dir=tmp,
+    )
+    ws = reset_counts()
+    t0 = time.perf_counter()
+    with plain_versions_raise(torch):
+        files = pipe([tone], [0.0], n_pol=2)
+    wall = time.perf_counter() - t0
+    counts = read_counts(torch, ws)
+    expect_launches(f"data_gen-{name}", counts, MID_KERNELS if padded else LOW_KERNELS,
+                    composed=False)
+    src, chan, synth = files
+    check(src.data.shape == (n_dat, 1, 2) and synth.ndat > 0
+          and np.isfinite(synth.data_pft).all(), f"data_gen-{name}: output {synth.data.shape}")
+    # the plain chain on the card, from the same input file and the
+    # channelized file's header filter
+    x = torch.as_tensor(src.data_pft, device=dev)
+    plain_chan = (pa.polyphase_analysis_padded if padded else pa.polyphase_analysis)(
+        x, filt, cfg.channels, cfg.os_factor)
+    aerr = rel_err(torch.as_tensor(chan.data_pft, device=dev), plain_chan)
+    check(aerr[1] <= (PADDED_TOL if padded else ANALYSIS_TOL),
+          f"data_gen-{name}: channelized vs plain {aerr[1]:.3g}")
+    hdr_filt = dada.get_fir_filters_from_header(chan.header)[0][0]
+    plain = ps.polyphase_synthesis(plain_chan, cfg.input_fft_length, cfg.os_factor,
+                                   input_overlap=cfg.input_overlap, deripple_coeff=hdr_filt,
+                                   temporal_taper="tukey")
+    serr = rel_err(torch.as_tensor(synth.data_pft, device=dev), plain)
+    check(serr[1] <= SYNTHESIS_TOL, f"data_gen-{name}: synthesized vs plain chain {serr[1]:.3g}")
+    stages, in_stages = stage_line(timers)  # the counted pass's, before the profiled ones
+    busy, top, copies = breakdown(torch, lambda: pipe([tone], [0.0], n_pol=2))
+    log("data_gen", f"{name}: {tuple(src.data_pft.shape)} -> {tuple(chan.data_pft.shape)} -> "
+        f"{tuple(synth.data_pft.shape)}; launches {counts}; channelized vs plain "
+        f"max|err|/scale {aerr[1]:.3g}, synthesized vs plain chain {serr[1]:.3g} (tol "
+        f"{SYNTHESIS_TOL}); {wall:.3f} s in all, {wall - in_stages:.3f} s of it outside the "
+        f"stages: the test vector made and written, each product read back ({stages}); a second pass on the device (torch.profiler): busy "
+        f"{busy:.3f} ms, of which host <-> device copies {copies:.3f} ms and kernels "
+        f"{busy - copies:.3f} ms (largest: {top}): "
+        f"{100 * (1 - (busy - copies) / 1e3 / wall):.2f} % of the wall time outside the "
+        f"kernels ({smi})")
+    return files
+
+
+def run_data_gen(torch, dev, smi):
+    """Phase 13: the file-level data_gen tools on the card, in a temporary
+    directory, with the plain versions and torch.fft patched to raise.
+    Low: a complex sinusoid of 2 pol x 2^23 through pipeline (kernels 1-3),
+    the synthesized file within 1.2e-5 * scale of the plain chain on the
+    card, its headers equal to the numpy backend's, and on a 2^19-sample
+    prefix the numpy (fp64 oracle) backend within 3e-6 * scale. Mid:
+    channelize --use-padded at 4096 channels over 2 pol x 4,587,520, then
+    synthesize (kernels 4, 5, 2, 6, 7), within 1.2e-5 * scale of plain.
+    dispose removes every product but the test vector."""
+    from ska_pst_dsp_tpu_torch import data_gen
+    from ska_pst_dsp_tpu_torch.io import dada
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, chan, synth = data_gen_round_trip(torch, dev, smi, tmp, "low")
+        data, header = dada.load(src.file_path, count=PREFIX)
+        prefix = os.path.join(tmp, "prefix.dump")
+        dada.save(prefix, data, header)
+        cfg = load_config("low")
+        t0 = time.perf_counter()
+        np_chan = data_gen.channelize(prefix, channels=cfg.channels,
+                                      os_factor_str=str(cfg.os_factor),
+                                      fir_filter_path=cfg.fir_filter_path,
+                                      backend="numpy", output_dir=tmp,
+                                      output_file_name="channelized.prefix.dump")
+        np_synth = data_gen.synthesize(np_chan.file_path, input_fft_length=cfg.input_fft_length,
+                                       input_overlap=cfg.input_overlap, backend="numpy",
+                                       output_dir=tmp, output_file_name="synthesized.prefix.dump")
+        np_s = time.perf_counter() - t0
+        check(np_chan.header == chan.header and np_synth.header == synth.header,
+              "data_gen-low: headers differ from the numpy backend's")
+        n = np_synth.ndat
+        ref = np_synth.data_pft
+        got = synth.data_pft[:, :, :n]
+        oerr = float(np.abs(got - ref).max() / np.abs(ref).max())
+        check(n > 0 and oerr <= ORACLE_TOL, f"data_gen-low: vs numpy oracle {oerr:.3g}")
+        log("data_gen", f"low: headers equal the numpy backend's; on a {PREFIX}-sample prefix "
+            f"the numpy (fp64 oracle) backend's {n} samples agree within max|err|/scale "
+            f"{oerr:.3g} (tol {ORACLE_TOL}); the oracle took {np_s:.2f} s on the host")
+        with data_gen.dispose(src, chan, synth, np_chan, np_synth):
+            pass
+        check(sorted(os.listdir(tmp)) == sorted([os.path.basename(src.file_path),
+                                                 "prefix.dump"]),
+              f"data_gen: dispose left {sorted(os.listdir(tmp))}")
+        del src, chan, synth, np_chan, np_synth, data
+        files = data_gen_round_trip(torch, dev, smi, tmp, "mid")
+        with data_gen.dispose(*files, dispose_all=True):
+            pass
+
+
+def sweep_kernels(cfg, extra):
+    """(the kernels a test_sgcht case launches, whether its inversion's
+    epilogue is composed by design): the 36864-point (critical) and
+    41472-point (LowCBF's 216 kept channels) inversions have no epilogue
+    plan in either package; the combine-16 inversions (589824 points) run
+    on the ifft_big pair, mid's single stage on the pair, low's on the
+    cluster epilogue."""
+    if cfg is None:
+        return (), False
+    fwd = ("analysis_padded_fused", "chan_dft_fused") if cfg == "mid" else ("analysis_fused",)
+    if "--invert" not in extra:
+        return fwd, False
+    if "--combine" in extra or cfg == "mid":
+        epi = PAIR
+    elif "--critical" in extra or cfg == "lowpsi":
+        epi = ()
+    else:
+        epi = ("ifft_fused",)
+    return fwd + ("synthesis_fused",) + epi, not epi
+
+
+class SweepGuard:
+    """Stands in for sgcht.run inside test_sgcht: each case runs with the
+    plain versions (and, unless its epilogue is composed by design,
+    torch.fft) patched to raise, from launch counts set to 0; its launches
+    must be the kernels :func:`sweep_kernels` names, and its composed
+    epilogues one per inversion where composed, else none. A breach
+    raises, which test_sgcht reports as a FAIL."""
+
+    def __init__(self, torch, run):
+        from ska_pst_dsp_tpu_torch.utils import profiling
+
+        self.torch, self.run, self.profiling = torch, run, profiling
+        self.cases = []
+
+    def __call__(self, argv):
+        torch, profiling = self.torch, self.profiling
+        cfg = argv[argv.index("--cfg") + 1] if "--cfg" in argv else None
+        kernels, composed = sweep_kernels(cfg, argv)
+        timers = []
+
+        class Recorded(profiling.StageTimer):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                timers.append(self)
+
+        ws = reset_counts()
+        t0 = time.perf_counter()
+        with plain_versions_raise(torch, composed=composed), \
+                mock.patch.object(profiling, "StageTimer", Recorded):
+            rc = self.run(argv)
+        seconds = time.perf_counter() - t0
+        counts = read_counts(torch, ws)
+        label = " ".join(argv[:argv.index("--device")])
+        self.cases.append({"label": label, "rc": rc, "seconds": seconds, "counts": counts,
+                           "stages": dict(timers[0].seconds) if timers else {}})
+        expect_launches(f"sweep {label}", counts, kernels, composed)
+        return rc
+
+
+def sweep(torch, smi, cfg, extra=()):
+    """test_sgcht -c cfg on the card through SweepGuard; each label's status
+    must equal the JAX package's committed report's."""
+    from ska_pst_dsp_tpu_torch.cli import test_sgcht
+
+    guard = SweepGuard(torch, test_sgcht.sgcht.run)
+    with open(os.path.join(PRODUCTS, f"report.test_sgcht.{cfg}.json")) as f:
+        committed = {k: v["status"] for k, v in json.load(f).items()}
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.object(test_sgcht.sgcht, "run", guard):
+        report = os.path.join(tmp, "report.json")
+        t0 = time.perf_counter()
+        rc = test_sgcht.run(["-c", cfg, "--report", report, *extra])
+        seconds = time.perf_counter() - t0
+        with open(report) as f:
+            got = json.load(f)
+    for label, r in got.items():
+        if r["status"] == "FAIL":
+            log("drivers", f"test_sgcht -c {cfg}: FAIL {label}: {r.get('error', r.get('rc'))}")
+    statuses = {k: v["status"] for k, v in got.items()}
+    check(set(statuses) <= set(committed) and (extra or set(statuses) == set(committed)),
+          f"test_sgcht -c {cfg}: labels {sorted(set(statuses) ^ set(committed))} differ "
+          "from the committed report's")
+    want = {k: committed[k] for k in statuses}
+    check(statuses == want, f"test_sgcht -c {cfg}: statuses {statuses} != committed {want}")
+    stages = {}
+    for case in guard.cases:
+        for k, v in case["stages"].items():
+            stages[k] = stages.get(k, 0.0) + v
+        launched = {k: v for k, v in case["counts"].items() if v}
+        log("drivers", f"test_sgcht -c {cfg}: {case['label']}: rc {case['rc']}, "
+            f"{case['seconds']:.2f} s (" + ", ".join(f"{k} {v:.2f} s" for k, v in
+                                                      case["stages"].items())
+            + f"); launches {launched}")
+    log("drivers", f"test_sgcht -c {cfg} {' '.join(extra)}: rc {rc}, {len(got)} cases "
+        f"({sum(s == 'PASS' for s in statuses.values())} PASS, "
+        f"{sum(s == 'SKIP' for s in statuses.values())} SKIP), every status as committed; "
+        f"{seconds:.2f} s in all, of which sgcht stages "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()) + f" ({smi})")
+    return seconds
+
+
+def run_drivers(torch, smi):
+    """Phase 14: the CLI drivers on the card at their defaults. test_sgcht
+    -c low and -c lowpsi (16 cases each) and -c mid's single-stage cases at
+    the committed report's block size, each status equal to the committed
+    products/report.test_sgcht.<cfg>.json; current_performance -c low -d
+    both -n 8 --strict (every in-window point at <= -60 dB); at3 565, each
+    variant's SNR within 0.5 dB of the committed products/report.at3_565.json.
+    Reports and files go to temporary directories."""
+    from ska_pst_dsp_tpu_torch.cli import at3, current_performance
+
+    sweep(torch, smi, "low")
+    sweep(torch, smi, "lowpsi")
+    sweep(torch, smi, "mid", ("--subset", "3", "--blocksz", "1048576"))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ws = reset_counts()
+        t0 = time.perf_counter()
+        with plain_versions_raise(torch):
+            rc = current_performance.run(["-c", "low", "-d", "both", "-n", "8", "--strict",
+                                          "--output_dir", tmp])
+        seconds = time.perf_counter() - t0
+        counts = read_counts(torch, ws)
+        expect_launches("current_performance", counts, LOW_KERNELS, composed=False)
+        written = os.listdir(tmp)
+        check(len(written) == 1 and written[0].startswith("performance.both.low."),
+              f"current_performance wrote {written}")
+        with open(os.path.join(tmp, written[0])) as f:
+            report = json.load(f)
+    points = [r for rs in report.values() for r in rs]
+    judged = [r["max_spurious"] for r in points if "max_spurious" in r and r.get("in_window", True)]
+    check(rc == 0 and judged and max(judged) <= PURITY_DB,
+          f"current_performance: rc {rc}, worst {max(judged, default=None)} dB")
+    log("drivers", f"current_performance -c low -d both -n 8 --strict: rc {rc}; "
+        f"{len(report['temporal'])} impulse offsets, {len(report['spectral'])} tones; "
+        f"{len(judged)} in-window points, worst max spurious {max(judged):.2f} dB <= "
+        f"{PURITY_DB} dB; launches {counts}; {seconds:.2f} s ({smi})")
+
+    with open(os.path.join(PRODUCTS, "report.at3_565.json")) as f:
+        committed = json.load(f)["variants"]
+    with tempfile.TemporaryDirectory() as tmp:
+        rpt = os.path.join(tmp, "report.json")
+        ws = reset_counts()
+        t0 = time.perf_counter()
+        with plain_versions_raise(torch):
+            rc = at3.run_565(["--output_dir", tmp, "--report", rpt])
+        seconds = time.perf_counter() - t0
+        counts = read_counts(torch, ws)
+        expect_launches("at3 565", counts, ("analysis_fused",), composed=False)
+        with open(rpt) as f:
+            got = json.load(f)["variants"]
+    check(rc == 0 and sorted(got) == sorted(committed),
+          f"at3 565: rc {rc}, variants {sorted(got)}")
+    diffs = {tag: got[tag]["snr_db"] - committed[tag]["snr_db"]
+             for tag in got if "snr_db" in committed[tag]}
+    log("drivers", "at3 565: snr_db " + ", ".join(
+        f"{tag} {got[tag]['snr_db']:.2f} (committed {committed[tag]['snr_db']:.2f})"
+        for tag in diffs) + f"; launches {counts}; {seconds:.2f} s ({smi})")
+    check(all(abs(d) <= AT3_TOL_DB for d in diffs.values()),
+          f"at3 565: snr_db off the committed report by {diffs} (tol {AT3_TOL_DB} dB)")
 
 
 def model_filter():

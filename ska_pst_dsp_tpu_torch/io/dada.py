@@ -1,7 +1,9 @@
-"""DADA file format codec: :func:`save` and :func:`load`.
+"""DADA file format codec: :func:`save`, :func:`append`, :func:`load`, the
+FIR coefficients a header carries, and the :class:`DADAFile` object API.
 
 The port's copy of the generic path of :mod:`ska_pst_dsp_tpu.io.dada`; a
-file written by either package is read by the other, byte for byte.
+file written by either package is read by the other, and both write the
+same bytes for the same array and header.
 
 Format recap:
   * ASCII header of HDR_SIZE bytes (default 4096): ``KEY VALUE`` lines,
@@ -10,7 +12,8 @@ Format recap:
   * Data: little-endian stream in TFP order (time slowest, then channel,
     then polarization), re/im interleaved when NDIM=2, dtype from NBIT.
 
-Arrays follow the reference kernel convention (P, F, T) complex. LowCBF
+Arrays follow the reference kernel convention (P, F, T) complex;
+``DADAFile.data`` exposes (T, F, P) for psr_formats API parity. LowCBF
 heap files (INSTRUMENT=LowCBF: 32-sample heaps, :mod:`.lowcbf`) are read
 through the heap reshape, in windows of whole heaps; :func:`save_lowcbf`
 writes one.
@@ -23,6 +26,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from ..utils.rational import Rational
 from .lowcbf import NSAMP_PER_HEAP, flatten_low_cbf_stream, reshape_low_cbf_data
 
 DEFAULT_HDR_SIZE = 4096
@@ -214,3 +218,137 @@ def save_lowcbf(path: str, data: np.ndarray, header: Dict[str, str]) -> None:
     with open(path, "wb") as f:
         f.write(serialize_header(hdr))
         words.tofile(f)
+
+
+def append(path: str, data: np.ndarray) -> None:
+    """Append more (n_pol, n_chan, n_dat) samples to an existing DADA file
+    (streaming DADAWrite.write equivalent)."""
+    header = read_header(path)
+    is_complex = np.iscomplexobj(data)
+    if (header.get("NDIM") == "2") != is_complex:
+        raise ValueError("complexity mismatch on append")
+    nbit = int(header["NBIT"])
+    if is_complex and nbit in (8, 16):
+        q = _quantize(data, nbit)
+        tfp = q.transpose(2, 1, 0, 3)
+        with open(path, "ab") as f:
+            np.ascontiguousarray(tfp).tofile(f)
+        return
+    base = np.dtype(data.real.dtype) if is_complex else np.dtype(data.dtype)
+    if _DTYPE_TO_NBIT[base] != nbit:
+        raise ValueError("dtype mismatch on append")
+    tfp = data.transpose(2, 1, 0)
+    if is_complex:
+        flat = np.empty(tfp.size * 2, dtype=base)
+        flat[0::2] = tfp.real.ravel()
+        flat[1::2] = tfp.imag.ravel()
+    else:
+        flat = np.ascontiguousarray(tfp).ravel()
+    with open(path, "ab") as f:
+        flat.tofile(f)
+
+
+# ---------------------------------------------------------------------------
+# FIR filter coefficients embedded in headers (add_fir_filter_to_header.m)
+# ---------------------------------------------------------------------------
+
+def add_fir_filter_to_header(header: Dict[str, str], fir_coeffs, os_factors) -> Dict[str, str]:
+    """Record per-stage FIR coefficients so inversion is self-describing from
+    the data file (add_fir_filter_to_header.m:26-39): COEFF_<i> as
+    comma-separated %0.6E, OVERSAMP_<i>, NTAP_<i>, NSTAGE."""
+    if not isinstance(fir_coeffs, (list, tuple)):
+        fir_coeffs = [fir_coeffs]
+    if not isinstance(os_factors, (list, tuple)):
+        os_factors = [os_factors]
+    header = dict(header)
+    header["NSTAGE"] = str(len(fir_coeffs))
+    for i, (coeff, osf) in enumerate(zip(fir_coeffs, os_factors)):
+        osf = Rational.coerce(osf)
+        coeff = np.asarray(coeff, dtype=np.float64).ravel()
+        header[f"COEFF_{i}"] = ",".join(f"{c:0.6E}" for c in coeff)
+        header[f"OVERSAMP_{i}"] = str(osf)
+        header[f"NTAP_{i}"] = str(coeff.size)
+    return header
+
+
+def get_fir_filters_from_header(header: Dict[str, str]):
+    """Inverse of :func:`add_fir_filter_to_header`: list of (coeffs, os_factor)."""
+    n_stage = int(header.get("NSTAGE", 0))
+    out = []
+    for i in range(n_stage):
+        coeff = np.array(
+            [float(x) for x in header[f"COEFF_{i}"].split(",")], dtype=np.float64
+        )
+        osf = Rational.from_str(header[f"OVERSAMP_{i}"])
+        out.append((coeff, osf))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# psr_formats-style object API
+# ---------------------------------------------------------------------------
+
+class DADAFile:
+    """Object wrapper with the ``psr_formats.DADAFile`` surface the reference
+    Python harness expects: ``.data`` is (n_dat, n_chan, n_pol) and loading /
+    dumping is explicit."""
+
+    def __init__(self, file_path: str):
+        self.file_path = file_path
+        self._data: Optional[np.ndarray] = None  # stored (P, F, T)
+        self.header: Dict[str, str] = {}
+
+    # -- psr_formats API -------------------------------------------------
+    @property
+    def data(self) -> Optional[np.ndarray]:
+        if self._data is None:
+            return None
+        return self._data.transpose(2, 1, 0)
+
+    @data.setter
+    def data(self, value: np.ndarray):
+        value = np.asarray(value)
+        if value.ndim != 3:
+            raise ValueError("DADAFile.data must be (n_dat, n_chan, n_pol)")
+        self._data = value.transpose(2, 1, 0)
+
+    @property
+    def ndat(self) -> int:
+        return 0 if self._data is None else self._data.shape[2]
+
+    @property
+    def nchan(self) -> int:
+        return 0 if self._data is None else self._data.shape[1]
+
+    @property
+    def npol(self) -> int:
+        return 0 if self._data is None else self._data.shape[0]
+
+    def load_data(self) -> "DADAFile":
+        self._data, self.header = load(self.file_path)
+        return self
+
+    def dump_data(self) -> str:
+        if self._data is None:
+            raise RuntimeError("no data to dump")
+        os.makedirs(os.path.dirname(os.path.abspath(self.file_path)), exist_ok=True)
+        save(self.file_path, self._data, self.header)
+        return self.file_path
+
+    # -- native (P, F, T) access ----------------------------------------
+    @property
+    def data_pft(self) -> Optional[np.ndarray]:
+        return self._data
+
+    @data_pft.setter
+    def data_pft(self, value: np.ndarray):
+        self._data = np.asarray(value)
+
+    def __getitem__(self, key: str) -> str:
+        return self.header[key]
+
+    def __setitem__(self, key: str, value) -> None:
+        self.header[key] = str(value)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.header

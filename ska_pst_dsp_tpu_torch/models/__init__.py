@@ -12,8 +12,8 @@ _EXPORTS = {
     **dict.fromkeys(("FilterBank", "FilterBankState", "InverseFilterBank",
                      "InverseFilterBankState", "StatefulPipeline"), "streaming"),
     **dict.fromkeys(("TwoStageFilterBank", "TwoStageInverseFilterBank"), "two_stage"),
-    **dict.fromkeys(("TestPureTone", "TestImpulse", "TestFrequencyComb", "PhaseAverage"),
-                    "testers"),
+    **dict.fromkeys(("TestPureTone", "TestImpulse", "TestFrequencyComb", "PhaseAverage",
+                     "NotModeled"), "testers"),
 }
 __all__ = sorted(_EXPORTS)
 

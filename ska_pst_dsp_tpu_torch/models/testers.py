@@ -13,9 +13,9 @@ package does.
 
 One departure from the JAX copy: a tone whose coarse channel lies in a slab
 the combine truncation drops (the monotonic critical inversion of lowpsi,
-216 % 16 != 0: coarse channels 208-215) raises ValueError, like the other
-combinations the tester does not model, where the JAX tester judges a
-stream that no longer holds the tone.
+216 % 16 != 0: coarse channels 208-215) raises :class:`NotModeled`, a
+ValueError, like the other combinations the tester does not model, where
+the JAX tester judges a stream that no longer holds the tone.
 """
 
 from __future__ import annotations
@@ -49,6 +49,12 @@ def critical_chomp_index(c: int, nch_orig: int, os: Rational) -> Optional[int]:
     if c >= half - 1 + offset:
         return c - offset
     return None
+
+
+class NotModeled(ValueError):
+    """A combination the testers do not model: a tone in a slab the combine
+    truncation drops, an impulse after the band-truncated LowCBF inversion.
+    A sweep files it as undefined for the combination, not as a fault."""
 
 
 @dataclasses.dataclass
@@ -192,7 +198,7 @@ class TestPureTone:
             w = chans[0] % self.combine
             exp = chans[0] // self.combine
             if nchan_data > 1 and exp >= nchan_data:
-                raise ValueError(
+                raise NotModeled(
                     f"tone in coarse channel {chans[0]}, which the combine-{self.combine} "
                     f"slab truncation drops ({nchan_data} slabs): not modeled")
             phi = (f + Fraction(1, 2)) % 1

@@ -1,2 +1,3 @@
-from .analysis import polyphase_analysis  # noqa: F401
+from .analysis import polyphase_analysis, polyphase_analysis_padded  # noqa: F401
+from .lowcbf import polyphase_analysis_lowcbf  # noqa: F401
 from .synthesis import polyphase_synthesis  # noqa: F401
