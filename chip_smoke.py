@@ -28,9 +28,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    direct inversion; then no fallback: one low forward with the plain
    versions and ``torch.fft`` patched to raise; then, under the same patch,
    the other inversion geometries the JAX package's fused path takes (512
-   and 128 channels at 4/3, 256 channels at 8/7 with L = 256): each runs on
-   the frontend kernel and the cluster epilogue (n1 = 192, 448) or the
-   out-of-core pair (98304 points), within 1.2e-5 * scale of the plain
+   and 128 channels at 4/3, 256 channels at 8/7 with L = 256 and with
+   L = 512, SKA-Mid's 256-channel groups): each runs on the frontend kernel
+   and the cluster epilogue (n1 = 192, 448) or the out-of-core pair (98304
+   points; 114688 points at 896 x 128), within 1.2e-5 * scale of the plain
    inversion.
 7. SKA-Mid (``mid_round_trip``: 4096 ch, OS 8/7, the 100353-tap
    zero-padded analysis, L=512 / overlap 128, 1,835,008-point epilogue) at
@@ -72,7 +73,6 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     epilogue, dm 1.5; mid: the pair, dm 50) against the plain inversion
     (1.2e-5 / 1e-4 * scale), and block-wise against whole-stream
     dedispersion in dB.
-
 13. data_gen: the file-level tools on the card, in a temporary directory,
     with the plain versions and torch.fft patched to raise: at low a
     complex sinusoid of 2 pol x 2^23 through generate_test_vector ->
@@ -94,6 +94,31 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     current_performance -c low -d both -n 8 --strict (every in-window point
     <= -60 dB); at3 565 at its defaults, each variant's SNR within 0.5 dB
     of the committed products/report.at3_565.json. Each run's seconds.
+15. verify: the verification harness, the analysis tools and the on-card
+    tools, every run on the card from launch counts set to 0, with the
+    plain versions and torch.fft patched to raise but for the composed
+    epilogue of a length no package has a plan for (SKA-Low's 3072-point
+    channel groups, counted) and dedisperse's whole-stream chirp:
+    a. verify.purity -t -f -n 8 at low, the five block-seam impulses, and
+       -t -f -n 4 at mid: every judged point (the in-window impulses, the
+       tones at whole bins of the measured spectrum) <= -60 dB and > -120;
+    b. verify.test_backends -c low and -c mid --use-padded: mean_close 1.0;
+    c. verify.test_cross_implementation at low on tests/test_reference_
+       anchor.py's vector (442368 samples, tone bin 377475, impulse at
+       0.11): impulse, tone and pulsar each with mean > 0.999;
+    d. verify.test_dedispersion -c low and -c mid: mean_diff_db < -50;
+    e. verify.verify_dspsr_pfb_inversion -c low and -c mid: 12 cases each
+       ok at -38 dB; 96 composed 3072-point epilogues at low, none at mid,
+       where the 256-channel groups run on the pair at 896 x 128 (timed
+       against its plain version, its bound and torch.fft.ifft);
+    f. tools/purity_cuda.py -c low -n 16 and -c mid -n 6 (every in-window
+       point <= -60 dB) and tools/dedispersion_cuda.py (fused vs composed
+       < 1e-4);
+    g. analysis.process_test_vectors --generate -n 2 at low, its 3-way
+       report (independent_vs_inverted < 1e-5), then
+       analysis.compare_dump_files on two of its files.
+    Each run's seconds and its worst figure against its gate; reports go to
+    a temporary directory.
 
 The line before the last is a JSON object with one entry per kernel (one
 per pallas_call of the JAX package); the last line is
@@ -307,6 +332,10 @@ def more_times(torch, name, kern, lib, match, smi):
     return out
 
 
+#: the torch.fft functions the no-fallback patches replace
+FFT_NAMES = ("fft", "ifft", "fftn", "ifftn", "rfft", "irfft", "fft2", "ifft2")
+
+
 @contextlib.contextmanager
 def plain_versions_raise(torch, composed: bool = False):
     """Patches the plain versions, wherever the port's modules hold them,
@@ -329,7 +358,7 @@ def plain_versions_raise(torch, composed: bool = False):
                         stack.enter_context(mock.patch.object(mod, name, boom))
                         patched += 1
         if not composed:
-            for name in ("fft", "ifft", "fftn", "ifftn", "rfft", "irfft", "fft2", "ifft2"):
+            for name in FFT_NAMES:
                 stack.enter_context(mock.patch.object(torch.fft, name, boom))
         yield patched
 
@@ -348,7 +377,9 @@ def no_fallback(torch, model, x, phase):
 def other_geometries(torch, dev):
     """The inversion geometries the JAX package's fused path takes beside
     the two main paths', 40 blocks each: the drop-in runs on the kernels
-    alone (the plain versions raise) and agrees with the plain inversion."""
+    alone (the plain versions raise) and agrees with the plain inversion.
+    SKA-Mid's 256-channel groups (L 512, 114688 points, whose plan_ifft
+    split neither epilogue kernel takes) run on the pair at 896 x 128."""
     from ska_pst_dsp_tpu_torch.design import fir
     from ska_pst_dsp_tpu_torch.ops import synthesis as plain_synth
     from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import plan_ifft
@@ -356,9 +387,11 @@ def other_geometries(torch, dev):
     from ska_pst_dsp_tpu_torch.utils import geometry
     from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import pair_split
+
     ws = wrappers()
     for n_chan, os_f, n_l, ov in ((512, "4/3", 256, 48), (128, "4/3", 256, 48),
-                                  (256, "8/7", 256, 32)):
+                                  (256, "8/7", 256, 32), (256, "8/7", 512, 128)):
         os_f = Rational.coerce(os_f)
         filt = fir.design_pfb_fir_filter(n_chan, os_f, 4)
         g = geometry.SynthesisGeometry(n_chan, n_l, ov, os_f)
@@ -380,8 +413,10 @@ def other_geometries(torch, dev):
         on_device = device_ms(torch, lambda: polyphase_synthesis_fused(x, n_l, os_f, **kw),
                               "ifft_")
         bnd = bound(2 * nb * (2 * n - 2 * lo) * 8, fft_flops(n, 2 * nb))
+        on = ("the pair at {} x {}".format(*pair_split(n, lo))
+              if "ifft_big_inner" in ran else "the cluster epilogue")
         log("geometries", f"{n_chan} ch, OS {os_f}, L {n_l}, overlap {ov}: split "
-            f"{plan_ifft(n, lo)} on {', '.join(ran)}; max|err|/scale {err[1]:.3g} "
+            f"{plan_ifft(n, lo)}, {on}; launched {', '.join(ran)}; max|err|/scale {err[1]:.3g} "
             f"(tol {SYNTHESIS_TOL}); epilogue of 2 x {nb} blocks on the device: "
             + (", ".join(f"{k} {v:.4f} ms" for k, v in on_device.items()) or "not measured")
             + f", bound {bnd[0]:.4f} ms ({bnd[1]})")
@@ -639,6 +674,11 @@ def main() -> int:
         t0 = time.perf_counter()
         run()
         log(phase, f"phase done in {time.perf_counter() - t0:.1f} s ({smi})")
+
+    # 15. the verification harness, the analysis tools and the on-card tools
+    t0 = time.perf_counter()
+    run_verify(torch, dev, smi)
+    log("verify", f"phase done in {time.perf_counter() - t0:.1f} s ({smi})")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1684,6 +1724,353 @@ def run_drivers(torch, smi):
     check(all(abs(d) <= AT3_TOL_DB for d in diffs.values()),
           f"at3 565: snr_db off the committed report by {diffs} (tol {AT3_TOL_DB} dB)")
 
+
+# ---------------------------------------------------------------------------
+# phase 15: the verification harness, the analysis tools and the on-card tools
+# ---------------------------------------------------------------------------
+
+TOOLS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+#: a spurious power at or below this measured an untouched stream, not the
+#: inversion (the metrics' 1e-13 floor is -130 dB)
+FLOOR_DB = -120.0
+#: tests/test_reference_anchor.py's vector
+ANCHOR_N, ANCHOR_BIN, ANCHOR_OFFSET = 442368, 377475, 0.11
+#: the matrix's multi-channel cases: 16 groups, two inversions each, three
+#: (deripple, window) combinations
+MATRIX_GROUP_INVERSIONS = 3 * 16 * 2
+
+
+@contextlib.contextmanager
+def kernels_only(torch):
+    """plain_versions_raise(composed=True), with the plain epilogue allowed
+    only at a length for which neither package has an epilogue plan (at any
+    other it raises) and torch.fft only inside that epilogue and inside
+    dedisperse's whole-stream chirp: the two places no kernel takes."""
+    from ska_pst_dsp_tpu_torch.ops import dedispersion as dd
+    from ska_pst_dsp_tpu_torch.ops import synthesis as ps
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import plan_big_ifft
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import plan_ifft
+
+    inside = [0]
+    epilogue = ps.epilogue
+
+    def scoped(fn):
+        def call(*args, **kwargs):
+            inside[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                inside[0] -= 1
+        return call
+
+    def planless_epilogue(flat, elem, lo, *args):
+        n = flat.shape[-1]
+        if plan_ifft(n, lo) is not None or plan_big_ifft(n, lo) is not None:
+            raise AssertionError(f"the plain epilogue ran at {n} points, which have a plan")
+        return scoped(epilogue)(flat, elem, lo, *args)
+
+    def fft_guard(fn):
+        def call(*args, **kwargs):
+            if not inside[0]:
+                raise AssertionError("torch.fft ran outside dedisperse and a planless epilogue")
+            return fn(*args, **kwargs)
+        return call
+
+    with plain_versions_raise(torch, composed=True), contextlib.ExitStack() as stack:
+        for mod_name, mod in list(sys.modules.items()):
+            if (mod_name.startswith("ska_pst_dsp_tpu_torch")
+                    and getattr(mod, "epilogue", None) is epilogue):
+                stack.enter_context(mock.patch.object(mod, "epilogue", planless_epilogue))
+        stack.enter_context(mock.patch.object(dd, "dedisperse", scoped(dd.dedisperse)))
+        for name in FFT_NAMES:
+            stack.enter_context(mock.patch.object(torch.fft, name,
+                                                  fft_guard(getattr(torch.fft, name))))
+        yield
+
+
+def verify_run(torch, label, fn, kernels, composed=0, guard=True):
+    """One run of phase 15 from launch counts set to 0, under kernels_only
+    unless ``guard`` is False: it launched exactly ``kernels``, each at
+    least once, and ran ``composed`` composed epilogues. Returns (its
+    result, its seconds, its counts)."""
+    ws = reset_counts()
+    t0 = time.perf_counter()
+    with kernels_only(torch) if guard else contextlib.nullcontext():
+        out = fn()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(torch, ws)
+    ran = sorted(k for k, v in counts.items() if v > 0 and k != "composed_epilogues")
+    check(ran == sorted(kernels), f"{label}: launched {ran}, expected {sorted(kernels)}")
+    check(counts["composed_epilogues"] == composed,
+          f"{label}: {counts['composed_epilogues']} composed epilogues, expected {composed}")
+    return out, seconds, counts
+
+
+def judged_purity(rows, used, domain, n_samples, shift):
+    """The spurious powers phase 15 gates of a purity sweep: impulses inside
+    the inverted window, tones at a whole bin of the measured spectrum (a
+    tone between bins scores the window's scalloping, -2 dB, in both
+    packages); ``used`` holds each point's compared length."""
+    out = []
+    for r, n in zip(rows, used):
+        if (shift <= r["arg"] < shift + n if domain == "time"
+                else r["arg"] * n % n_samples == 0):
+            out.append(r["max_spurious_power"])
+    return out
+
+
+def purity_sweeps(torch, dev, smi, tmp):
+    """Phase 15a: verify.purity at low (-t -f -n 8, then the five block-seam
+    impulses) and at mid (-t -f -n 4)."""
+    from ska_pst_dsp_tpu_torch import data_gen
+    from ska_pst_dsp_tpu_torch.utils import geometry
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+    from ska_pst_dsp_tpu_torch.verify import purity
+
+    used = []
+    chop = purity.TestPurity.chop
+
+    def recording_chop(self, a, b):
+        inp, inv = chop(self, a, b)
+        used.append(min(inp.size, inv.size))
+        return inp, inv
+
+    def seams():
+        cfg = load_config("low")
+        p = purity.TestPurity(
+            n_test=2, os_factor=cfg.os_factor, input_fft_length=cfg.input_fft_length,
+            input_overlap=cfg.input_overlap, fft_window=cfg.temporal_taper,
+            deripple=cfg.deripple, channels=cfg.channels, fir_filter_taps=cfg.fir_filter_taps,
+            blocks=cfg.blocks, fir_filter_path=cfg.fir_filter_path, output_dir=tmp,
+            make_plots=False, device=dev)
+        seam = p.total_sample_shift + p.block_size - 2 * p.output_sample_shift
+        p.time_domain_args["offset"] = [seam, seam - 1, seam + 1, seam - p.output_sample_shift,
+                                        seam + p.output_sample_shift]
+        return p.temporal_purity()
+
+    with mock.patch.object(purity.TestPurity, "chop", recording_chop), \
+            mock.patch.object(data_gen.config.config, "data_dir", tmp):
+        for name, argv, kernels in (
+                ("low", ["-t", "-f", "-n", "8", "-c", "low"], LOW_KERNELS),
+                ("low seams", None, LOW_KERNELS),
+                ("mid", ["-t", "-f", "-n", "4", "-c", "mid"], MID_KERNELS)):
+            argv = argv and argv + ["--device", str(dev)]
+            used.clear()
+            if argv is None:
+                rows, seconds, _ = verify_run(torch, f"purity {name}", seams, kernels)
+                judged = [r["max_spurious_power"] for r in rows]
+            else:
+                path, seconds, _ = verify_run(torch, f"purity {name}",
+                                              lambda: purity.run(argv), kernels)
+                check(path.endswith(f".{dev.type}.json"), f"purity report {path}")
+                with open(path) as f:
+                    report = json.load(f)
+                cfg = load_config(argv[argv.index("-c") + 1])
+                n_samples = (cfg.os_factor.normalize(cfg.input_fft_length) * cfg.channels
+                             * cfg.blocks)
+                shift = geometry.total_sample_shift(
+                    cfg.channels, cfg.os_factor, cfg.fir_filter_taps, cfg.input_overlap,
+                    padded=cfg.analysis_function == "polyphase_analysis_padded")
+                t_rows = report["test_time_domain_impulse"]
+                t_j = judged_purity(t_rows, used, "time", n_samples, shift)
+                f_j = judged_purity(report["test_complex_sinusoid"], used[len(t_rows):],
+                                    "freq", n_samples, shift)
+                check(t_j and f_j,
+                      f"purity {name}: judged {len(t_j)} impulses and {len(f_j)} tones")
+                judged = t_j + f_j
+            worst, best = max(judged), min(judged)
+            check(worst <= PURITY_DB and best > FLOOR_DB,
+                  f"purity {name}: judged max spurious in [{best:.2f}, {worst:.2f}] dB")
+            log("verify", f"purity {name}: {len(judged)} judged points of {len(used)}, max "
+                f"spurious in [{best:.2f}, {worst:.2f}] dB (gate <= {PURITY_DB}, > {FLOOR_DB}); "
+                f"{seconds:.2f} s ({smi})")
+
+
+def read_report(directory, name):
+    with open(os.path.join(directory, name)) as f:
+        return json.load(f)
+
+
+def verify_modules(torch, dev, smi, tmp):
+    """Phase 15b-e: the channelizer backends, the cross-implementation suite,
+    the dedispersion test and the 12-case matrix, through their CLIs (the
+    cross-implementation suite through run_suite, at the anchor vector)."""
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+    from ska_pst_dsp_tpu_torch.verify import (
+        test_backends, test_cross_implementation, test_dedispersion,
+    )
+    from ska_pst_dsp_tpu_torch.verify import verify_dspsr_pfb_inversion as matrix
+
+    on = ["--device", str(dev)]
+    tag = dev.type
+    for argv, kernels in ((["-c", "low"], ("analysis_fused",)),
+                          (["-c", "mid", "--use-padded"], MID_KERNELS[:2])):
+        rc, seconds, _ = verify_run(torch, f"backends {argv}",
+                                    lambda: test_backends.run(argv + on), kernels)
+        r = read_report(tmp, f"report.backends.{tag}.json")
+        check(rc == 0 and r["mean_close"] == 1.0, f"backends {argv}: rc {rc}, {r}")
+        log("verify", f"test_backends {' '.join(argv)}: mean_close {r['mean_close']} of "
+            f"{r['n_compared']} (gate 1.0), max|diff|/scale {r['max_rel_diff']:.3g}; "
+            f"{seconds:.2f} s ({smi})")
+
+    rep, seconds, _ = verify_run(
+        torch, "cross_impl", lambda: test_cross_implementation.run_suite(
+            load_config("low"), n_bins=ANCHOR_N, offset=ANCHOR_OFFSET, freq=ANCHOR_BIN,
+            output_dir=os.path.join(tmp, "cross_impl"), device=dev), LOW_KERNELS)
+    entries = {k: v[0] for k, v in rep.items()}
+    check(len(entries) == 3 and all(e["mean"] > 0.999 for e in entries.values()),
+          f"cross_impl: {entries}")
+    log("verify", "test_cross_implementation -c low (442368 samples, bin 377475, "
+        "offset 0.11): " + ", ".join(f"{k.removeprefix('test_')} mean {e['mean']} of "
+                                     f"{e['n']}, max|diff|/scale {e['max_rel_diff']:.3g}"
+                                     for k, e in entries.items())
+        + f" (gate mean > 0.999); {seconds:.2f} s ({smi})")
+
+    for name, kernels in (("low", LOW_KERNELS), ("mid", MID_KERNELS)):
+        rc, seconds, _ = verify_run(torch, f"dedispersion {name}",
+                                    lambda: test_dedispersion.run(["-c", name] + on), kernels)
+        r = read_report(tmp, f"report.dedispersion.{tag}.json")
+        check(rc == 0 and r["mean_diff_db"] < -50, f"dedispersion {name}: rc {rc}, {r}")
+        log("verify", f"test_dedispersion -c {name}: dm {r['dm']}, mean "
+            f"{r['mean_diff_db']:.2f} dB (gate < -50), max {r['max_diff_db']:.2f} dB, "
+            f"folded {r['folded_mean_diff_db']:.2f} dB over {r['n_compared']} samples; "
+            f"{seconds:.2f} s ({smi})")
+
+    for name, kernels, composed in (("low", LOW_KERNELS, MATRIX_GROUP_INVERSIONS),
+                                    ("mid", MID_KERNELS, 0)):
+        # a directory each: the drift baseline is the previous report's
+        out = os.path.join(tmp, f"matrix-{name}")
+        os.makedirs(out)
+        with mock.patch.object(matrix, "products_dir", out):
+            rc, seconds, counts = verify_run(torch, f"matrix {name}",
+                                             lambda: matrix.run(["-c", name] + on), kernels,
+                                             composed)
+        r = read_report(out, f"report.verify_pfb_inversion.{tag}.json")
+        check(rc == 0 and len(r) == 12 and all(v["ok"] for v in r.values()),
+              f"matrix {name}: rc {rc}")
+        if name == "mid":  # the single-channel inversions, then the groups on the pair
+            check(counts["ifft_big_inner"] == 6 + MATRIX_GROUP_INVERSIONS,
+                  f"matrix mid: {counts['ifft_big_inner']} pair launches")
+        log("verify", f"verify_dspsr_pfb_inversion -c {name}: 12 cases ok, worst mean "
+            f"{max(v['mean_diff_db'] for v in r.values()):.2f} dB (gate < -38), worst max "
+            f"{max(v['max_diff_db'] for v in r.values()):.2f} dB; launches {counts}; "
+            f"{seconds:.2f} s ({smi})")
+
+
+def mid_group_pair(torch, dev, smi):
+    """The ifft_big pair at the mid matrix's group shape (114688 points at
+    896 x 128), against its plain version, its bound and torch.fft.ifft."""
+    from ska_pst_dsp_tpu_torch.ops import synthesis as ps
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import fused_big_ifft_oc, pair_split
+    from ska_pst_dsp_tpu_torch.utils import geometry
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+    mid = load_config("mid")
+    g = geometry.SynthesisGeometry(mid.channels // 16, mid.input_fft_length,
+                                   mid.input_overlap, mid.os_factor)
+    n, lo = g.output_fft_length, g.output_overlap
+    n_spectra = (mid.os_factor.normalize(mid.input_fft_length) * mid.channels * mid.blocks * 2
+                 // geometry.analysis_step(mid.channels, mid.os_factor))
+    nb = g.n_blocks(n_spectra)
+    n2, n1 = pair_split(n, lo)
+    flat = torch.as_tensor(noise((2, nb, n), SEED + 15), device=dev)
+    gain = mid.os_factor.de / mid.os_factor.nu
+    key = (n, 1, n2, n1, lo, 0, gain)
+    err = measure(torch, "verify", f"ifft_big pair at {n2} x {n1} ({n} points, 2 x {nb} blocks "
+                  "of a 256-channel group)",
+                  lambda: fused_big_ifft_oc(flat, None, shape_key=key),
+                  lambda: ps.epilogue(flat, None, lo, 0, gain, nb),
+                  bound(nbytes(flat) + 2 * nb * (n - 2 * lo) * 8, fft_flops(n, 2 * nb)),
+                  lambda: torch.fft.ifft(flat, dim=-1), "ifft_big", smi)
+    check(err[1] <= BIG_IFFT_TOL, f"pair at {n}: {err[1]:.3g}")
+
+
+def tools_on_card(torch, dev, smi, tmp):
+    """Phase 15f: tools/purity_cuda.py at low and mid, and
+    tools/dedispersion_cuda.py, loaded from the checkout."""
+    import importlib.util
+
+    def tool(name):
+        spec = importlib.util.spec_from_file_location(name, os.path.join(TOOLS, f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    purity_cuda, dedispersion_cuda = tool("purity_cuda"), tool("dedispersion_cuda")
+    for name, npoints, kernels in (("low", 16, LOW_KERNELS), ("mid", 6, MID_KERNELS)):
+        path = os.path.join(tmp, f"report.purity.cuda.{name}.json")
+        rc, seconds, _ = verify_run(torch, f"purity_cuda {name}",
+                                    lambda: purity_cuda.main(["-c", name, "-n", str(npoints),
+                                                              "--out", path]), kernels)
+        r = read_report(tmp, os.path.basename(path))
+        check(rc == 0 and r["pass"], f"purity_cuda {name}: rc {rc}")
+        log("verify", f"tools/purity_cuda.py -c {name} -n {npoints}: "
+            f"{len(r['temporal']) + len(r['spectral'])} points, worst in-window max spurious "
+            f"{r['worst_in_window_max_spurious_dB']:.2f} dB (gate <= -60); {seconds:.2f} s "
+            f"({r['nvidia_smi']})")
+    # its reference is the composed chain on the card: run without the patch
+    path = os.path.join(tmp, "report.dedispersion.cuda.json")
+    rc, seconds, _ = verify_run(torch, "dedispersion_cuda",
+                                lambda: dedispersion_cuda.main(["--out", path]),
+                                LOW_KERNELS, guard=False)
+    r = read_report(tmp, os.path.basename(path))
+    check(rc == 0 and r["pass"], f"dedispersion_cuda: rc {rc}")
+    log("verify", f"tools/dedispersion_cuda.py: fused vs composed max|diff|/scale "
+        f"{r['fused_vs_composed_max_rel']:.3g} (gate < 1e-4); block-wise vs whole-stream "
+        f"mean {r['blockwise_vs_wholestream_mean_db']:.2f} dB, max "
+        f"{r['blockwise_vs_wholestream_max_db']:.2f} dB (recorded); {seconds:.2f} s "
+        f"({r['nvidia_smi']})")
+
+
+def test_vector_tree(torch, dev, smi, tmp):
+    """Phase 15g: process_test_vectors --generate -n 2 at low and its 3-way
+    report, then compare_dump_files on the tree's inverted and independent
+    files."""
+    from ska_pst_dsp_tpu_torch.analysis import compare_dump_files
+    from ska_pst_dsp_tpu_torch.analysis import process_test_vectors as ptv
+
+    base = os.path.join(tmp, "test_vectors")
+    rc, seconds, _ = verify_run(
+        torch, "process_test_vectors",
+        lambda: ptv.run(["-c", "low", "-b", base, "--generate", "-n", "2", "--no-plot",
+                         "--device", str(dev)]), LOW_KERNELS)
+    r = read_report(tmp, f"report.process_test_vectors.{dev.type}.json")
+    worst = max(e["time_mean_diff"]["independent_vs_inverted"] for rs in r.values()
+                for e in rs)
+    check(rc == 0 and len(r["time"]) == len(r["freq"]) == 2 and worst < 1e-5,
+          f"process_test_vectors: rc {rc}, worst {worst:.3g}")
+    _, sub = next(ptv.iter_test_vectors(base))
+    meta = read_report(sub, "meta.json")
+    files = [os.path.join(sub, meta[k]) for k in ("inverted_file", "independent_file")]
+    rc = compare_dump_files.run([*files, "--report", os.path.join(tmp, "compare.json")])
+    diff = read_report(tmp, "compare.json")["time"]["diff_0_1"]
+    check(rc == 0 and diff["max"] < 1e-4, f"compare_dump_files: rc {rc}, {diff}")
+    log("verify", f"process_test_vectors --generate -n 2 -c low: 4 vectors, worst "
+        f"independent_vs_inverted mean |diff| {worst:.3g} (gate < 1e-5); {seconds:.2f} s; "
+        f"compare_dump_files inverted vs independent: mean |diff| {diff['mean']:.3g}, max "
+        f"{diff['max']:.3g} ({smi})")
+
+
+def run_verify(torch, dev, smi):
+    """Phase 15: the verification harness, the analysis tools and the
+    on-card tools on the card (see the module docstring); every report
+    goes to a temporary directory."""
+    from ska_pst_dsp_tpu_torch.analysis import process_test_vectors as ptv
+    from ska_pst_dsp_tpu_torch.verify import (
+        purity, test_backends, test_cross_implementation, test_dedispersion,
+    )
+    from ska_pst_dsp_tpu_torch.verify import verify_dspsr_pfb_inversion as matrix
+
+    mods = (purity, test_backends, test_cross_implementation, test_dedispersion, matrix, ptv)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+        for mod in mods:
+            stack.enter_context(mock.patch.object(mod, "products_dir", tmp))
+        purity_sweeps(torch, dev, smi, tmp)
+        verify_modules(torch, dev, smi, tmp)
+        mid_group_pair(torch, dev, smi)
+        tools_on_card(torch, dev, smi, tmp)
+        test_vector_tree(torch, dev, smi, tmp)
 
 def model_filter():
     from ska_pst_dsp_tpu_torch.design import fir

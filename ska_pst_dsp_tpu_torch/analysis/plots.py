@@ -22,17 +22,7 @@ from typing import Optional
 import numpy as np
 
 from ..io import dada
-from ..verify.util import dB
-
-
-def _pyplot():
-    """matplotlib.pyplot on the Agg backend (ImportError without matplotlib)."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    return plt
+from ..verify.util import _pyplot, dB
 
 
 def plot_purity_results(report_path: str, output_path: Optional[str] = None):

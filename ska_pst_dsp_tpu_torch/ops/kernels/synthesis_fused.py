@@ -15,8 +15,10 @@ applies (low); else the out-of-core pair (:mod:`.ifft_big`) where
 as there, the composed epilogue. On the card a :func:`plan_ifft` split the
 cluster kernel is not instantiated for goes to the out-of-core pair where
 that has kernels for it (512 channels at 4/3: 98304 = 256 * 384 points do
-not fit in a cluster's shared memory), and raises ValueError where neither
-has.
+not fit in a cluster's shared memory), else to the pair on
+:func:`.ifft_big.pair_split`'s split of the same length (256 channels at
+8/7 with L 512: 114688 points, (256, 448) in the plan, 896 * 128 on the
+pair), and raises ValueError where neither has one.
 """
 
 from __future__ import annotations
@@ -104,8 +106,10 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
 
     The epilogue is the cluster kernel for :func:`.ifft_fused.plan_ifft`'s
     split, or the out-of-core pair for it where only that has kernels for
-    the split, or the pair where :func:`.ifft_big.plan_big_ifft` applies
-    (on :func:`.ifft_big.pair_split`'s split); where no plan applies, the
+    the split, or the pair on :func:`.ifft_big.pair_split`'s split where
+    neither has kernels for the plan's, or the pair where
+    :func:`.ifft_big.plan_big_ifft` applies (on
+    :func:`.ifft_big.pair_split`'s split); where no plan applies, the
     composed epilogue, as in the JAX package, counted in
     ``fused_inversion.composed_epilogues``. On the card a frame length or a
     split no kernel takes raises ValueError."""
@@ -126,11 +130,13 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     roll = geom.fn_width // 2 if spans_nyquist else 0
     gain = geom.os_factor.de / geom.os_factor.nu
     plan = plan_ifft(n, lo)
-    if plan is not None and (ifft_fused.takes(*plan) or not ifft_big.takes(*plan)):
+    split = None if plan is None or ifft_fused.takes(*plan) else (
+        plan if ifft_big.takes(*plan) else ifft_big.pair_split(n, lo))
+    if plan is not None and split is None:
         out = fused_big_ifft(flat, elem, shape_key=(n, *plan, lo, roll, gain),
                              n_valid=n_blocks)
     elif plan is not None:
-        out = fused_big_ifft_oc(flat, elem, shape_key=(n, 1, *plan, lo, roll, gain))
+        out = fused_big_ifft_oc(flat, elem, shape_key=(n, 1, *split, lo, roll, gain))
     elif (big := plan_big_ifft(n, lo)) is not None:
         split = ifft_big.pair_split(n, lo)
         key = (n, *big) if split in (None, (big[0] * big[1], big[2])) else (n, 1, *split)

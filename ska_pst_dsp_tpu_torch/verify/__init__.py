@@ -1,1 +1,3 @@
-"""Spurious-power metrics (copy of the JAX package's ``verify.util``)."""
+"""Verification harness (the port's counterpart of :mod:`ska_pst_dsp_tpu.verify`)."""
+
+from . import comparator, common, util  # noqa: F401

@@ -1,8 +1,8 @@
-"""Spurious-power metrics.
+"""Spurious-power metrics and comparison plots.
 
-The port's copy of the metrics of :mod:`ska_pst_dsp_tpu.verify.util`
-(without its plots): the equivalent of python/verify/util.py:15-50 and
-DomainPerformance.m:6-97.
+The port's copy of :mod:`ska_pst_dsp_tpu.verify.util`: the equivalent of
+python/verify/util.py:15-145 and DomainPerformance.m:6-97. matplotlib is
+imported when a plot is drawn, not with the module.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ __all__ = [
     "max_spurious",
     "dB",
     "DomainPerformance",
+    "plot_time_domain_comparison",
+    "plot_freq_domain_comparison",
 ]
 
 
@@ -79,3 +81,59 @@ class DomainPerformance:
             nfft = a.size
         spec = np.fft.fft(a[:nfft]) / nfft
         return self.temporal_performance(spec)
+
+
+def _default_labels(labels, n=2):
+    return labels or [f"array {i + 1}" for i in range(n)]
+
+
+def _pyplot():
+    """matplotlib.pyplot on the Agg backend (ImportError without matplotlib)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def plot_time_domain_comparison(op_result, subplots_kwargs=None, labels=None):
+    """Stacked real/imag + difference panels (util.py:52-100)."""
+    plt = _pyplot()
+    this = [v for _, v in op_result["this"].items()]
+    diff = [v for _, v in op_result["diff"].items()]
+    labels = _default_labels(labels, len(this))
+    fig, axes = plt.subplots(len(this) + 1, 1, **(subplots_kwargs or {}))
+    for ax, arr, label in zip(axes, this, labels):
+        ax.plot(np.real(arr), label="re")
+        ax.plot(np.imag(arr), label="im")
+        ax.set_title(label)
+        ax.legend()
+    axes[-1].plot(np.abs(diff[0]))
+    axes[-1].set_title("|difference|")
+    return fig, axes
+
+
+def plot_freq_domain_comparison(time_op_result, freq_op_result,
+                                subplots_kwargs=None, labels=None):
+    """Time series + power spectra + differences (util.py:103-145)."""
+    plt = _pyplot()
+    t_this = [v for _, v in time_op_result["this"].items()]
+    f_this = [v for _, v in freq_op_result["this"].items()]
+    f_diff = [v for _, v in freq_op_result["diff"].items()]
+    labels = _default_labels(labels, len(t_this))
+    rows = len(t_this) + len(f_this) + 1
+    fig, axes = plt.subplots(rows, 1, **(subplots_kwargs or {}))
+    i = 0
+    for arr, label in zip(t_this, labels):
+        axes[i].plot(np.real(arr))
+        axes[i].plot(np.imag(arr))
+        axes[i].set_title(f"{label} (time)")
+        i += 1
+    for arr, label in zip(f_this, labels):
+        axes[i].plot(dB(np.abs(arr) ** 2))
+        axes[i].set_title(f"{label} (power spectrum, dB)")
+        i += 1
+    axes[i].plot(dB(np.abs(f_diff[0]) ** 2))
+    axes[i].set_title("spectrum |difference| (dB)")
+    return fig, axes

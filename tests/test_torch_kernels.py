@@ -1316,11 +1316,15 @@ class TestPlainVsPallas:
 
 #: geometries the JAX package's fused path computes beside the two main
 #: paths' (channels, OS, L, overlap, the split plan_ifft gives, and the
-#: epilogue kernel that split goes to on the card)
+#: epilogue kernel that split goes to on the card; the pair runs on
+#: big.pair_split's split of the same length: the plan's own where it has
+#: kernels for it, else 896 * 128 for the 114688 points of SKA-Mid's
+#: 256-channel groups, whose (256, 448) neither kernel takes)
 EXTRA = {
     "512ch-4/3": (512, Rational(4, 3), 256, 48, (256, 384), "pair"),
     "128ch-4/3": (128, Rational(4, 3), 256, 48, (128, 192), "cluster"),
     "256ch-8/7": (256, Rational(8, 7), 256, 32, (128, 448), "cluster"),
+    "256ch-8/7-L512": (256, Rational(8, 7), 512, 128, (256, 448), "pair"),
 }
 
 
@@ -1369,7 +1373,7 @@ class TestDropIns:
         assert af.takes(n_chan, step, 5, n_chan // math.gcd(step, n_chan)) and tsf.takes(n_l)
         assert plan_ifft(n, lo) == split and plan_big_ifft(n, lo) is None
         assert itf.takes(*split) == (kernel == "cluster")
-        assert itf.takes(*split) or big.takes(*split)
+        assert itf.takes(*split) or big.takes(*big.pair_split(n, lo))
         if kernel == "pair":  # the raw cluster wrapper refuses it from the same predicate
             flat = torch.empty((1, 2, n), dtype=torch.complex64, device="meta")
             with pytest.raises(ValueError, match="cluster epilogue takes"):
@@ -1394,7 +1398,7 @@ class TestDropIns:
         monkeypatch.setattr(tsf, "fused_big_ifft_oc", record("pair", fused_big_ifft_oc))
         x = _noise((1, n_chan, 2 * ov + g.input_keep), 55)
         got = polyphase_synthesis_fused(x, n_l, os_f, input_overlap=ov)
-        key = (n, *split) if kernel == "cluster" else (n, 1, *split)
+        key = (n, *split) if kernel == "cluster" else (n, 1, *big.pair_split(n, lo))
         assert calls == [(kernel, key)]
         ref = tsynth.polyphase_synthesis(torch.as_tensor(x), n_l, os_f, input_overlap=ov)
         assert torch.equal(got, ref)
@@ -1420,6 +1424,35 @@ class TestDropIns:
         got = polyphase_synthesis_fused(x, n_l, os_f, **kw).numpy()
         ref = np.asarray(pallas[1].polyphase_synthesis_fused(x, n_l, os_f, interpret=True,
                                                              **kw))
+        assert _rel_err(got, ref) < SYNTHESIS_TOL
+
+    def test_mid_group_split(self):
+        # 114688 = 256 * 448 points, overlap 28672: neither kernel takes the
+        # plan's split, the pair takes 896 = 7 * 128 inner by 128 outer
+        g = geometry.SynthesisGeometry(256, 512, 128, Rational(8, 7))
+        n, lo = g.output_fft_length, g.output_overlap
+        assert (n, lo) == (114688, 28672) and plan_ifft(n, lo) == (256, 448)
+        assert not itf.takes(256, 448) and not big.takes(256, 448)
+        assert big.pair_split(n, lo) == (896, 128) and big.takes(896, 128)
+
+    def test_mid_group_elem_matches_jax(self, pallas):
+        # the chirp as the spectral filter of a band-limited group inversion
+        # (spans_nyquist False), against the JAX fused path in interpret mode
+        from ska_pst_dsp_tpu.ops import dedispersion as jax_dedisp
+        from ska_pst_dsp_tpu_torch.ops import dedispersion
+
+        n_chan, os_f, n_l, ov = EXTRA["256ch-8/7-L512"][:4]
+        f = fir.design_pfb_fir_filter(n_chan, os_f, 4)
+        g = geometry.SynthesisGeometry(n_chan, n_l, ov, os_f)
+        args = (n_chan * g.fn_width, 1.0, 1406.25, 2.5)
+        x = _noise((1, n_chan, 2 * ov + 2 * g.input_keep), 57)
+        kw = dict(input_overlap=ov, deripple_coeff=f, temporal_taper="tukey",
+                  spans_nyquist=False)
+        got = polyphase_synthesis_fused(
+            x, n_l, os_f, spectral_filter=dedispersion.chirp_filter(*args), **kw).numpy()
+        ref = np.asarray(pallas[1].polyphase_synthesis_fused(
+            x, n_l, os_f, spectral_filter=jax_dedisp.chirp_filter(*args), interpret=True,
+            **kw))
         assert _rel_err(got, ref) < SYNTHESIS_TOL
 
     @pytest.mark.parametrize("block,os_f", [(2048, Rational(4, 3)),  # W = 512, S = 3
@@ -1609,6 +1642,29 @@ class TestOnCard:
         got = polyphase_synthesis_fused(x, n_l, os_f, **kw)
         ran = [w.launches - b for w, b in zip(ws, before)]
         assert ran == ([1, 1, 0, 0] if kernel == "cluster" else [1, 0, 1, 1])
+        ref = tsynth.polyphase_synthesis(x, n_l, os_f, **kw)
+        assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
+
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_mid_group_inversion(self, cuda, with_elem):
+        # SKA-Mid's 256-channel groups (16 of 4096 channels, OS 8/7, L 512,
+        # overlap 128): 114688 points on the pair at 896 x 128, with and
+        # without a chirp as the spectral filter (the epilogue's elem)
+        from ska_pst_dsp_tpu_torch.ops import dedispersion
+
+        n_chan, os_f, n_l, ov = EXTRA["256ch-8/7-L512"][:4]
+        f = fir.design_pfb_fir_filter(n_chan, os_f, 4)
+        g = geometry.SynthesisGeometry(n_chan, n_l, ov, os_f)
+        assert big.pair_split(g.output_fft_length, g.output_overlap) == (896, 128)
+        h = (dedispersion.chirp_filter(n_chan * g.fn_width, 1.0, 1406.25, 2.5)
+             if with_elem else None)
+        x = torch.as_tensor(_noise((2, n_chan, 2 * ov + 6 * g.input_keep), 56), device=cuda)
+        kw = dict(input_overlap=ov, deripple_coeff=f, temporal_taper="tukey",
+                  spans_nyquist=False, spectral_filter=h)
+        ws = (synthesis_fused, fused_big_ifft, ifft_big_inner, ifft_big_outer)
+        before = [w.launches for w in ws]
+        got = polyphase_synthesis_fused(x, n_l, os_f, **kw)
+        assert [w.launches - b for w, b in zip(ws, before)] == [1, 0, 1, 1]
         ref = tsynth.polyphase_synthesis(x, n_l, os_f, **kw)
         assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
 
