@@ -119,6 +119,29 @@ Phases (one line each; any failure raises and the exit code is non-zero):
        analysis.compare_dump_files on two of its files.
     Each run's seconds and its worst figure against its gate; reports go to
     a temporary directory.
+16. parallel: the sharded pipelines (parallel/) on ranks spawned by
+    parallel.distributed.spawn, after the parent has built the kernels:
+    NCCL where every rank has a card of its own, else gloo with the ranks
+    sharing cuda:0 and every payload staged through host memory (printed
+    per world). Inside every rank the plain versions and torch.fft raise.
+    World 1 (NCCL on one card): the low round trip at 2 x 8,386,560. Worlds
+    2 and 4: the low round trip time-sharded and on the 2 x 1 / 2 x 2 and
+    4 x 1 meshes, the mid chain (100353 taps, 2 x 4,587,520) time-sharded
+    and on the 2 x 1 / 2 x 2 mesh, each gathered output within 1e-6 *
+    scale of the one-shot kernel chain; at world 4 also low x low critical
+    combine 16 (2 x 16,776,192: 2^23 gives no combine-16 inversion block)
+    and sps -> lowpsi (2 x 8,377,344) within 1e-4 relative of the one-shot
+    two-stage models, and sharded_file_round_trip on a low DADA file within
+    1e-6 * scale of the one-shot chain. Each gathered output holds exactly
+    the samples its geometry gives (parallel_length), every one compared.
+    Every rank launched exactly the case's kernels. Then entry.dryrun_multichip(4) under the same guard,
+    cli.scaling_bench --world 1 2 4 into a temporary directory, and
+    analysis.param_opt --study pipeline on the card, each figure above
+    -100 dB within 0.5 dB of products/param_opt.pipeline.json. Per case:
+    seconds, each rank's compute and exchange ms (CUDA events; an
+    exchange's time includes its staging through host memory), the bytes
+    of each exchange, the error against its gate, beside the card's name
+    and power limit.
 
 The line before the last is a JSON object with one entry per kernel (one
 per pallas_call of the JAX package); the last line is
@@ -128,6 +151,7 @@ per pallas_call of the JAX package); the last line is
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -679,6 +703,11 @@ def main() -> int:
     t0 = time.perf_counter()
     run_verify(torch, dev, smi)
     log("verify", f"phase done in {time.perf_counter() - t0:.1f} s ({smi})")
+
+    # 16. the sharded pipelines on spawned ranks
+    t0 = time.perf_counter()
+    run_parallel(torch, dev, smi)
+    log("parallel", f"phase done in {time.perf_counter() - t0:.1f} s ({smi})")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2071,6 +2100,260 @@ def run_verify(torch, dev, smi):
         mid_group_pair(torch, dev, smi)
         tools_on_card(torch, dev, smi, tmp)
         test_vector_tree(torch, dev, smi, tmp)
+
+# --- phase 16: the sharded pipelines -------------------------------------
+
+#: sharded vs the one-shot kernel chain, x scale; the two-stage chains,
+#: relative (tests/test_two_stage_sharded.py:76)
+PARALLEL_TOL, PARALLEL_TWO_STAGE_TOL = 1e-6, 1e-4
+#: 2^23 cut to a multiple of 4 * step * nu = 3072, the 1-D quantum at world 4
+PARALLEL_LOW_N = N_DAT // 3072 * 3072
+PARALLEL_LOW_LOW_N = 2 ** 24 // 3072 * 3072
+PARALLEL_SPS_N = N_DAT // 27648 * 27648
+PARALLEL_FILE_N = 2 ** 22
+#: noise after the sps stream in its one-shot reference: the streaming
+#: model keeps its last LowCBF spectra back until later samples arrive,
+#: and the sharded chain gives them from the stream alone
+PARALLEL_SPS_TAIL = 4 * 27648
+PARAM_OPT_TOL_DB = 0.5
+TWO_STAGE_KERNELS = ("analysis_fused", "synthesis_fused") + PAIR
+
+
+def rank_guard():
+    """Inside a spawned rank: the plain versions and torch.fft raise (a
+    patch in the parent does not cross a spawn)."""
+    import torch
+
+    return plain_versions_raise(torch)
+
+
+def parallel_cases(world, paths):
+    """(name, Call, layout, dc, kernels, reference) of a world's spawn."""
+    from ska_pst_dsp_tpu_torch.entry import L, N_CHAN, OS_FACTOR, OVERLAP
+    from ska_pst_dsp_tpu_torch.parallel import corner_turn as ct
+    from ska_pst_dsp_tpu_torch.parallel import distributed as dist_
+    from ska_pst_dsp_tpu_torch.parallel import sharded as sh
+    from ska_pst_dsp_tpu_torch.parallel import two_stage_sharded as ts
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+    Sharded = dist_.Sharded
+    # two runs a case: the second is timed, the first builds plans and tables
+    Call = functools.partial(dist_.Call, runs=2)
+    low = (model_filter(), N_CHAN, OS_FACTOR, L, OVERLAP)
+    mid_cfg = load_config("mid")
+    mid = (mid_cfg.load_fir_filter_coeff(), mid_cfg.channels, mid_cfg.os_factor,
+           mid_cfg.input_fft_length, mid_cfg.input_overlap)
+    x_low, x_mid = Sharded(paths["low"]), Sharded(paths["mid"])
+    cases = [("low 1-D", Call(sh.sharded_round_trip, (x_low, *low)), "time", 1, LOW_KERNELS,
+              "low")]
+    if world == 1:
+        return cases
+    for dc, dt in ((2, 1),) if world == 2 else ((2, 2), (4, 1)):
+        cases.append((f"low 2-D {dc} x {dt}", Call(ct.sharded_round_trip_2d, (x_low, *low),
+                                                   mesh_2d=(dc, dt)), "time_chan", dc,
+                      LOW_KERNELS, "low"))
+    cases.append(("mid 1-D", Call(sh.sharded_round_trip_padded, (x_mid, *mid)), "time", 1,
+                  MID_KERNELS, "mid"))
+    dc, dt = 2, world // 2
+    cases.append((f"mid 2-D {dc} x {dt}", Call(ct.sharded_round_trip_2d_padded, (x_mid, *mid),
+                                               mesh_2d=(dc, dt)), "time_chan", dc,
+                  MID_KERNELS, "mid"))
+    if world == 4:
+        lowc, sps, lowpsi = load_config("low"), load_config("sps"), load_config("lowpsi")
+        cases += [
+            ("low x low critical, combine 16",
+             Call(ts.sharded_two_stage_round_trip, (Sharded(paths["low_low"]), lowc, lowc),
+                  dict(critical=True, combine=16)), "time", 1, TWO_STAGE_KERNELS, "low_low"),
+            ("sps -> lowpsi", Call(ts.sharded_two_stage_round_trip,
+                                   (Sharded(paths["sps"]), sps, lowpsi),
+                                   dict(critical=True, invert=False)), "time", 1,
+             ("analysis_fused",), "sps"),
+            ("file round trip", Call(dist_.sharded_file_round_trip, (paths["dada"], lowc)),
+             "time", 1, LOW_KERNELS, "file"),
+        ]
+    return cases
+
+
+def parallel_reference(torch, dev, key, arrays, paths):
+    """The one-shot chain of a case on the card: the kernel round trip, or
+    the one-shot two-stage models (sps -> lowpsi on its stream and
+    PARALLEL_SPS_TAIL samples of noise after it, so every spectrum the
+    sharded chain gives has its one-shot counterpart)."""
+    from ska_pst_dsp_tpu_torch.entry import low_round_trip, mid_round_trip
+    from ska_pst_dsp_tpu_torch.io import dada
+    from ska_pst_dsp_tpu_torch.models import TwoStageFilterBank, TwoStageInverseFilterBank
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+    if key in ("low", "mid", "file"):
+        model = mid_round_trip(dev) if key == "mid" else low_round_trip(dev)
+        x = dada.load(paths["dada"])[0][:, 0] if key == "file" else arrays[key]
+        return model(torch.as_tensor(x, device=dev))
+    if key == "low_low":
+        low = load_config("low")
+        fb = TwoStageFilterBank(low, low, critical=True, device=dev)
+        _, chan = fb.execute(fb.init_state(), torch.as_tensor(arrays[key], device=dev))
+        inv = TwoStageInverseFilterBank(low, low, combine=16, nch2=192, device=dev)
+        return inv.execute(inv.init_state(), chan)[1]
+    fb = TwoStageFilterBank(load_config("sps"), load_config("lowpsi"), critical=True, device=dev)
+    x = np.concatenate([arrays[key], noise((2, PARALLEL_SPS_TAIL), SEED + 21)], axis=-1)
+    return fb.execute(fb.init_state(), torch.as_tensor(x, device=dev))[1]
+
+
+def exchange_line(collectives):
+    """"kind calls x bytes" of each exchange of scaling_bench.summarize's
+    "collectives" (summed over the ranks), and the bytes staged through
+    host memory."""
+    return ", ".join(f"{k} {v['calls']} x, {v['bytes']} B"
+                     + (f" ({v['staged_bytes']} B via host)" if v["staged_bytes"] else "")
+                     for k, v in collectives.items() if v["calls"]) or "none"
+
+
+def parallel_length(key, n_dat, dt, dc):
+    """Samples the gathered output of a phase-16 case must hold. A round
+    trip cuts its fine channels to whole inversion blocks per time shard
+    (a multiple of dc of them on a 2-D mesh) and gives the one-shot count
+    of that stream. A two-stage chain gives every spectrum its stages'
+    valid samples make, and the combined inversion's one-shot count of
+    them: sps -> lowpsi holds a LowCBF spectrum or two more than the
+    streaming model gives for the same stream (it keeps them back until
+    later samples arrive; see parallel_reference)."""
+    from ska_pst_dsp_tpu_torch.entry import L, N_CHAN, OS_FACTOR, OVERLAP
+    from ska_pst_dsp_tpu_torch.ops import lowcbf
+    from ska_pst_dsp_tpu_torch.utils import geometry
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+    if key in ("low_low", "sps"):
+        c1, c2 = (load_config(k) for k in (("low", "low") if key == "low_low"
+                                           else ("sps", "lowpsi")))
+        t1 = geometry.analysis_nblocks(n_dat, c1.load_fir_filter_coeff().size, c1.channels,
+                                       c1.os_factor)
+        if key == "sps":
+            return (t1 + lowcbf.FIRST_CALL_PAD - lowcbf.NFILT) // lowcbf.STEP
+        t2 = geometry.analysis_nblocks(t1, c2.load_fir_filter_coeff().size, c2.channels,
+                                       c2.os_factor)
+        geom = geometry.SynthesisGeometry(c1.os_factor.normalize(c2.channels) * 16,
+                                          c2.input_fft_length, c2.input_overlap, c2.os_factor)
+        return geom.n_blocks(t2) * geom.output_keep
+    if key == "mid":
+        cfg = load_config("mid")
+        t_valid = n_dat // geometry.analysis_step(cfg.channels, cfg.os_factor)
+        geom = geometry.SynthesisGeometry(cfg.channels, cfg.input_fft_length,
+                                          cfg.input_overlap, cfg.os_factor)
+    else:
+        taps = model_filter().size
+        if key == "file":  # the file's stream, cut to the 1-D sharding quantum
+            taps = load_config("low").load_fir_filter_coeff().size
+            quantum = dt * geometry.analysis_step(N_CHAN, OS_FACTOR) * OS_FACTOR.nu
+            n_dat = n_dat // quantum * quantum
+        t_valid = geometry.analysis_nblocks(n_dat, taps, N_CHAN, OS_FACTOR)
+        geom = geometry.SynthesisGeometry(N_CHAN, L, OVERLAP, OS_FACTOR)
+    quantum = dt * geom.input_keep * dc
+    return geom.n_blocks(t_valid // quantum * quantum) * geom.output_keep
+
+
+def run_parallel(torch, dev, smi):
+    """Phase 16 (see the module docstring)."""
+    from ska_pst_dsp_tpu_torch.analysis import param_opt
+    from ska_pst_dsp_tpu_torch.cli import scaling_bench
+    from ska_pst_dsp_tpu_torch.entry import dryrun_multichip
+    from ska_pst_dsp_tpu_torch.io import dada
+    from ska_pst_dsp_tpu_torch.ops.kernels import _build
+    from ska_pst_dsp_tpu_torch.parallel import distributed as dist_
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+    _build.build()  # once, here: the ranks load it and never run nvcc at once
+    torch.cuda.empty_cache()
+    arrays = {"low": noise((2, PARALLEL_LOW_N), SEED + 16),
+              "mid": noise((2, MID_N_DAT), SEED + 17),
+              "low_low": noise((2, PARALLEL_LOW_LOW_N), SEED + 18),
+              "sps": noise((2, PARALLEL_SPS_N), SEED + 19)}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for k, a in arrays.items():
+            paths[k] = os.path.join(tmp, f"{k}.npy")
+            np.save(paths[k], a)
+        paths["dada"] = os.path.join(tmp, "low.dada")
+        dada.save(paths["dada"], noise((2, 1, PARALLEL_FILE_N), SEED + 20),
+                  load_config("low").load_header())
+        for world in (1, 2, 4):
+            cases = parallel_cases(world, paths)
+            t0 = time.perf_counter()
+            ranks = dist_.spawn(dist_.run_calls, world, timeout=600,
+                                args=([c[1] for c in cases], rank_guard))
+            backend = ranks[0][0]["backend"]
+            log("parallel", f"world {world}: backend {backend}, ranks on "
+                + ("one card each" if backend == "nccl" else "cuda:0, payloads staged "
+                   "through host memory" if ranks[0][0]["staged"] else "cuda:0")
+                + f"; {len(cases)} cases in {time.perf_counter() - t0:.1f} s with the rank "
+                f"start-up ({smi})")
+            for i, (name, call, layout, dc, kernels, key) in enumerate(cases):
+                per_rank = [r[i] for r in ranks]
+                for rank, r in enumerate(per_rank):
+                    ran = sorted(k for k, v in r["launches"].items() if v > 0)
+                    check(ran == sorted(kernels) and r["composed_epilogues"] == 0,
+                          f"parallel world {world} {name}: rank {rank} launched {ran}, "
+                          f"composed {r['composed_epilogues']}, expected {sorted(kernels)}")
+                got = dist_.assemble([r["out"] for r in per_rank], layout, dc).to(dev)
+                ref = parallel_reference(torch, dev, key, arrays, paths)
+                n_dat = PARALLEL_FILE_N if key == "file" else arrays[key].shape[-1]
+                n = parallel_length(key, n_dat, call.mesh_2d[1] if call.mesh_2d else world, dc)
+                check(got.shape[:-1] == ref.shape[:-1] and got.shape[-1] == n
+                      and 0 < n <= ref.shape[-1],
+                      f"parallel world {world} {name}: {tuple(got.shape)}, want {n} samples "
+                      f"of the one-shot {tuple(ref.shape)}")
+                err = rel_err(got, ref[..., :n])
+                tol = PARALLEL_TWO_STAGE_TOL if key in ("low_low", "sps") else PARALLEL_TOL
+                check(err[1] <= tol, f"parallel world {world} {name}: {err[1]:.3g} > {tol}")
+                log("parallel", f"world {world} {name}: first run "
+                    f"{max(r['ms'][0] for r in per_rank) / 1e3:.3f} s, second "
+                    f"{max(r['ms'][-1] for r in per_rank) / 1e3:.4f} s; second run's "
+                    "compute / exchange ms per rank " + ", ".join(
+                        f"{r['compute_ms']:.3f} / {r['exchange_ms']:.3f}" for r in per_rank)
+                    + "; exchanges over all ranks: "
+                    + exchange_line(scaling_bench.summarize(per_rank, 0, False)["collectives"])
+                    + f"; launches per rank "
+                    f"{per_rank[0]['launches']}; vs one-shot max|err|/scale {err[1]:.3g} "
+                    f"(tol {tol}) ({smi})")
+                del got, ref
+            del ranks
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rep = dryrun_multichip(4, guard=rank_guard)
+    log("parallel", f"dryrun_multichip(4): {time.perf_counter() - t0:.1f} s; " + "; ".join(
+        f"{k} {v['error']:.3g} (gate {v['gate']})" for k, v in rep.items()) + f" ({smi})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        check(scaling_bench.run(["--world", "1", "2", "4", "--reps", "3", "--products", tmp])
+              == 0, "scaling_bench failed")
+        with open(os.path.join(tmp, f"report.scaling.{dev.type}.json")) as f:
+            runs = json.load(f)["runs"]
+        for world, entry in runs.items():
+            log("parallel", f"scaling_bench world {world}: {entry['backend']}, staged "
+                f"{entry['staged']}; " + "; ".join(
+                    f"{case} " + (f"{e['msps']:.1f} Msamples/s, " if "msps" in e else "")
+                    + "compute ms " + ", ".join(f"{v:.3f}" for v in e["compute_ms"])
+                    + ", exchange ms " + ", ".join(f"{v:.3f}" for v in e["exchange_ms"])
+                    + ", " + exchange_line(e["collectives"])
+                    for case, e in entry.items() if isinstance(e, dict)) + f" ({smi})")
+        log("parallel", f"scaling_bench: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    got = param_opt.pipeline_study(device=dev)
+    with open(os.path.join(PRODUCTS, "param_opt.pipeline.json")) as f:
+        ref = json.load(f)
+    worst = 0.0
+    for g, r in zip(got, ref, strict=True):
+        for k in ("max_spurious", "total_spurious"):
+            if r[k] > -100.0:
+                worst = max(worst, abs(g[k] - r[k]))
+    check(worst <= PARAM_OPT_TOL_DB, f"param_opt pipeline off the committed report by {worst:.3f} dB")
+    log("parallel", f"param_opt --study pipeline on the card: {time.perf_counter() - t0:.1f} s; "
+        + ", ".join(f"{g['signal']} max spurious {g['max_spurious']:.2f} dB" for g in got)
+        + f"; worst gap to products/param_opt.pipeline.json {worst:.3f} dB "
+        f"(tol {PARAM_OPT_TOL_DB}) ({smi})")
+
 
 def model_filter():
     from ska_pst_dsp_tpu_torch.design import fir

@@ -96,23 +96,50 @@ def synthesis_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
 synthesis_fused.launches = 0
 
 
+def epilogue_dispatch(flat: torch.Tensor, elem: Optional[torch.Tensor],
+                      geom: geometry.SynthesisGeometry, *, spans_nyquist: bool,
+                      n_valid: int) -> torch.Tensor:
+    """The inversion's epilogue on assembled spectra: (n_pol, B >= n_valid,
+    N) -> (n_pol, n_valid, N - 2 * output_overlap).
+
+    The cluster kernel for :func:`.ifft_fused.plan_ifft`'s split, or the
+    out-of-core pair for it where only that has kernels for the split, or
+    the pair on :func:`.ifft_big.pair_split`'s split where neither has
+    kernels for the plan's, or the pair where
+    :func:`.ifft_big.plan_big_ifft` applies (on
+    :func:`.ifft_big.pair_split`'s split); where no plan applies, the
+    composed epilogue, as in the JAX package, counted in
+    ``fused_inversion.composed_epilogues``. On the card a split no kernel
+    takes raises ValueError."""
+    n = geom.output_fft_length
+    lo = geom.output_overlap
+    roll = geom.fn_width // 2 if spans_nyquist else 0
+    gain = geom.os_factor.de / geom.os_factor.nu
+    plan = plan_ifft(n, lo)
+    split = None if plan is None or ifft_fused.takes(*plan) else (
+        plan if ifft_big.takes(*plan) else ifft_big.pair_split(n, lo))
+    if plan is not None and split is None:
+        return fused_big_ifft(flat, elem, shape_key=(n, *plan, lo, roll, gain),
+                              n_valid=n_valid)
+    if plan is not None:
+        return fused_big_ifft_oc(flat[:, :n_valid], elem,
+                                 shape_key=(n, 1, *split, lo, roll, gain))
+    if (big := plan_big_ifft(n, lo)) is not None:
+        split = ifft_big.pair_split(n, lo)
+        key = (n, *big) if split in (None, (big[0] * big[1], big[2])) else (n, 1, *split)
+        return fused_big_ifft_oc(flat[:, :n_valid], elem, shape_key=(*key, lo, roll, gain))
+    fused_inversion.composed_epilogues += 1
+    return epilogue(flat, elem, lo, roll, gain, n_valid)
+
+
 def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
                     perm: torch.Tensor, elem: Optional[torch.Tensor],
                     geom: geometry.SynthesisGeometry, *, spans_nyquist: bool,
                     valid_len: Optional[int] = None) -> torch.Tensor:
-    """Frontend kernel + epilogue on a (n_pol, n_dat, n_chan) view; the
-    first ``valid_len`` samples (default all) are data. Returns
-    (n_pol, 1, n_blocks * output_keep) complex64.
-
-    The epilogue is the cluster kernel for :func:`.ifft_fused.plan_ifft`'s
-    split, or the out-of-core pair for it where only that has kernels for
-    the split, or the pair on :func:`.ifft_big.pair_split`'s split where
-    neither has kernels for the plan's, or the pair where
-    :func:`.ifft_big.plan_big_ifft` applies (on
-    :func:`.ifft_big.pair_split`'s split); where no plan applies, the
-    composed epilogue, as in the JAX package, counted in
-    ``fused_inversion.composed_epilogues``. On the card a frame length or a
-    split no kernel takes raises ValueError."""
+    """Frontend kernel + :func:`epilogue_dispatch` on a (n_pol, n_dat,
+    n_chan) view; the first ``valid_len`` samples (default all) are data.
+    Returns (n_pol, 1, n_blocks * output_keep) complex64. On the card a
+    frame length or a split no kernel takes raises ValueError."""
     n_pol, n_dat, _ = x_tc.shape
     L = geom.input_fft_length
     if n_dat < L:
@@ -124,30 +151,13 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
         x_tc, t_taper, dr, perm, L, geom.input_keep,
         (L // 2 + geom.discard) % L, n_blocks,
     )
-    n = geom.output_fft_length
-    flat = fn.reshape(n_pol, n_blocks, n)
-    lo = geom.output_overlap
-    roll = geom.fn_width // 2 if spans_nyquist else 0
-    gain = geom.os_factor.de / geom.os_factor.nu
-    plan = plan_ifft(n, lo)
-    split = None if plan is None or ifft_fused.takes(*plan) else (
-        plan if ifft_big.takes(*plan) else ifft_big.pair_split(n, lo))
-    if plan is not None and split is None:
-        out = fused_big_ifft(flat, elem, shape_key=(n, *plan, lo, roll, gain),
-                             n_valid=n_blocks)
-    elif plan is not None:
-        out = fused_big_ifft_oc(flat, elem, shape_key=(n, 1, *split, lo, roll, gain))
-    elif (big := plan_big_ifft(n, lo)) is not None:
-        split = ifft_big.pair_split(n, lo)
-        key = (n, *big) if split in (None, (big[0] * big[1], big[2])) else (n, 1, *split)
-        out = fused_big_ifft_oc(flat, elem, shape_key=(*key, lo, roll, gain))
-    else:
-        out = epilogue(flat, elem, lo, roll, gain, n_blocks)
-        fused_inversion.composed_epilogues += 1
+    flat = fn.reshape(n_pol, n_blocks, geom.output_fft_length)
+    out = epilogue_dispatch(flat, elem, geom, spans_nyquist=spans_nyquist,
+                            n_valid=n_blocks)
     return out.reshape(n_pol, 1, -1)
 
 
-#: epilogues :func:`fused_inversion` ran composed because neither package
+#: epilogues :func:`epilogue_dispatch` ran composed because neither package
 #: has a plan for their length (36864 and 41472 points, say): the
 #: reference's own dispatch, counted so that it shows
 fused_inversion.composed_epilogues = 0

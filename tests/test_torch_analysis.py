@@ -13,6 +13,14 @@ dedispersion_cuda's round trip with its gate and its whole-stream figures
 within 0.5 dB of the JAX package's composed chain on the same samples. On
 the CPU the tools refuse to run as a product, and their reports never take
 a committed product's name.
+
+param_opt's five studies run at shortened sweeps on the CPU against the JAX
+package's studies: the inverted streams within 1.2e-5 x scale at each
+study's geometry, every dB figure above -100 dB within 0.1 dB (linear
+differences compared in dB). scaling_bench's comm_model gives the JAX
+model's byte counts, and its CLI runs worlds 1 and 2 on the CPU;
+entry.dryrun_multichip runs at world 2 over gloo on the CPU at the JAX
+dryrun's stream sizes, every case inside its gate.
 """
 
 import json
@@ -26,19 +34,27 @@ import pytest
 import torch
 
 from ska_pst_dsp_tpu.analysis import compare_dump_files as jax_cdf
+from ska_pst_dsp_tpu.analysis import param_opt as jax_param_opt
 from ska_pst_dsp_tpu.analysis import process_test_vectors as jax_ptv
 from ska_pst_dsp_tpu.cli import current_performance as jax_cp
+from ska_pst_dsp_tpu.cli import scaling_bench as jax_scaling
 from ska_pst_dsp_tpu.models import signals as jax_signals
 from ska_pst_dsp_tpu.utils.config import load_config as jax_load_config
 from ska_pst_dsp_tpu_torch.analysis import compare_dump_files as cdf
+from ska_pst_dsp_tpu_torch.analysis import param_opt
 from ska_pst_dsp_tpu_torch.analysis import process_test_vectors as ptv
 from ska_pst_dsp_tpu_torch.analysis import quicklook
+from ska_pst_dsp_tpu_torch.cli import scaling_bench
 from ska_pst_dsp_tpu_torch.data_gen.generate_test_vector import (
     complex_sinusoid, time_domain_impulse,
 )
+from ska_pst_dsp_tpu_torch.design import fir
+from ska_pst_dsp_tpu_torch.entry import dryrun_multichip
 from ska_pst_dsp_tpu_torch.io import dada
 from ska_pst_dsp_tpu_torch.models import signals
 from ska_pst_dsp_tpu_torch.utils.config import load_config
+from ska_pst_dsp_tpu_torch.utils.rational import Rational
+from ska_pst_dsp_tpu_torch.verify.util import dB
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "tools"))
@@ -251,3 +267,126 @@ def test_tool_reports_not_committed_names():
 
     assert "report.purity.cuda." in inspect.getsource(purity_cuda.main)
     assert "report.dedispersion.cuda.json" in inspect.getsource(dedispersion_cuda.main)
+
+
+# --- param_opt, scaling_bench, dryrun_multichip ----------------------------
+
+#: each study at a shortened sweep (the same arguments to both packages)
+STUDY_ARGS = {
+    "deripple": dict(taps_per_chan=(6, 12)),
+    "overlap": dict(overlaps=(0, 16, 40)),
+    "phase": dict(phases=np.linspace(0, 2 * np.pi, 3)),
+    "search": dict(fft_lengths=(512,), overlaps=(128,), npoints=4),
+    "pipeline": dict(nblocks=40),
+}
+#: record keys in dB, and the linear differences compared in dB
+DB_KEYS = {"max_spurious", "total_spurious", "mean_spurious", "diff_max", "diff_sum",
+           "diff_mean"}
+LINEAR_KEYS = {"mean_diff", "max_diff"}
+STUDY_DB_TOL = 0.1
+
+
+@pytest.mark.parametrize("study", list(STUDY_ARGS))
+def test_param_opt_study_matches_jax(study):
+    """Each study on the CPU gives the JAX study's records: the swept
+    parameters equal, each figure above -100 dB within 0.1 dB."""
+    kw = STUDY_ARGS[study]
+    got = param_opt.STUDIES[study](device="cpu", **kw)
+    ref = jax_param_opt.STUDIES[study](**kw)
+    assert got and len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.keys() == r.keys()
+        for k, v in r.items():
+            if k in DB_KEYS or k in LINEAR_KEYS:
+                a, b = (float(dB(x)) if k in LINEAR_KEYS else x for x in (g[k], v))
+                if b > -100.0:
+                    assert abs(a - b) <= STUDY_DB_TOL, (study, k, a, b)
+            else:
+                assert g[k] == v, (study, k)
+
+
+@pytest.mark.parametrize("n_chan, os_f, L, ov, tpc, deripple", [
+    (64, "4/3", 128, 24, 12, True),     # derippling, overlap, phase studies
+    (64, "4/3", 128, 24, 6, False),
+    (8, "8/7", 128, 0, 10, True),       # the pipeline study
+    (256, "4/3", 512, 128, 12, True),   # the search
+])
+def test_param_opt_round_trip_matches_jax(n_chan, os_f, L, ov, tpc, deripple):
+    """The studies' round trip (the composed ops) on the CPU: the inverted
+    stream within 1.2e-5 x scale of the JAX study's, the aligned input the
+    same."""
+    filt = fir.design_pfb_fir_filter(n_chan, Rational.coerce(os_f), tpc)
+    block = Rational.coerce(os_f).normalize(L) * n_chan
+    sig = complex_sinusoid(block * 4, [0.23], [np.pi / 4], dtype=np.complex64)
+    inp, inv = param_opt.round_trip(sig, filt, n_chan, Rational.coerce(os_f), L, ov, deripple,
+                                    device="cpu")
+    jinp, jinv = jax_param_opt._roundtrip(sig, filt, n_chan,
+                                          jax_param_opt.Rational.coerce(os_f), L, ov, deripple)
+    np.testing.assert_array_equal(inp, jinp)
+    assert _rel(inv, jinv) <= SYNTHESIS_TOL
+
+
+def test_param_opt_report_names():
+    """The report carries the device type: never a committed product's
+    name."""
+    committed = set(os.listdir(REPO / "products"))
+    for study in param_opt.STUDIES:
+        for device in ("cpu", "cuda"):
+            name = os.path.basename(param_opt.report_path(study, device))
+            assert name.endswith(f".{device}.json") and name not in committed
+
+
+def test_param_opt_cli(tmp_path, monkeypatch):
+    monkeypatch.setattr(param_opt, "products_dir", str(tmp_path))
+    assert param_opt.run(["--study", "phase", "--device", "cpu"]) == 0
+    with open(tmp_path / "param_opt.phase.cpu.json") as f:
+        assert len(json.load(f)) == 9
+
+
+@pytest.mark.parametrize("geometry", [
+    (256, 3073, 256, 48, "4/3"), (4096, 100353, 512, 128, "8/7"),
+])
+@pytest.mark.parametrize("dc", [2, 4])
+def test_comm_model_bytes_as_jax(geometry, dc):
+    """scaling_bench's comm_model gives the JAX model's byte counts, and
+    at the JAX model's 45 GB/s its modelled seconds."""
+    n_chan, taps, L, ov, os_f = geometry
+    got = scaling_bench.comm_model(n_chan, taps, L, ov, Rational.coerce(os_f), dc=dc,
+                                   link_gbs=45.0)
+    ref = jax_scaling.comm_model(n_chan, taps, L, ov, jax_param_opt.Rational.coerce(os_f),
+                                 dc=dc)
+    for k in ("shard_raw_samples", "out_samples_per_shard_step", "halo_analysis_bytes",
+              "halo_synthesis_bytes", "all_to_all_bytes_2d", "bytes_per_Msample_1d",
+              "bytes_per_Msample_2d", "modeled_comm_seconds_per_Gsample_2d"):
+        assert got[k] == ref[k], k
+    assert got["link_gbs"] == 45.0 and "ici_gbs_assumed" not in got
+
+
+def test_scaling_bench_cpu(tmp_path):
+    """The CLI on the CPU at worlds 1 and 2: the exchanges each world
+    issued, gloo, nothing staged, no Msamples/s (ranks share the CPU)."""
+    assert scaling_bench.run(["--world", "1", "2", "--device", "cpu", "--reps", "1",
+                              "--samples-per-rank", str(192 * 4 * 120),
+                              "--products", str(tmp_path)]) == 0
+    with open(tmp_path / "report.scaling.cpu.json") as f:
+        rep = json.load(f)
+    one, two = rep["runs"]["1"], rep["runs"]["2"]
+    assert one["1d"]["collectives"] == {"none": {"calls": 0, "bytes": 0, "staged_bytes": 0}}
+    assert two["backend"] == "gloo" and two["staged"] is False
+    assert two["1d"]["collectives"]["halo"]["calls"] == 4
+    assert two["2d_2xT"]["collectives"]["all_to_all"]["calls"] == 2
+    assert "msps" not in two["1d"] and rep["comm_model"]["low"]["link_gbs"] == 450.0
+
+
+def test_dryrun_multichip_world2_cpu():
+    """The twin of __graft_entry__.dryrun_multichip at world 2 over gloo on
+    the CPU, at the JAX dryrun's stream sizes: every case within its gate
+    (tone mean error < 1e-3; two-stage chains < 1e-4 relative to the
+    one-shot models)."""
+    rep = dryrun_multichip(2, device="cpu")
+    assert list(rep) == ["low-1d", "low-2d-dc2", "low-low-combine16", "sps-lowpsi", "mid-1d",
+                         "mid-2d", "mid-prod"]
+    for name, case in rep.items():
+        assert case["error"] < case["gate"], name
+        assert len(case["results"]) == 2
+        assert all(r["backend"] == "gloo" for r in case["results"])
