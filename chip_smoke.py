@@ -68,7 +68,19 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     TestImpulse at -60 dB; each kernel at the cascades' geometries and the
     corner turn, timed against its plain version, bound and library call.
 11. sps -> lowpsi: the SKA-Low PST chain (LowCBF over 512 streams, the
-    216-channel monotonic inversion, composed epilogue), as phase 10.
+    216-channel monotonic inversion, composed epilogue), as phase 10. Then
+    the LowCBF route on the card (the analysis kernel with the quarter-turn
+    table) against the port's fp64 oracle
+    (``oracle.polyphase_analysis_lowcbf``) over every spectrum, at 2e-6
+    (tests/test_analysis.py:36): 2 pol x 2^23 seeded noise on the first
+    call and its 2^20 prefix on a later call, max |err| / max |ref|; 8 of
+    the 512 sps stage-1 streams (chosen by seed) of the first block, each
+    stream's max |err| over its peak across all 256 channels, before 216
+    are kept (some streams hold most of their power in the discarded edge
+    channels, where fp32 rounding still reaches the kept ones; the ratio to
+    the kept peak is printed beside). Each call with the plain versions and
+    torch.fft patched to raise, launching analysis_fused once; the card's
+    ms and the oracle's s.
 12. dedispersion: the chirp as the epilogue's ``elem`` (low: cluster
     epilogue, dm 1.5; mid: the pair, dm 50) against the plain inversion
     (1.2e-5 / 1e-4 * scale), and block-wise against whole-stream
@@ -977,6 +989,10 @@ IMPULSE_AT = 2 ** 23 + 777
 #: 239469 samples inside mid's 458752
 DM_LOW, DM_MID, F0_MHZ, BW_MHZ = 1.5, 50.0, 1405.0, 40.0
 DEDISP_TOL = {"low": 1.2e-5, "mid": 1e-4}
+#: LowCBF on the card against the fp64 oracle, max |err| / max |ref|
+#: (tests/test_analysis.py:36, used at :121-139)
+LOWCBF_ORACLE_TOL = 2e-6
+LOWCBF_PREFIX, LOWCBF_STREAMS = 2 ** 20, 8
 
 
 def events(torch):
@@ -1366,8 +1382,12 @@ def run_sps_lowpsi(torch, dev, smi):
     LowCBF firmware filterbank (lowpsi: 216 of 256 channels kept) over 512
     streams, and the oversampled monotonic inversion of the 216-channel
     slabs (composed epilogue: 41472 points have no plan), 2 pol x 2^25
-    samples in 4 blocks; the tone passes TestPureTone at -60 dB."""
-    from ska_pst_dsp_tpu_torch.models import PureTone
+    samples in 4 blocks; the tone passes TestPureTone at -60 dB. Then the
+    LowCBF route on the card against the port's fp64 oracle: 2 pol x 2^23
+    noise on the first call, a 2^20 prefix on a later call, and 8 of the
+    512 streams the first block's stage 1 feeds to LowCBF (each held to its
+    peak over all 256 channels)."""
+    from ska_pst_dsp_tpu_torch.models import PureTone, TwoStageFilterBank
     from ska_pst_dsp_tpu_torch.utils.config import load_config
 
     sps, lowpsi = load_config("sps"), load_config("lowpsi")
@@ -1375,6 +1395,78 @@ def run_sps_lowpsi(torch, dev, smi):
     run_case(torch, dev, smi, "sps-lowpsi", sps, lowpsi, "oversampled, tone", {},
              {"nch2": lowpsi.kept_channels}, ("analysis_fused", "synthesis_fused"), True, tone,
              (cascade_testers(sps, lowpsi),))
+    filt = lowpsi.load_fir_filter_coeff()
+    x = torch.as_tensor(noise((2, N_DAT), SEED + 11), device=dev)
+    lowcbf_vs_oracle(torch, smi, lowpsi, filt, x, True, "2 pol x 2^23 noise, first call")
+    lowcbf_vs_oracle(torch, smi, lowpsi, filt, x[:, :LOWCBF_PREFIX].contiguous(), False,
+                     "2 pol x 2^20 noise prefix, later call")
+    del x
+    stage1 = TwoStageFilterBank(sps, lowpsi, device=dev).stage1
+    _, out1 = stage1.execute(stage1.init_state(), tone[0])
+    streams = out1.reshape(-1, out1.shape[2])  # the corner turn: 512 streams
+    pick = np.sort(np.random.default_rng(SEED).choice(streams.shape[0], LOWCBF_STREAMS,
+                                                      replace=False))
+    lowcbf_vs_oracle(torch, smi, lowpsi, filt,
+                     streams[torch.as_tensor(pick, device=dev)].contiguous(), True,
+                     f"sps stage-1 streams {pick.tolist()} of the first block, first call",
+                     band_scale=True)
+
+
+def lowcbf_band_peaks(x64, filt, first_call):
+    """(n,) peak |spectrum| of each of the streams x64 over all 256 LowCBF
+    channels, before the 216 are kept, in fp64 at the oracle's scale (fold
+    / 2^9, FFT / 128, * 2^9 * 2048 * 256)."""
+    xp = np.concatenate([np.zeros((x64.shape[0], 1536 if first_call else 0)), x64], axis=1)
+    n_out = (xp.shape[1] - 3072) // 192
+    frames = np.lib.stride_tricks.sliding_window_view(xp, 3072, axis=1)[:, ::192][:, :n_out]
+    fold = (frames.reshape(*frames.shape[:2], 12, 256) * filt.reshape(12, 256)).sum(2)
+    return np.abs(np.fft.fft(fold, axis=-1)).max(axis=(1, 2)) * (2048 * 256 / 128)
+
+
+def lowcbf_vs_oracle(torch, smi, cfg, filt, x, first_call, label, band_scale=False):
+    """One call of ops.lowcbf.polyphase_analysis_lowcbf on the (n, n_dat)
+    complex64 streams x on the card, with the plain versions and torch.fft
+    patched to raise, held over all its spectra to the port's fp64 oracle
+    on the same samples; the analysis kernel launched exactly once. The
+    error is taken over the peak of the kept channels or, with
+    ``band_scale``, over each stream's peak across all 256 channels: fp32
+    rounding follows a stream's whole power, and real streams hold some of
+    theirs in the edge channels LowCBF discards."""
+    from ska_pst_dsp_tpu_torch import oracle
+    from ska_pst_dsp_tpu_torch.ops import lowcbf
+    from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import analysis_fused
+
+    def call():
+        return lowcbf.polyphase_analysis_lowcbf(x, filt, first_call=first_call)
+
+    analysis_fused.launches = 0
+    with plain_versions_raise(torch):
+        got = call()
+        torch.cuda.synchronize()
+    launches = analysis_fused.launches
+    check(launches == 1, f"sps-lowpsi LowCBF {label}: {launches} analysis_fused launches")
+    x64 = x.cpu().numpy().astype(np.complex128)
+    t0 = time.perf_counter()
+    ref = oracle.polyphase_analysis_lowcbf(x64[:, None], filt, cfg.channels, cfg.os_factor,
+                                           first_call)
+    oracle_s = time.perf_counter() - t0
+    got = got.cpu().numpy()
+    check(got.shape == ref.shape and ref.shape[2] > 0,
+          f"sps-lowpsi LowCBF {label}: shape {got.shape}, oracle {ref.shape}")
+    err = np.abs(got - ref)
+    kept = float(err.max() / np.abs(ref).max())
+    if band_scale:
+        rel = float((err.max(axis=(1, 2)) / lowcbf_band_peaks(x64, filt, first_call)).max())
+        what = f"/peak {kept:.3g}, /each stream's 256-channel peak {rel:.3g}"
+    else:
+        rel, what = kept, f"/peak {kept:.3g}"
+    check(rel <= LOWCBF_ORACLE_TOL, f"sps-lowpsi LowCBF {label}: {what}")
+    with plain_versions_raise(torch):
+        ms = time_ms(torch, call)
+    log("sps-lowpsi", f"LowCBF on the card vs the fp64 oracle, {label}: out {got.shape}, "
+        f"every spectrum; analysis_fused launches {launches}; max|err| {err.max():.3g}, "
+        f"{what} (tol {LOWCBF_ORACLE_TOL} on the last); card {ms:.4f} ms, oracle "
+        f"{oracle_s:.2f} s ({smi})")
 
 
 def run_dedispersion(torch, dev, smi):

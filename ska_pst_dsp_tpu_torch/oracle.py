@@ -1,14 +1,18 @@
 """NumPy golden oracle for the PFB round trip.
 
-The port's copy of the analysis and synthesis functions of
-:mod:`ska_pst_dsp_tpu.oracle`: loop-faithful NumPy renditions of the
-reference Matlab math, float64 by default, that the port's chain is held to
-on the card (``chip_smoke.py``). They favour clarity over speed: per-block
-Python loops.
+The port's copy of :mod:`ska_pst_dsp_tpu.oracle`: loop-faithful NumPy
+renditions of the reference Matlab math, float64 by default, that the
+port's chain is held to on the card (``chip_smoke.py``). It holds the
+critically sampled and zero-padded analyses, the LowCBF firmware filterbank
+(:func:`pst_filterbank` and its wrapper :func:`polyphase_analysis_lowcbf`)
+and the synthesis. They favour clarity over speed: per-block Python loops.
+The LowCBF model shares no code with :mod:`.ops.lowcbf`, the kernel route
+it is the reference for.
 
 Math sources in the reference (cited for parity checking, not copied):
 polyphase_analysis.m:56-120, polyphase_analysis_padded.m:61-156,
-polyphase_synthesis.m:112-316.
+polyphase_synthesis.m:112-316, PSTFilterbank.m:7-45,
+polyphase_analysis_lowcbf.m:16-48.
 """
 
 from __future__ import annotations
@@ -113,6 +117,58 @@ def polyphase_analysis_padded(
             bri = (bri + 1) % os_factor.nu
     out = np.roll(out, -delay, axis=2)
     return out.astype(dtype)
+
+
+def pst_filterbank(
+    din: np.ndarray, fir_taps: np.ndarray, do_padding: bool
+) -> np.ndarray:
+    """LowCBF firmware filterbank model (PSTFilterbank.m:7-45): 3072-tap /
+    256-channel / 12-tap FIR with hop 192, fftshifted forward FFT scaled by
+    1/128, per-sample pi/2 phase de-rotation, channels 20..235 kept (216).
+
+    din: (n_dat,) complex. Returns (216, n_out) complex128 with
+    n_out = (n_dat + padding - 3072) // 192 (the last full window is not
+    emitted) and padding = 1536 zeros when ``do_padding``; a stream shorter
+    than one window less the padding raises ValueError."""
+    nfilt, block, step = 3072, 256, 192
+    padding = 1536 if do_padding else 0
+    dinp = np.concatenate([np.zeros(padding, dtype=din.dtype), din])
+    n_out = (dinp.size - nfilt) // step
+
+    taps2d = fir_taps.reshape(12, block)  # taps2d[t, n1] = FIR[n1 + 256 t]
+    out = np.zeros((216, n_out), dtype=np.complex128)
+    quarter = np.array([1, 1j, -1, -1j])  # exp(2*pi*i*k/4), exact
+    bins = np.arange(-128, 128)
+    for s in range(n_out):
+        seg = dinp[s * step: s * step + nfilt].reshape(12, block)
+        fft_in = (taps2d * seg).sum(axis=0) / 2.0**9
+        d1 = np.fft.fftshift(np.fft.fft(fft_in)) / 128.0
+        rot = quarter[(s * (-bins)) % 4]
+        out[:, s] = (d1 * rot)[20:236]
+    return out
+
+
+def polyphase_analysis_lowcbf(
+    in_pft: np.ndarray,
+    filt: np.ndarray,
+    block: int,
+    os_factor: Rational,
+    first_call: bool = True,
+) -> np.ndarray:
+    """LowCBF wrapper (polyphase_analysis_lowcbf.m:16-48): PSTFilterbank per
+    polarization, rescaled by 2^9*2048*256, zero-padded 1536 samples on the
+    first call only (streaming state made explicit via ``first_call``).
+
+    in_pft: (n_pol, 1, n_dat) complex. Returns (n_pol, 216, n_out) in
+    in_pft's dtype: feed complex128 for an fp64 reference. ``block`` and
+    ``os_factor`` are accepted for the analysis functions' common signature;
+    the firmware geometry is fixed."""
+    scale = 2.0**9 * 2048 * 256
+    n_pol = in_pft.shape[0]
+    outs = []
+    for ip in range(n_pol):
+        outs.append(pst_filterbank(in_pft[ip, 0], filt, first_call) * scale)
+    return np.stack(outs, axis=0).astype(in_pft.dtype)
 
 
 def polyphase_synthesis(

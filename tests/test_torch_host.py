@@ -7,7 +7,9 @@ deripple vectors and windows bit for bit, geometry and configs equal, the
 fp64 oracle within 1e-12 * scale, DADA files readable both ways and written
 byte for byte alike, spurious-power scores equal. An AST scan of every
 module of the port and of ``chip_smoke.py`` finds no import of the JAX
-package.
+package, and another finds, for every public top-level name of every module
+of the JAX package, its counterpart in the port's module of the same path,
+but for the names in ``NOT_PORTED``.
 """
 
 import ast
@@ -39,6 +41,34 @@ PORT_FILES = sorted(
     for p in [*(REPO / "ska_pst_dsp_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
     if "_build" not in p.parts
 )
+JAX = REPO / "ska_pst_dsp_tpu"
+PORT = REPO / "ska_pst_dsp_tpu_torch"
+JAX_FILES = sorted(str(p.relative_to(JAX)) for p in JAX.rglob("*.py"))
+#: public names of the JAX package with no counterpart in the port, each
+#: with its reason (ROADMAP.md, "Not to port"); "*" is every name of the
+#: module, or the name in every module
+_KARATSUBA = ("the TPU's real-matmul DFT (split-bf16 Karatsuba); the card has "
+              "complex64 FFTs")
+_COMPLEX = "the TPU path avoided complex dtypes; torch has complex64"
+NOT_PORTED = {
+    ("io/native.py", "*"): "the split-float DADA reader: " + _COMPLEX,
+    ("io/dada.py", "load_split"): "io/native.py's split read: " + _COMPLEX,
+    ("ops/cfft.py", "BASE"): _KARATSUBA,
+    ("ops/cfft.py", "MODE"): "the SKA_PST_FFT_MODE switch of " + _KARATSUBA,
+    ("ops/cfft.py", "kar_dot"): _KARATSUBA,
+    ("ops/cfft.py", "karatsuba_consts"): _KARATSUBA,
+    ("ops/cfft.py", "kernel_dot"): _KARATSUBA,
+    ("ops/cfft.py", "split_bf16"): _KARATSUBA,
+    ("*", "Array"): "a type alias",
+    ("*", "Pair"): "a type alias",
+}
+#: names of a Pallas kernel's tiling plan whose counterpart in the CUDA
+#: kernel's module goes by another name
+RENAMED = {
+    ("ops/pallas/analysis_padded_fused.py", "phases_of"): "plan",
+    ("ops/pallas/chan_dft_fused.py", "KB"): "POINTS",
+    ("ops/pallas/chan_dft_fused.py", "plan_chan_dft"): "kernel_split",
+}
 ORACLE_TOL = 1e-12
 LOW, MID = (256, Rational(4, 3)), (4096, Rational(8, 7))
 
@@ -70,6 +100,82 @@ def test_scan_sees_an_import(tmp_path):
                    "from ska_pst_dsp_tpu_torch.utils import geometry\n")
     assert _jax_package_imports(src) == ["ska_pst_dsp_tpu.ops", "ska_pst_dsp_tpu"]
     assert "chip_smoke.py" in PORT_FILES and len(PORT_FILES) > 20
+
+
+def _public_names(path: Path):
+    """Public names a module defines at its top level (defs, classes and
+    assignments), read with ast."""
+    found = set()
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            found.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            found |= {n.id for t in targets for n in ast.walk(t) if isinstance(n, ast.Name)}
+    return {n for n in found if not n.startswith("_")}
+
+
+def _port_path(rel: str, port: Path = PORT) -> Path:
+    """The port's module of a JAX module's path: ops/pallas/<name>.py is
+    ops/kernels/<name>.py."""
+    return port / rel.replace("ops/pallas/", "ops/kernels/", 1)
+
+
+def _not_ported(rel: str, name: str) -> bool:
+    return any(key in NOT_PORTED for key in ((rel, name), (rel, "*"), ("*", name)))
+
+
+def _missing(rel: str, port: Path = PORT):
+    """Public names of the JAX module ``rel`` with no counterpart in the
+    port's module of the same path and not in NOT_PORTED."""
+    theirs = _public_names(JAX / rel)
+    target = _port_path(rel, port)
+    ours = _public_names(target) if target.exists() else set()
+    return sorted(n for n in theirs
+                  if RENAMED.get((rel, n), n) not in ours and not _not_ported(rel, n))
+
+
+@pytest.mark.parametrize("rel", JAX_FILES)
+def test_every_jax_name_has_a_counterpart(rel):
+    assert _missing(rel) == []
+
+
+def test_not_ported_table_is_exact():
+    # every exception names a module and a name of the JAX package that the
+    # port lacks: none is stale, and nothing the port has hides behind one
+    for (rel, name), reason in NOT_PORTED.items():
+        assert reason
+        rels = JAX_FILES if rel == "*" else [rel]
+        hits = [r for r in rels
+                if name == "*" or name in _public_names(JAX / r)]
+        assert hits, (rel, name)
+        for r in hits:
+            target = _port_path(r)
+            assert not target.exists() if name == "*" else name not in _public_names(target)
+    for (rel, name), ours in RENAMED.items():
+        assert name in _public_names(JAX / rel) and name not in _public_names(_port_path(rel))
+        assert ours in _public_names(_port_path(rel))
+    assert not any(name in ("pst_filterbank", "polyphase_analysis_lowcbf")
+                   for _, name in NOT_PORTED)
+
+
+def test_scan_sees_a_deleted_name(tmp_path):
+    # a copy of the port with a def, an assignment and a whole module taken
+    # away: the scan reports each, and nothing the exceptions cover
+    port = tmp_path / "port"
+    for rel in ("oracle.py", "ops/lowcbf.py", "ops/cfft.py"):
+        (port / rel).parent.mkdir(parents=True, exist_ok=True)
+        (port / rel).write_text((PORT / rel).read_text())
+    src = (port / "oracle.py").read_text()
+    (port / "oracle.py").write_text(src.replace("def pst_filterbank(", "def _gone("))
+    src = (port / "ops/lowcbf.py").read_text()
+    (port / "ops/lowcbf.py").write_text(src.replace("\nSTEP = 192", "\n_STEP = 192"))
+    assert _missing("oracle.py", port=port) == ["pst_filterbank"]
+    assert _missing("ops/lowcbf.py", port=port) == ["STEP"]
+    assert _missing("ops/cfft.py", port=port) == []
+    assert "chan_dft_ramp" in _missing("ops/pallas/chan_dft_fused.py", port=port)
+    assert _missing("ops/pallas/chan_dft_fused.py") == []
+    assert len(JAX_FILES) > 50 and "oracle.py" in JAX_FILES
 
 
 class TestDesign:

@@ -6,6 +6,9 @@ quarter-turn table in place of the derotation ramp; on a CPU tensor that is
 the kernel's plain version (``analysis_core``) plus the kept-bin gather,
 held here to the JAX function and the fp64 oracle at 2e-6 * scale
 (tests/test_analysis.py:36) and to a direct transcription of the JAX core.
+The port's own LowCBF oracle (``oracle.pst_filterbank`` and
+``oracle.polyphase_analysis_lowcbf``) is held to the JAX oracle within
+1e-12 * scale, and the CPU route to it at 2e-6.
 The heap reshape and the DADA files are held to JAX's byte for byte; the
 chirp phase bit for bit, ``dedisperse`` at 2e-5, and the inversion
 commutes with dedispersion as in tests/test_verify.py:168-198.
@@ -22,6 +25,7 @@ from ska_pst_dsp_tpu.ops import dedispersion as jax_dd
 from ska_pst_dsp_tpu.ops import lowcbf as jax_lowcbf
 from ska_pst_dsp_tpu.ops import polyphase_synthesis as jax_synthesis
 from ska_pst_dsp_tpu.utils.rational import Rational as JaxRational
+from ska_pst_dsp_tpu_torch import oracle
 from ska_pst_dsp_tpu_torch.design import fir
 from ska_pst_dsp_tpu_torch.io import dada
 from ska_pst_dsp_tpu_torch.io import lowcbf as io_lowcbf
@@ -37,6 +41,7 @@ from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 REL_TOL = 2e-6     # tests/test_analysis.py:36
 SYNTHESIS_TOL = 1.2e-5
+ORACLE_TOL = 1e-12  # the port's oracle against the JAX one (test_torch_host.py)
 
 
 def _noise(shape, seed):
@@ -48,6 +53,17 @@ def _rel_err(got, ref):
     got, ref = np.asarray(got), np.asarray(ref)
     assert got.shape == ref.shape
     return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+def _taps(seed):
+    return np.random.default_rng(seed).standard_normal(3072)
+
+
+def _raised(fn, *args, **kwargs):
+    """The type of the exception fn raises; the test fails if it raises none."""
+    with pytest.raises(Exception) as info:
+        fn(*args, **kwargs)
+    return info.type
 
 
 class TestAnalysis:
@@ -97,6 +113,61 @@ class TestAnalysis:
         re, im = lowcbf.polyphase_analysis_lowcbf(
             (torch.as_tensor(x.real), torch.as_tensor(x.imag)), taps, first_call=False)
         assert torch.equal(torch.complex(re, im), out)
+
+
+class TestOracle:
+    @pytest.mark.parametrize("do_padding,n_dat", [(True, 4001), (False, 5003)])
+    def test_pst_filterbank_matches_jax(self, do_padding, n_dat):
+        din = _noise((n_dat,), 20).astype(np.complex128)
+        got = oracle.pst_filterbank(din, _taps(21), do_padding)
+        ref = jax_oracle.pst_filterbank(din, _taps(21), do_padding)
+        assert got.shape == ref.shape == (216, (n_dat + 1536 * do_padding - 3072) // 192)
+        assert got.dtype == ref.dtype == np.complex128
+        assert _rel_err(got, ref) <= ORACLE_TOL
+
+    # 1919 + 1536 and 3265 samples give exactly one spectrum: the last full
+    # window is never emitted (no +1 in the count)
+    @pytest.mark.parametrize("first_call,n_pol,n_dat", [(True, 2, 9001), (False, 1, 7777),
+                                                         (True, 1, 1919), (False, 2, 3265)])
+    def test_analysis_lowcbf_matches_jax(self, first_call, n_pol, n_dat):
+        x = _noise((n_pol, 1, n_dat), 22).astype(np.complex128)
+        got = oracle.polyphase_analysis_lowcbf(x, _taps(23), 256, Rational(4, 3),
+                                               first_call=first_call)
+        ref = jax_oracle.polyphase_analysis_lowcbf(x, _taps(23), 256, JaxRational(4, 3),
+                                                   first_call=first_call)
+        n_out = (n_dat + 1536 * first_call - 3072) // 192
+        assert got.shape == ref.shape == (n_pol, 216, n_out) and n_out >= 1
+        assert got.dtype == ref.dtype == np.complex128
+        assert _rel_err(got, ref) <= ORACLE_TOL
+
+    def test_dtype_follows_the_input(self):
+        x = _noise((1, 1, 4000), 24)
+        got = oracle.polyphase_analysis_lowcbf(x, _taps(25), 256, Rational(4, 3))
+        assert got.dtype == np.complex64 == jax_oracle.polyphase_analysis_lowcbf(
+            x, _taps(25), 256, JaxRational(4, 3)).dtype
+
+    @pytest.mark.parametrize("first_call,n_dat", [(True, 1000), (False, 3000)])
+    def test_short_input_raises_as_jax(self, first_call, n_dat):
+        # shorter than one window less the padding: a negative spectrum
+        # count, which both oracles refuse in np.zeros
+        x = _noise((1, 1, n_dat), 26).astype(np.complex128)
+        kinds = {_raised(mod.polyphase_analysis_lowcbf, x, _taps(27), 256, None,
+                         first_call=first_call) for mod in (oracle, jax_oracle)}
+        kinds |= {_raised(mod.pst_filterbank, x[0, 0], _taps(27), first_call)
+                  for mod in (oracle, jax_oracle)}
+        assert kinds == {ValueError}
+
+    @pytest.mark.parametrize("first_call,n_dat", [(True, 10_001), (False, 8_191)])
+    def test_route_matches_port_oracle(self, first_call, n_dat):
+        # the CPU route (the kernel's plain version) against the port's own
+        # fp64 oracle, as the card's route is held in chip_smoke.py
+        taps = _taps(28)
+        x = _noise((2, 1, n_dat), 29)
+        got = lowcbf.polyphase_analysis_lowcbf(x, taps, first_call=first_call).numpy()
+        ref = oracle.polyphase_analysis_lowcbf(x.astype(np.complex128), taps, 256,
+                                               Rational(4, 3), first_call=first_call)
+        assert ref.dtype == np.complex128
+        assert _rel_err(got, ref) < REL_TOL
 
 
 class TestHeaps:
