@@ -55,6 +55,14 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    f. timing: the mid kernel chain and plain chain, as in phase 8.
 8. timing: the low kernel chain and the plain chain (CUDA events, warm-up,
    median of repetitions), in Msamples/s with the card's name and limit.
+   b. bench: ``python -m ska_pst_dsp_tpu_torch.bench``'s ``main()`` in a
+      process of its own with ``jax`` unimportable, at bench.py's sizes:
+      its one JSON line parsed and checked (the schema; low and mid
+      Msamples/s, each 0 < pct_sol <= 100 against the card's own peaks; the
+      round trip's kernels launched once a call, no epilogue composed; low
+      within 3e-6 of the fp64 oracle, mid within 1e-6 max and 2e-7 mean;
+      the card nvidia-smi names; the low median ms a call back to back not
+      above 1.1 x phase 8's one-call median) and logged.
 9. streaming: ``FilterBank`` then ``InverseFilterBank`` over blocks of
    1,000,000 samples, low (2 x 2^23) and mid (2 x 4,587,520), with the
    plain versions and ``torch.fft`` patched to raise: every expected launch
@@ -155,9 +163,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     of each exchange, the error against its gate, beside the card's name
     and power limit.
 
-The line before the last is a JSON object with one entry per kernel (one
-per pallas_call of the JAX package); the last line is
-``{"ok": true, "device": {...}}``.
+Every bound is taken against the card's peaks from the bench's table
+(``bench.PEAKS``, by ``torch.cuda.get_device_name``). The line before the
+last is a JSON object with one entry per kernel (one per pallas_call of the
+JAX package); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -190,10 +199,12 @@ REPS = 10
 PALLAS = "ska_pst_dsp_tpu/ops/pallas/"
 #: registers and spills of each source's kernels, from the build
 RESOURCES = {}
-#: H100 SXM peaks the bounds are taken against (NVIDIA's data sheet, 700 W):
-#: HBM bytes/s and fp32 flop/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
+#: the bench phase's command: the port's bench with JAX unimportable
+BENCH_CMD = ("import sys; sys.modules['jax'] = None; "
+             "from ska_pst_dsp_tpu_torch import bench; bench.main()")
+#: the bench's low ms per call may exceed phase 8's one-call median by this
+#: factor at most: back to back it hides the host's work
+BENCH_VS_ONE_CALL = 1.1
 
 
 def log(phase: str, msg: str) -> None:
@@ -285,11 +296,23 @@ def fft_flops(n: int, count: int) -> float:
     return 5.0 * n * math.log2(n) * count
 
 
+@functools.lru_cache(maxsize=None)
+def card_peaks():
+    """(HBM bytes/s, fp32 flop/s outside the tensor cores) of the card, from
+    the bench's table (``bench.PEAKS``); a card not in it raises."""
+    import torch
+    from ska_pst_dsp_tpu_torch.bench import peaks
+
+    return peaks(torch.cuda.get_device_name(0))
+
+
 def bound(n_bytes: int, flops: float):
     """(ms, "bytes" or "operations"): the least time the card could take for
     work that moves n_bytes (each input read once, each output written once)
-    and does ``flops`` fp32 operations, the larger of the two times."""
-    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    and does ``flops`` fp32 operations at the card's peaks, the larger of
+    the two times."""
+    hbm, fp32 = card_peaks()
+    tb, to = n_bytes / hbm * 1e3, flops / fp32 * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -304,17 +327,9 @@ def compare(name, err, tol, ms, plain_ms, bnd=None, library_ms=None):
 
 def wrappers():
     """Every kernel wrapper, by the name of its kernels-line entry."""
-    from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import analysis_fused
-    from ska_pst_dsp_tpu_torch.ops.kernels.analysis_padded_fused import padded_fold_fused
-    from ska_pst_dsp_tpu_torch.ops.kernels.chan_dft_fused import chan_dft_ramp
-    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import ifft_big_inner, ifft_big_outer
-    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import fused_big_ifft
-    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import synthesis_fused
+    from ska_pst_dsp_tpu_torch.ops import kernels
 
-    return {"analysis_fused": analysis_fused, "synthesis_fused": synthesis_fused,
-            "ifft_fused": fused_big_ifft, "analysis_padded_fused": padded_fold_fused,
-            "chan_dft_fused": chan_dft_ramp, "ifft_big_inner": ifft_big_inner,
-            "ifft_big_outer": ifft_big_outer}
+    return kernels.wrappers()
 
 
 def counted_forward(torch, model, x):
@@ -466,7 +481,7 @@ def main() -> int:
               "runs only on a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from ska_pst_dsp_tpu_torch import oracle
+    from ska_pst_dsp_tpu_torch import bench
     from ska_pst_dsp_tpu_torch.io import dada
     from ska_pst_dsp_tpu_torch.utils import geometry, windows
     from ska_pst_dsp_tpu_torch.utils.config import load_config
@@ -626,15 +641,7 @@ def main() -> int:
 
     filt = model_filter()
     xp = x[:, :PREFIX]
-    got = model(xp).cpu().numpy().astype(np.complex128)
-    ch = oracle.polyphase_analysis(xp.cpu().numpy()[:, None, :].astype(np.complex128),
-                                   filt, N_CHAN, OS_FACTOR)
-    ref = oracle.polyphase_synthesis(
-        ch, L, OS_FACTOR, input_overlap=OVERLAP, deripple_coeff=filt,
-        temporal_taper=windows.tukey_window(L, OVERLAP).astype(np.float64),
-    )
-    check(got.shape == ref.shape, f"oracle shapes {got.shape} vs {ref.shape}")
-    oerr = float(np.abs(got - ref).max() / np.abs(ref).max())
+    oerr = bench.low_oracle_error(model, filt, x, PREFIX)
     check(oerr <= ORACLE_TOL, f"kernel chain vs fp64 oracle {oerr:.3g}")
     log("slice", f"2^19-sample prefix vs fp64 oracle: max|err|/scale {oerr:.3g} "
         f"(tol {ORACLE_TOL})")
@@ -697,6 +704,10 @@ def main() -> int:
     # 8. timing: kernel chain vs plain chain, interleaved
     low_ms = chain_timing(torch, model, x, "timing", "2 x 2^23 samples", smi)
     del model, x, xp
+    torch.cuda.empty_cache()
+
+    # 8b. the port's bench in a process of its own, JAX unimportable
+    run_bench(smi, low_ms)
 
     # 9-12. streaming, the two-stage cascades, dedispersion
     run_streaming(torch, dev, smi, {"low": low_ms, "mid": mid_ms})
@@ -744,10 +755,60 @@ def chain_timing(torch, model, x, phase, what, smi):
     return min(ms for ms, _ in msps["kernels"])
 
 
+def run_bench(smi, low_ms):
+    """Phase 8b: ``bench.main()`` in a subprocess with ``jax`` unimportable
+    (the build is cached by now); its last line checked: the schema, each
+    leg's share of its speed of light in (0, 100], the kernels launched
+    once a call and no epilogue composed, the errors against the fp64
+    oracle, the card it names, and the low ms per call back to back not
+    above phase 8's one-call median x BENCH_VS_ONE_CALL. Logged beside the
+    card's name and power limit."""
+    from ska_pst_dsp_tpu_torch.bench import check_launches
+
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", BENCH_CMD], capture_output=True, text=True,
+                         timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(run.returncode == 0, f"bench exited {run.returncode}: {run.stderr[-3000:]}")
+    line = run.stdout.strip().splitlines()[-1]
+    log("bench", line)
+    out = json.loads(line)
+    check(out["metric"] == "low_roundtrip_throughput" and out["fft_precision"] == "fp32"
+          and out["unit"] == out["mid"]["unit"] == "Msamples/s/chip"
+          and out["vs_baseline"] > 0 and out["baseline"]["msamples_per_s"] > 0,
+          f"bench schema: {sorted(out)}")
+    name, limit = (s.strip() for s in smi.rsplit(",", 1))
+    check(out["device"] == {"name": name, "power_limit_w": float(limit.split()[0])},
+          f"bench device {out['device']} vs nvidia-smi {smi}")
+    for leg, r in (("low", out), ("mid", out["mid"])):
+        roof, ms = r["roofline"], r["ms_per_call"]
+        check(r["value"] > 0 and 0 < roof["pct_sol"] <= 100
+              and roof["sol_msps"] == min(roof["sol_mem_msps"], roof["sol_fp32_msps"]),
+              f"bench {leg}: {r['value']} Msamples/s, roofline {roof}")
+        check(ms["min"] <= ms["median"] <= ms["max"], f"bench {leg}: ms per call {ms}")
+        check(set(r["launches_per_call"]) == {*wrappers(), "composed_epilogues"},
+              f"bench {leg}: launches per call {r['launches_per_call']}")
+        check_launches(leg, r["launches_per_call"])
+    check(out["max_err_vs_oracle"] <= ORACLE_TOL, f"bench low vs oracle {out['max_err_vs_oracle']}")
+    err = out["mid"]["max_err_vs_oracle"]
+    check(err["max"] <= MID_ORACLE_MAX and err["mean"] <= MID_ORACLE_MEAN,
+          f"bench mid vs oracle {err}")
+    low = out["ms_per_call"]["median"]
+    check(low <= low_ms * BENCH_VS_ONE_CALL,
+          f"bench low {low:.4f} ms a call back to back > {BENCH_VS_ONE_CALL} x phase 8's "
+          f"one-call {low_ms:.4f} ms")
+    log("bench", f"low {out['value']} Msamples/s ({low:.4f} ms a call, phase 8 one call "
+        f"{low_ms:.4f} ms), {out['roofline']['pct_sol']} % of {out['roofline']['sol_msps']}; "
+        f"mid {out['mid']['value']} Msamples/s ({out['mid']['ms_per_call']['median']:.4f} ms), "
+        f"{out['mid']['roofline']['pct_sol']} % of {out['mid']['roofline']['sol_msps']}; "
+        f"vs_baseline {out['vs_baseline']}; errors vs oracle low {out['max_err_vs_oracle']:.3g}, "
+        f"mid max {err['max']:.3g} mean {err['mean']:.3g}; "
+        f"{time.perf_counter() - t0:.1f} s with JAX unimportable ({smi})")
+
+
 def run_mid(torch, dev, smi):
     """Phase 7: the SKA-Mid slice. Returns the JSON entries of its four new
     kernels and the frontend's mid numbers."""
-    from ska_pst_dsp_tpu_torch import oracle
+    from ska_pst_dsp_tpu_torch import bench
     from ska_pst_dsp_tpu_torch.utils import windows
     from ska_pst_dsp_tpu_torch.utils.config import load_config
     from ska_pst_dsp_tpu_torch.entry import mid_round_trip
@@ -920,22 +981,11 @@ def run_mid(torch, dev, smi):
     # c. one inversion block against the fp64 oracle (test_mid_production.py:114-145)
     filt = load_config("mid").load_fir_filter_coeff()
     nfine = 2 * ov + g.input_keep
-    rng = np.random.default_rng(7)
-    xo = (rng.standard_normal(nfine * step)
-          + 1j * rng.standard_normal(nfine * step)).astype(np.complex64)[None, None]
-    got = model(torch.as_tensor(xo[:, 0], device=dev)).cpu().numpy()[0, 0]
-    ch = oracle.polyphase_analysis_padded(xo.astype(np.complex128), filt, model.n_chan,
-                                          model.os_factor)
-    ref = oracle.polyphase_synthesis(
-        ch, L, model.os_factor, input_overlap=ov, deripple_coeff=filt,
-        temporal_taper=windows.tukey_window(L, ov).astype(np.float64),
-    )[0, 0]
-    check(got.shape == ref.shape, f"mid oracle shapes {got.shape} vs {ref.shape}")
-    d = np.abs(got.astype(np.complex128) - ref) / np.abs(ref).max()
-    check(d.max() <= MID_ORACLE_MAX and d.mean() <= MID_ORACLE_MEAN,
-          f"mid kernel chain vs fp64 oracle: max {d.max():.3g}, mean {d.mean():.3g}")
+    d_max, d_mean = bench.mid_oracle_error(model, filt, seed=7)
+    check(d_max <= MID_ORACLE_MAX and d_mean <= MID_ORACLE_MEAN,
+          f"mid kernel chain vs fp64 oracle: max {d_max:.3g}, mean {d_mean:.3g}")
     log("mid-oracle", f"one block ({nfine * step} samples) vs fp64 oracle: max|err|/scale "
-        f"{d.max():.3g} (tol {MID_ORACLE_MAX}), mean {d.mean():.3g} (tol {MID_ORACLE_MEAN})")
+        f"{d_max:.3g} (tol {MID_ORACLE_MAX}), mean {d_mean:.3g} (tol {MID_ORACLE_MEAN})")
 
     # d. purity through the kernels (test_mid_production.py:66-112)
     freq = 4288 / 2 ** 19  # channel 33.5 of 4096: an exact bin of a 2^19 FFT

@@ -29,7 +29,7 @@ that every kernel with a DFT runs on.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,22 @@ SMEM_LIMIT = 232_448
 #: csrc/ifft_big.cu's radix-r step takes all three, analysis_fused's and
 #: chan_dft_fused's are instantiated for r in {1, 3}
 RADICES = (1, 3, 7)
+
+
+def wrappers() -> Dict[str, Callable]:
+    """The seven kernels' wrappers, each by the name of the Pallas kernel it
+    replaces, every one with its ``launches`` counter."""
+    from .analysis_fused import analysis_fused
+    from .analysis_padded_fused import padded_fold_fused
+    from .chan_dft_fused import chan_dft_ramp
+    from .ifft_big import ifft_big_inner, ifft_big_outer
+    from .ifft_fused import fused_big_ifft
+    from .synthesis_fused import synthesis_fused
+
+    return {"analysis_fused": analysis_fused, "synthesis_fused": synthesis_fused,
+            "ifft_fused": fused_big_ifft, "analysis_padded_fused": padded_fold_fused,
+            "chan_dft_fused": chan_dft_ramp, "ifft_big_inner": ifft_big_inner,
+            "ifft_big_outer": ifft_big_outer}
 
 
 def radix(n: int) -> Tuple[int, int, int]:

@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ska_pst_dsp_tpu_torch.utils import geometry
+from ska_pst_dsp_tpu_torch.utils.profiling import clock
 from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from ..io import dada
@@ -190,45 +191,12 @@ class Call:
     runs: int = 1
 
 
-def _wrappers():
-    """The seven kernels' wrappers by their names, and the inversion whose
-    ``composed_epilogues`` counts the epilogues no kernel takes."""
-    from ..ops.kernels.analysis_fused import analysis_fused
-    from ..ops.kernels.analysis_padded_fused import padded_fold_fused
-    from ..ops.kernels.chan_dft_fused import chan_dft_ramp
-    from ..ops.kernels.ifft_big import ifft_big_inner, ifft_big_outer
-    from ..ops.kernels.ifft_fused import fused_big_ifft
-    from ..ops.kernels.synthesis_fused import fused_inversion, synthesis_fused
-
-    return {"analysis_fused": analysis_fused, "synthesis_fused": synthesis_fused,
-            "ifft_fused": fused_big_ifft, "analysis_padded_fused": padded_fold_fused,
-            "chan_dft_fused": chan_dft_ramp, "ifft_big_inner": ifft_big_inner,
-            "ifft_big_outer": ifft_big_outer}, fused_inversion
-
-
 def _to_cpu(obj):
     if isinstance(obj, torch.Tensor):
         return obj.cpu()
     if isinstance(obj, (tuple, list)):
         return type(obj)(_to_cpu(o) for o in obj)
     return obj
-
-
-def _clock(device: torch.device):
-    """A stopwatch for work on ``device``: CUDA events on a card, the host
-    clock on the CPU. Call it to start; call what it returns to stop and
-    read ms (after a synchronize)."""
-    if device.type == "cuda":
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-
-        def stop():
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end)
-        return stop
-    t0 = time.perf_counter()
-    return lambda: (time.perf_counter() - t0) * 1e3
 
 
 def run_calls(mesh: Mesh, calls: Sequence[Call],
@@ -241,7 +209,10 @@ def run_calls(mesh: Mesh, calls: Sequence[Call],
     "composed_epilogues": n, "exchanges": Mesh.stats(), "ms": [per run],
     "exchange_ms", "compute_ms"}`` (compute = the last run less its
     exchanges)."""
-    wrappers, inversion = _wrappers()
+    from ..ops.kernels import wrappers as kernel_wrappers
+    from ..ops.kernels.synthesis_fused import fused_inversion as inversion
+
+    wrappers = kernel_wrappers()
     meshes = {None: mesh}
     results = []
     for call in calls:
@@ -261,7 +232,7 @@ def run_calls(mesh: Mesh, calls: Sequence[Call],
             with guard() if guard is not None else contextlib.nullcontext():
                 if m.device.type == "cuda":
                     torch.cuda.synchronize(m.device)
-                stop = _clock(m.device)
+                stop = clock(m.device)
                 out = call.fn(*args, mesh=m, **kwargs)
                 times.append(stop())
         stats = m.stats()

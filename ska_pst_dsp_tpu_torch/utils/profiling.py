@@ -12,7 +12,9 @@ reference sprinkles tic/toc prints through every kernel and driver
 * :func:`trace` — context manager around ``torch.profiler`` writing a
   Chrome trace into a directory when profiling is requested
   (``SKA_PST_TRACE_DIR`` or an explicit path), and a no-op otherwise, so
-  drivers can leave it permanently in place.
+  drivers can leave it permanently in place;
+* :func:`clock` — a stopwatch for the work on a device: CUDA events on a
+  card, the host clock on the CPU.
 """
 
 from __future__ import annotations
@@ -21,11 +23,28 @@ import contextlib
 import logging
 import os
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 module_logger = logging.getLogger(__name__)
+
+
+def clock(device: torch.device) -> Callable[[], float]:
+    """A stopwatch for work on ``device``: CUDA events on a card, the host
+    clock on the CPU. Call it to start; call what it returns to stop and
+    read ms (it waits for the card's work)."""
+    if device.type == "cuda":
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+
+        def stop():
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end)
+        return stop
+    t0 = time.perf_counter()
+    return lambda: (time.perf_counter() - t0) * 1e3
 
 
 class StageTimer:

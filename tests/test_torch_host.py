@@ -8,8 +8,8 @@ fp64 oracle within 1e-12 * scale, DADA files readable both ways and written
 byte for byte alike, spurious-power scores equal. An AST scan of every
 module of the port and of ``chip_smoke.py`` finds no import of the JAX
 package, and another finds, for every public top-level name of every module
-of the JAX package, its counterpart in the port's module of the same path,
-but for the names in ``NOT_PORTED``.
+of the JAX package (and of the repository's ``bench.py``), its counterpart
+in the port's module of the same path, but for the names in ``NOT_PORTED``.
 """
 
 import ast
@@ -44,12 +44,17 @@ PORT_FILES = sorted(
 JAX = REPO / "ska_pst_dsp_tpu"
 PORT = REPO / "ska_pst_dsp_tpu_torch"
 JAX_FILES = sorted(str(p.relative_to(JAX)) for p in JAX.rglob("*.py"))
+#: modules of the JAX system outside its package, by their path in the
+#: repository, and their counterparts' paths in the port
+OUTSIDE = {"bench.py": "bench.py"}
+SCANNED = JAX_FILES + sorted(OUTSIDE)
 #: public names of the JAX package with no counterpart in the port, each
 #: with its reason (ROADMAP.md, "Not to port"); "*" is every name of the
 #: module, or the name in every module
 _KARATSUBA = ("the TPU's real-matmul DFT (split-bf16 Karatsuba); the card has "
               "complex64 FFTs")
 _COMPLEX = "the TPU path avoided complex dtypes; torch has complex64"
+_V5E = "the v5e's peaks; the port keys its peaks on the card"
 NOT_PORTED = {
     ("io/native.py", "*"): "the split-float DADA reader: " + _COMPLEX,
     ("io/dada.py", "load_split"): "io/native.py's split read: " + _COMPLEX,
@@ -59,6 +64,8 @@ NOT_PORTED = {
     ("ops/cfft.py", "karatsuba_consts"): _KARATSUBA,
     ("ops/cfft.py", "kernel_dot"): _KARATSUBA,
     ("ops/cfft.py", "split_bf16"): _KARATSUBA,
+    ("bench.py", "V5E_BF16_TFLOPS"): _V5E,
+    ("bench.py", "V5E_HBM_GBS"): _V5E,
     ("*", "Array"): "a type alias",
     ("*", "Pair"): "a type alias",
 }
@@ -115,9 +122,16 @@ def _public_names(path: Path):
     return {n for n in found if not n.startswith("_")}
 
 
+def _jax_path(rel: str) -> Path:
+    """A scanned module: a path of the JAX package, or of OUTSIDE."""
+    return REPO / rel if rel in OUTSIDE else JAX / rel
+
+
 def _port_path(rel: str, port: Path = PORT) -> Path:
-    """The port's module of a JAX module's path: ops/pallas/<name>.py is
-    ops/kernels/<name>.py."""
+    """The port's module of a scanned module's path: ops/pallas/<name>.py is
+    ops/kernels/<name>.py; OUTSIDE maps the modules outside the package."""
+    if rel in OUTSIDE:
+        return port / OUTSIDE[rel]
     return port / rel.replace("ops/pallas/", "ops/kernels/", 1)
 
 
@@ -128,14 +142,14 @@ def _not_ported(rel: str, name: str) -> bool:
 def _missing(rel: str, port: Path = PORT):
     """Public names of the JAX module ``rel`` with no counterpart in the
     port's module of the same path and not in NOT_PORTED."""
-    theirs = _public_names(JAX / rel)
+    theirs = _public_names(_jax_path(rel))
     target = _port_path(rel, port)
     ours = _public_names(target) if target.exists() else set()
     return sorted(n for n in theirs
                   if RENAMED.get((rel, n), n) not in ours and not _not_ported(rel, n))
 
 
-@pytest.mark.parametrize("rel", JAX_FILES)
+@pytest.mark.parametrize("rel", SCANNED)
 def test_every_jax_name_has_a_counterpart(rel):
     assert _missing(rel) == []
 
@@ -145,9 +159,9 @@ def test_not_ported_table_is_exact():
     # port lacks: none is stale, and nothing the port has hides behind one
     for (rel, name), reason in NOT_PORTED.items():
         assert reason
-        rels = JAX_FILES if rel == "*" else [rel]
+        rels = SCANNED if rel == "*" else [rel]
         hits = [r for r in rels
-                if name == "*" or name in _public_names(JAX / r)]
+                if name == "*" or name in _public_names(_jax_path(r))]
         assert hits, (rel, name)
         for r in hits:
             target = _port_path(r)
@@ -175,7 +189,12 @@ def test_scan_sees_a_deleted_name(tmp_path):
     assert _missing("ops/cfft.py", port=port) == []
     assert "chan_dft_ramp" in _missing("ops/pallas/chan_dft_fused.py", port=port)
     assert _missing("ops/pallas/chan_dft_fused.py") == []
-    assert len(JAX_FILES) > 50 and "oracle.py" in JAX_FILES
+    # bench.py is scanned against the port's bench module; the v5e peaks
+    # are the exceptions
+    assert _missing("bench.py", port=port) == ["CONFIGS", "bench_low", "bench_mid",
+                                               "bench_oracle_cpu", "main"]
+    assert _missing("bench.py") == []
+    assert len(JAX_FILES) > 50 and "oracle.py" in JAX_FILES and "bench.py" in SCANNED
 
 
 class TestDesign:
