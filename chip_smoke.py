@@ -139,6 +139,30 @@ Phases (one line each; any failure raises and the exit code is non-zero):
        analysis.compare_dump_files on two of its files.
     Each run's seconds and its worst figure against its gate; reports go to
     a temporary directory.
+15b. ingest: the DADA ingest engine (io/native.py, io.dada.load_split:
+    a window's raw words read by threads into a reused pinned buffer,
+    copied to the card and unpacked there by csrc/dada_unpack.cu):
+    a. its three kernels (dada_unpack, lowcbf_unpack, dada_pack) bitwise
+       equal to their plain versions at NBIT 8, 16, 32 (and 64 for the TFP
+       read), NPOL 1 and 2, NCHAN 1 and 256, an odd count, on a view 333
+       samples into its buffer;
+    b. files of 2 pol x 2^23 samples at NBIT 8, 16, 32, a 256-channel
+       LowCBF file (NBIT 16, 2 x 2^23 complex samples) and a mid file
+       (NBIT 8, 2 x 4,587,520), written in a temporary directory;
+    c. the main path, launch counts set to 0 just before it, with the
+       plain versions and torch.fft patched to raise: the low file (NBIT
+       16) -> load_split -> the low round trip (kernels 1-3), the mid file
+       -> load_split -> the mid round trip (kernels 4, 5, 2, 6, 7), the
+       LowCBF file through load_split, append_split of 2 x 2^23 samples at
+       NBIT 16 x 2.5 and its load_split; every kernel of the path launched;
+    d. each round trip bitwise equal to the chain on the numpy-loaded
+       stream (io.dada.load), the LowCBF read equal to the numpy read, the
+       write read back as exactly the quantised stream and its words equal
+       to the plain pack;
+    e. for each file: the numpy dada.load + to(card) ms and load_split's
+       (host clock, median of 3 / 5), and its steps: the threaded read to
+       pinned memory (host clock), the pinned H2D (CUDA events; GB/s), the
+       unpack and its plain version (CUDA events) beside its bound.
 16. parallel: the sharded pipelines (parallel/) on ranks spawned by
     parallel.distributed.spawn, after the parent has built the kernels:
     NCCL where every rank has a card of its own, else gloo with the ranks
@@ -151,8 +175,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     scale of the one-shot kernel chain; at world 4 also low x low critical
     combine 16 (2 x 16,776,192: 2^23 gives no combine-16 inversion block)
     and sps -> lowpsi (2 x 8,377,344) within 1e-4 relative of the one-shot
-    two-stage models, and sharded_file_round_trip on a low DADA file within
-    1e-6 * scale of the one-shot chain. Each gathered output holds exactly
+    two-stage models, and sharded_file_round_trip on a low DADA file (each
+    rank's window through the ingest engine, dada_unpack) within 1e-6 *
+    scale of the one-shot chain. Each gathered output holds exactly
     the samples its geometry gives (parallel_length), every one compared.
     Every rank launched exactly the case's kernels. Then entry.dryrun_multichip(4) under the same guard,
     cli.scaling_bench --world 1 2 4 into a temporary directory, and
@@ -166,7 +191,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
 Every bound is taken against the card's peaks from the bench's table
 (``bench.PEAKS``, by ``torch.cuda.get_device_name``). The line before the
 last is a JSON object with one entry per kernel (one per pallas_call of the
-JAX package); the last line is ``{"ok": true, "device": {...}}``.
+JAX package, then the ingest engine's three); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -344,13 +370,14 @@ def counted_forward(torch, model, x):
 
 
 def kernel_entry(name, source, replaces, err, tol, ms, plain_ms, bnd, library_ms):
-    """Check one kernel against its plain version; its JSON entry. bnd is
-    (bound ms, what bounds it); library_ms the time of one torch call that
-    computes the same function (a yardstick the port never calls), or None."""
+    """Check one kernel against its plain version; its JSON entry. replaces
+    is the file:line of the code it replaces; bnd is (bound ms, what bounds
+    it); library_ms the time of one torch call that computes the same
+    function (a yardstick the port never calls), or None."""
     compare(name, err, tol, ms, plain_ms, bnd, library_ms)
     return {"name": name, "route": "cuda",
             "source": f"ska_pst_dsp_tpu_torch/csrc/{source}.cu",
-            "replaces": PALLAS + replaces, "max_abs_err": err[0],
+            "replaces": replaces, "max_abs_err": err[0],
             "max_rel_err": err[1], "tol": tol, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms,
             "resources": RESOURCES.get(source, {})}
@@ -397,7 +424,8 @@ def plain_versions_raise(torch, composed: bool = False):
         raise AssertionError("a plain version ran on the CUDA path")
 
     plain = ("padded_fold", "chan_dft_core", "frontend", "epilogue",
-             "big_ifft_inner", "big_ifft_outer", "analysis_core")
+             "big_ifft_inner", "big_ifft_outer", "analysis_core", "dada_unpack_core",
+             "lowcbf_unpack_core", "dada_pack_core")
     if composed:
         plain = tuple(p for p in plain if p != "epilogue")
     with contextlib.ExitStack() as stack:
@@ -535,7 +563,7 @@ def main() -> int:
     kernels = []
 
     def record(name, replaces, err, tol, ms, plain_ms, bnd, library_ms):
-        kernels.append(kernel_entry(name, name, replaces, err, tol, ms, plain_ms, bnd,
+        kernels.append(kernel_entry(name, name, PALLAS + replaces, err, tol, ms, plain_ms, bnd,
                                     library_ms))
 
     def a_kernel():
@@ -727,6 +755,11 @@ def main() -> int:
     run_verify(torch, dev, smi)
     log("verify", f"phase done in {time.perf_counter() - t0:.1f} s ({smi})")
 
+    # 15b. the DADA ingest engine: files to the card, the round trips on them
+    t0 = time.perf_counter()
+    kernels.extend(run_ingest(torch, dev, smi))
+    log("ingest", f"phase done in {time.perf_counter() - t0:.1f} s ({smi})")
+
     # 16. the sharded pipelines on spawned ranks
     t0 = time.perf_counter()
     run_parallel(torch, dev, smi)
@@ -833,7 +866,7 @@ def run_mid(torch, dev, smi):
     fold_args = (x, model.f2d_rev, step)
     fold = padded_fold(*fold_args)
     entries.append(kernel_entry(
-        "analysis_padded_fused", "analysis_padded_fused", "analysis_padded_fused.py:257",
+        "analysis_padded_fused", "analysis_padded_fused", PALLAS + "analysis_padded_fused.py:257",
         rel_err(padded_fold_fused(*fold_args), fold), PADDED_TOL,
         time_ms(torch, lambda: padded_fold_fused(*fold_args)),
         time_ms(torch, lambda: padded_fold(*fold_args)),
@@ -855,7 +888,7 @@ def run_mid(torch, dev, smi):
     chan = chan_dft_core(*cargs)
     block = fold.shape[-1]
     entries.append(kernel_entry(
-        "chan_dft_fused", "chan_dft_fused", "chan_dft_fused.py:190",
+        "chan_dft_fused", "chan_dft_fused", PALLAS + "chan_dft_fused.py:190",
         rel_err(chan_dft_ramp(*cargs), chan), PADDED_TOL,
         time_ms(torch, lambda: chan_dft_ramp(*cargs)),
         time_ms(torch, lambda: chan_dft_core(*cargs)),
@@ -955,7 +988,7 @@ def run_mid(torch, dev, smi):
         + (", ".join(f"{k} {v:.4f} ms" for k, v in on_device.items()) or "not measured")
         + f" ({smi})")
     for name, line in (("ifft_big_inner", 388), ("ifft_big_outer", 524)):
-        entry = kernel_entry(name, "ifft_big", f"ifft_big.py:{line}", errs[name],
+        entry = kernel_entry(name, "ifft_big", f"{PALLAS}ifft_big.py:{line}", errs[name],
                              BIG_IFFT_TOL, *times[name], bounds[name], library[name])
         entry.update(each[name])
         entry["pair"] = pair
@@ -2243,6 +2276,269 @@ def run_verify(torch, dev, smi):
         tools_on_card(torch, dev, smi, tmp)
         test_vector_tree(torch, dev, smi, tmp)
 
+# --- phase 15b: the DADA ingest engine ------------------------------------
+
+ENGINE = "native/dada_engine.cpp"
+#: the engine's kernels: (name, what it replaces)
+INGEST_KERNELS = (("dada_unpack", ENGINE + ":75"), ("lowcbf_unpack", ENGINE + ":209"),
+                  ("dada_pack", ENGINE + ":95"))
+#: the full-width files: 2 pol x 2^23 samples at each NBIT; the LowCBF
+#: file holds as many complex samples in 256 channels (NBIT 16)
+INGEST_NBITS = (8, 16, 32)
+LOWCBF_CHAN, LOWCBF_NBIT = 256, 16
+#: the NBIT of the low and mid file round trips (the kernels' JSON entries
+#: are the low file's) and of the write
+LOW_FILE_NBIT, MID_FILE_NBIT, WRITE_NBIT = 16, 8, 16
+#: noise times this, quantised, fills the integer files
+INGEST_RMS = 30.0
+#: the write's scale: its products sit at whole and half integers too
+WRITE_SCALE = 2.5
+#: the kernels against their plain versions: an odd count (1 channel, 256
+#: channels) and a view starting this many samples into its buffer
+MATRIX_COUNT = {1: 1_000_003, 256: 4099}
+MATRIX_LEAD = 333
+INGEST_REPS = 5
+
+
+def same_bits(torch, a, b) -> bool:
+    """a and b hold the same bits (complex64 as int32 pairs; words as they are)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_complex():
+        a, b = torch.view_as_real(a).view(torch.int32), torch.view_as_real(b).view(torch.int32)
+    return torch.equal(a, b)
+
+
+def file_words(nbit, shape, seed):
+    """Seeded words of a file: INGEST_RMS x noise rounded for the integer
+    NBITs, noise for the float ones."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(shape, dtype=np.float32)
+    if nbit <= 16:
+        return np.rint(v * INGEST_RMS).astype(np.int8 if nbit == 8 else np.int16)
+    return v.astype(np.float32 if nbit == 32 else np.float64)
+
+
+def write_dada(path, words, header):
+    """A DADA file of raw words behind the header (NDIM 2)."""
+    from ska_pst_dsp_tpu_torch.io import dada
+
+    with open(path, "wb") as f:
+        f.write(dada.serialize_header({**header, "NDIM": "2"}))
+        words.tofile(f)
+    return path
+
+
+def host_ms(torch, fn, reps=INGEST_REPS):
+    """Median host-clock ms of fn() and a synchronize, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def ingest_matrix(torch, dev):
+    """Each engine kernel bitwise against its plain version on the card at
+    NBIT 8, 16, 32 (and 64 for the TFP read), NPOL 1 and 2, NCHAN 1 and
+    256, an odd count, on a view MATRIX_LEAD samples into its buffer (no
+    tile edge). Returns the cases run."""
+    from ska_pst_dsp_tpu_torch.ops.kernels import dada_unpack as du
+
+    cases = 0
+    for n_chan, count in sorted(MATRIX_COUNT.items()):
+        for n_pol in (1, 2):
+            w = n_pol * n_chan
+            x = torch.as_tensor(noise((n_pol, n_chan, count), SEED + 30 + w), device=dev) * 60
+            for nbit in (8, 16, 32, 64):
+                what = f"NBIT {nbit}, {n_pol} pol x {n_chan} ch x {count}"
+                words = file_words(nbit, (MATRIX_LEAD + count, n_chan, n_pol, 2),
+                                   SEED + nbit + w)
+                buf = torch.from_numpy(words.view(np.uint8).reshape(-1)).to(dev)
+                raw = buf[MATRIX_LEAD * w * du.pair_bytes(nbit):]
+                check(same_bits(torch, du.dada_unpack(raw, nbit, n_pol, n_chan, count),
+                                du.dada_unpack_core(raw, nbit, n_pol, n_chan, count)),
+                      f"dada_unpack vs plain, {what}")
+                cases += 1
+                if nbit == 64:
+                    continue
+                n_heaps = count // 32
+                heaps = raw[:n_heaps * 32 * w * du.pair_bytes(nbit)]
+                check(same_bits(torch, du.lowcbf_unpack(heaps, nbit, n_pol, n_chan, n_heaps),
+                                du.lowcbf_unpack_core(heaps, nbit, n_pol, n_chan, n_heaps)),
+                      f"lowcbf_unpack vs plain, {what} ({n_heaps} heaps)")
+                check(same_bits(torch, du.dada_pack(x, nbit, WRITE_SCALE),
+                                du.dada_pack_core(x, nbit, WRITE_SCALE)),
+                      f"dada_pack vs plain, {what}")
+                cases += 2
+    return cases
+
+
+def ingest_files(tmp):
+    """The phase's files: {name: (path, nbit, n_pol, n_chan, samples)}."""
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+    low_hdr = load_config("low").load_header()
+    files = {}
+    for nbit in INGEST_NBITS:
+        files[f"low{nbit}"] = (nbit, 2, 1, N_DAT, low_hdr)
+    files["mid"] = (MID_FILE_NBIT, 2, 1, MID_N_DAT, load_config("mid").load_header())
+    files["lowcbf"] = (LOWCBF_NBIT, 2, LOWCBF_CHAN, N_DAT // LOWCBF_CHAN,
+                       {**low_hdr, "INSTRUMENT": "LowCBF"})
+    out = {}
+    for i, (name, (nbit, n_pol, n_chan, n, hdr)) in enumerate(files.items()):
+        shape = ((n // 32, n_chan, n_pol, 32, 2) if name == "lowcbf"
+                 else (n, n_chan, n_pol, 2))
+        hdr = {**hdr, "NBIT": str(nbit), "NPOL": str(n_pol), "NCHAN": str(n_chan)}
+        path = write_dada(os.path.join(tmp, f"{name}.dada"),
+                          file_words(nbit, shape, SEED + 40 + i), hdr)
+        out[name] = (path, nbit, n_pol, n_chan, n)
+    return out
+
+
+def numpy_read(torch, dev, path):
+    """The numpy path the sharded ingest took before the engine: io.dada.load,
+    then complex64 on the card."""
+    from ska_pst_dsp_tpu_torch.io import dada
+
+    data, _ = dada.load(path)
+    return torch.as_tensor(np.ascontiguousarray(data)).to(torch.complex64).to(dev)
+
+
+def run_ingest(torch, dev, smi):
+    """Phase 15b (see the module docstring). Returns the JSON entries of the
+    engine's three kernels."""
+    from ska_pst_dsp_tpu_torch.entry import low_round_trip, mid_round_trip
+    from ska_pst_dsp_tpu_torch.io import dada, native
+    from ska_pst_dsp_tpu_torch.ops.kernels import dada_unpack as du
+    from ska_pst_dsp_tpu_torch.utils.profiling import clock
+
+    t0 = time.perf_counter()
+    cases = ingest_matrix(torch, dev)
+    log("ingest", f"{cases} kernel cases bitwise equal to their plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+    low, mid = low_round_trip(dev), mid_round_trip(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        files = ingest_files(tmp)
+        log("ingest", f"{len(files)} files written in {time.perf_counter() - t0:.1f} s: "
+            + ", ".join(f"{k} {os.path.getsize(v[0]) / 2**20:.1f} MiB" for k, v in files.items()))
+        lowf, midf, lcf = (files[f"low{LOW_FILE_NBIT}"][0], files["mid"][0],
+                           files["lowcbf"][0])
+        out_path = write_dada(os.path.join(tmp, "write.dada"), np.zeros(0, np.int8),
+                              {"NBIT": str(WRITE_NBIT), "NPOL": "2", "NCHAN": "1"})
+        x_write = torch.as_tensor(noise((2, 1, N_DAT), SEED + 50), device=dev) * 60
+
+        # the main path, counted: file -> engine -> the low and mid round
+        # trips; the LowCBF file; the write and its read back
+        ws = reset_counts()
+        with plain_versions_raise(torch):
+            low_out = low(dada.load_split(lowf, device=dev)[0][:, 0])
+            mid_out = mid(dada.load_split(midf, device=dev)[0][:, 0])
+            lc, _ = dada.load_split(lcf, device=dev)
+            native.append_split(out_path, x_write, nbit=WRITE_NBIT, scale=WRITE_SCALE)
+            back, _ = dada.load_split(out_path, device=dev)
+        counts = read_counts(torch, ws)
+        names = [k for k, _ in INGEST_KERNELS]
+        expect_launches("ingest", counts, set(LOW_KERNELS + MID_KERNELS + tuple(names)),
+                        composed=False)
+        log("ingest", f"main path launches: {counts}")
+
+        # what came out
+        for name, model, got, path in (("low", low, low_out, lowf), ("mid", mid, mid_out, midf)):
+            ref = model(numpy_read(torch, dev, path)[:, 0])
+            check(bool(torch.isfinite(torch.view_as_real(got)).all()) and same_bits(torch, got, ref),
+                  f"ingest: {name} file round trip through the engine differs from the "
+                  f"chain on the numpy-loaded stream")
+            log("ingest", f"{name} file -> engine -> round trip {tuple(got.shape)}: bitwise equal "
+                "to the chain on the numpy-loaded stream")
+        check(same_bits(torch, lc, numpy_read(torch, dev, lcf)), "ingest: LowCBF read")
+        v = torch.view_as_real(x_write) * torch.tensor(WRITE_SCALE, device=dev)
+        want = torch.view_as_complex(torch.round(v).clamp(*du.CLIP[WRITE_NBIT]).contiguous())
+        # (values: a word of 0 reads back as +0.0 where rounding gave -0.0)
+        check(torch.equal(back, want), "ingest: append_split -> load_split is not the "
+              "quantised stream")
+        with open(out_path, "rb") as f:
+            f.seek(4096)
+            words = torch.frombuffer(bytearray(f.read()), dtype=torch.uint8)
+        check(torch.equal(words, du.dada_pack_core(x_write, WRITE_NBIT, WRITE_SCALE).cpu()),
+              "ingest: written words differ from the plain pack")
+        log("ingest", f"LowCBF {tuple(lc.shape)} equal to the numpy read; append_split of "
+            f"{tuple(x_write.shape)} at NBIT {WRITE_NBIT} x {WRITE_SCALE} then load_split: "
+            "exactly the quantised stream, words equal to the plain pack")
+        del low_out, mid_out, lc, back, want, v, low, mid
+        torch.cuda.empty_cache()
+
+        # times: the numpy path, the engine end to end and step by step
+        hbm = card_peaks()[0]
+        timed = {}
+        for name, (path, nbit, n_pol, n_chan, n) in files.items():
+            lowcbf = name == "lowcbf"
+            nbytes_ = os.path.getsize(path) - 4096
+            np_ms = host_ms(torch, lambda: numpy_read(torch, dev, path), reps=3)
+            eng_ms = host_ms(torch, lambda: dada.load_split(path, device=dev))
+            pinned = torch.empty(nbytes_, dtype=torch.uint8, pin_memory=True)
+            read_ms = host_ms(torch, lambda: native.read_into(path, 4096, pinned))
+            raw = torch.empty(nbytes_, dtype=torch.uint8, device=dev)
+            h2d = []
+            for _ in range(INGEST_REPS):
+                stop = clock(dev)
+                raw.copy_(pinned, non_blocking=True)
+                h2d.append(stop())
+            h2d_ms = statistics.median(h2d)
+            if lowcbf:
+                args, kern, plain = ((raw, nbit, n_pol, n_chan, n // 32), du.lowcbf_unpack,
+                                     du.lowcbf_unpack_core)
+            else:
+                args, kern, plain = ((raw, nbit, n_pol, n_chan, n), du.dada_unpack,
+                                     du.dada_unpack_core)
+            out = kern(*args)
+            err = float((out - plain(*args)).abs().max())
+            bnd = bound(nbytes(raw, out), out.numel() * 2)
+            timed[name] = dict(err=err, ms=time_ms(torch, lambda: kern(*args)),
+                               plain_ms=time_ms(torch, lambda: plain(*args)), bnd=bnd)
+            log("ingest", f"{name} (NBIT {nbit}, {n_pol} pol x {n_chan} ch x {n}, "
+                f"{nbytes_ / 2**20:.1f} MiB): numpy dada.load + to(card) {np_ms:.3f} ms; "
+                f"engine load_split {eng_ms:.3f} ms ({np_ms / eng_ms:.1f}x); steps: read to "
+                f"pinned {read_ms:.3f} ms ({nbytes_ / read_ms / 1e6:.2f} GB/s), H2D "
+                f"{h2d_ms:.3f} ms ({nbytes_ / h2d_ms / 1e6:.2f} GB/s pinned), "
+                f"{kern.__name__} {timed[name]['ms']:.4f} ms (plain "
+                f"{timed[name]['plain_ms']:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) at "
+                f"{hbm / 1e12:.2f} TB/s); max|err| {err} ({smi})")
+            del pinned, raw, out
+
+        # the pack at the write's shape
+        words = du.dada_pack(x_write, WRITE_NBIT, WRITE_SCALE)
+        pref = du.dada_pack_core(x_write, WRITE_NBIT, WRITE_SCALE)
+        word = du.WORDS[WRITE_NBIT]
+        perr = float((words.view(word).float() - pref.view(word).float()).abs().max())
+        timed["pack"] = dict(
+            err=perr, ms=time_ms(torch, lambda: du.dada_pack(x_write, WRITE_NBIT, WRITE_SCALE)),
+            plain_ms=time_ms(torch, lambda: du.dada_pack_core(x_write, WRITE_NBIT, WRITE_SCALE)),
+            bnd=bound(nbytes(x_write, words), x_write.numel() * 8))
+        t = timed["pack"]
+        log("ingest", f"dada_pack (2 x 1 x {N_DAT}, NBIT {WRITE_NBIT}): {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, bound {t['bnd'][0]:.4f} ms ({t['bnd'][1]}); "
+            f"max|err| {perr} ({smi})")
+
+    entries = []
+    for (name, replaces), key in zip(INGEST_KERNELS, (f"low{LOW_FILE_NBIT}", "lowcbf", "pack")):
+        t = timed[key]
+        entry = kernel_entry(name, "dada_unpack", replaces, (t["err"], t["err"]), 0.0, t["ms"],
+                             t["plain_ms"], t["bnd"], None)
+        entry["launches"] = counts[name]
+        if name == "dada_unpack":
+            entry["by_nbit"] = {n: {f: timed[f"low{n}"][f] for f in ("ms", "plain_ms")}
+                                for n in INGEST_NBITS}
+        entries.append(entry)
+    return entries
+
+
 # --- phase 16: the sharded pipelines -------------------------------------
 
 #: sharded vs the one-shot kernel chain, x scale; the two-stage chains,
@@ -2311,7 +2607,7 @@ def parallel_cases(world, paths):
                                    dict(critical=True, invert=False)), "time", 1,
              ("analysis_fused",), "sps"),
             ("file round trip", Call(dist_.sharded_file_round_trip, (paths["dada"], lowc)),
-             "time", 1, LOW_KERNELS, "file"),
+             "time", 1, LOW_KERNELS + ("dada_unpack",), "file"),
         ]
     return cases
 

@@ -1,9 +1,11 @@
 """DADA file format codec: :func:`save`, :func:`append`, :func:`load`, the
-FIR coefficients a header carries, and the :class:`DADAFile` object API.
+FIR coefficients a header carries, and the :class:`DADAFile` object API;
+:func:`load_split` reads through the ingest engine (:mod:`.native`) to the
+card.
 
-The port's copy of the generic path of :mod:`ska_pst_dsp_tpu.io.dada`; a
-file written by either package is read by the other, and both write the
-same bytes for the same array and header.
+The port's copy of :mod:`ska_pst_dsp_tpu.io.dada`; a file written by either
+package is read by the other, and both write the same bytes for the same
+array and header.
 
 Format recap:
   * ASCII header of HDR_SIZE bytes (default 4096): ``KEY VALUE`` lines,
@@ -25,7 +27,9 @@ import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
+from ..ops.kernels.dada_unpack import check_nbit
 from ..utils.rational import Rational
 from .lowcbf import NSAMP_PER_HEAP, flatten_low_cbf_stream, reshape_low_cbf_data
 
@@ -107,6 +111,41 @@ def _data_dtype(header: Dict[str, str]) -> np.dtype:
         return np.dtype(_NBIT_TO_DTYPE[nbit])
     except KeyError:
         raise ValueError(f"unsupported NBIT={nbit}") from None
+
+
+def load_split(path: str, count: Optional[int] = None, offset_samples: int = 0,
+               device=None) -> Tuple[torch.Tensor, Dict[str, str]]:
+    """Load a DADA file through the ingest engine (:mod:`.native`: the raw
+    words read to ``device``, default the card, and unpacked there) as one
+    complex64 (n_pol, n_chan, n_dat) tensor, plus the header; the JAX
+    package's ``load_split`` gives split (re, im) float32 planes. Requires
+    NDIM=2; a LowCBF window must be whole 32-sample heaps; ``count``
+    defaults to the samples after ``offset_samples``. See :func:`load` for
+    the generic numpy path."""
+    from . import native
+
+    header = read_header(path)
+    if int(header.get("NDIM", 2)) != 2:
+        raise ValueError("load_split requires complex (NDIM=2) data")
+    n_pol = int(header.get("NPOL", 1))
+    n_chan = int(header.get("NCHAN", 1))
+    nbit = int(header.get("NBIT", 32))
+    hdr_size = int(header["HDR_SIZE"])
+    lowcbf = header.get("INSTRUMENT") == "LowCBF"
+    check_nbit("lowcbf_unpack" if lowcbf else "dada_unpack", nbit)
+    if count is None:
+        bytes_per_samp = n_pol * n_chan * 2 * (nbit // 8)
+        count = (os.path.getsize(path) - hdr_size) // bytes_per_samp - offset_samples
+    if lowcbf:
+        if offset_samples % NSAMP_PER_HEAP or count % NSAMP_PER_HEAP:
+            raise ValueError("LowCBF windows must be whole 32-sample heaps")
+        data = native.read_lowcbf_split(path, hdr_size, n_pol, n_chan, nbit,
+                                        offset_samples // NSAMP_PER_HEAP,
+                                        count // NSAMP_PER_HEAP, device)
+    else:
+        data = native.read_split(path, hdr_size, n_pol, n_chan, nbit, offset_samples, count,
+                                 device)
+    return data, header
 
 
 def load(path: str, count: Optional[int] = None, offset_samples: int = 0

@@ -47,6 +47,9 @@ SIGNATURES = {
     "padded_fold_launch": [_P] * 3 + [_I, _L, _L] + [_I] * 8 + [_P],
     "padded_fold_slots": [_I] * 4 + [_P],
     "chan_dft_launch": [_P] * 5 + [_I] * 8 + [_P],
+    "dada_unpack_launch": [_P] * 2 + [_I] * 3 + [_L, _I, _P],
+    "lowcbf_unpack_launch": [_P] * 2 + [_I] * 3 + [_L, _I, _P],
+    "dada_pack_launch": [_P] * 2 + [_I] * 3 + [_L, _I, _F, _P],
     "ifft_big_inner_launch": [_P] * 4 + [_L] * 2 + [_I] * 6 + [_P],
     "ifft_big_outer_launch": [_P] * 7 + [_I] * 7 + [_F, _P],
 }

@@ -105,7 +105,8 @@ def _samples(path: str, header: Dict[str, str]) -> int:
 def load_dada_sharded(path: str, mesh: Mesh, count: Optional[int] = None
                       ) -> Tuple[torch.Tensor, Dict[str, str]]:
     """Read rank (c, t)'s time shard t of a DADA file, touching only its
-    own byte range (``io.dada.load`` with ``offset_samples``).
+    own byte range: the ingest engine (``io.dada.load_split`` with
+    ``offset_samples``) reads it to the rank's device and unpacks it there.
 
     The stream (the first ``count`` samples, where given) is cut to a
     multiple of the time-group size (of 32-sample heaps for a LowCBF file)
@@ -118,11 +119,9 @@ def load_dada_sharded(path: str, mesh: Mesh, count: Optional[int] = None
         total = min(total, count)
     unit = mesh.dt * (dada.NSAMP_PER_HEAP if header.get("INSTRUMENT") == "LowCBF" else 1)
     per_shard = (total // unit) * unit // mesh.dt
-    data, header = dada.load(path, count=per_shard, offset_samples=mesh.t * per_shard)
-    local = torch.as_tensor(np.ascontiguousarray(data)).to(torch.complex64)
-    if local.shape[1] == 1:
-        local = local[:, 0]
-    return local.to(mesh.device), header
+    local, header = dada.load_split(path, count=per_shard, offset_samples=mesh.t * per_shard,
+                                    device=mesh.device)
+    return (local[:, 0] if local.shape[1] == 1 else local), header
 
 
 def sharded_file_round_trip(path: str, config, mesh: Mesh, *, count: Optional[int] = None

@@ -53,11 +53,8 @@ SCANNED = JAX_FILES + sorted(OUTSIDE)
 #: module, or the name in every module
 _KARATSUBA = ("the TPU's real-matmul DFT (split-bf16 Karatsuba); the card has "
               "complex64 FFTs")
-_COMPLEX = "the TPU path avoided complex dtypes; torch has complex64"
 _V5E = "the v5e's peaks; the port keys its peaks on the card"
 NOT_PORTED = {
-    ("io/native.py", "*"): "the split-float DADA reader: " + _COMPLEX,
-    ("io/dada.py", "load_split"): "io/native.py's split read: " + _COMPLEX,
     ("ops/cfft.py", "BASE"): _KARATSUBA,
     ("ops/cfft.py", "MODE"): "the SKA_PST_FFT_MODE switch of " + _KARATSUBA,
     ("ops/cfft.py", "kar_dot"): _KARATSUBA,

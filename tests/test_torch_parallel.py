@@ -51,6 +51,7 @@ from ska_pst_dsp_tpu_torch.parallel.distributed import Call, Sharded
 from ska_pst_dsp_tpu_torch.utils import geometry
 from ska_pst_dsp_tpu_torch.utils.config import load_config
 from ska_pst_dsp_tpu_torch.utils.rational import Rational
+from test_torch_native import jax_native  # noqa: F401  (the JAX engine, loaded)
 
 REPO = Path(__file__).resolve().parents[1]
 ONE_SHOT_TOL = 1e-6
@@ -358,10 +359,10 @@ def test_load_dada_sharded(spawned, inputs):
     np.testing.assert_array_equal(got.numpy(), full[:, 0, :n])
 
 
-def test_sharded_file_round_trip(spawned, inputs):
+def test_sharded_file_round_trip(spawned, inputs, jax_native):
     """DADA file -> per-rank ingest -> sharded round trip: equal to the
     one-shot chain on the file's stream, and to the JAX package's
-    sharded_file_round_trip."""
+    sharded_file_round_trip (which reads through its native engine)."""
     arrays, paths = inputs
     got, _ = spawned(4)["file_round_trip"]
     cfg = load_config("low")
