@@ -140,8 +140,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     Each run's seconds and its worst figure against its gate; reports go to
     a temporary directory.
 15b. ingest: the DADA ingest engine (io/native.py, io.dada.load_split:
-    a window's raw words read by threads into a reused pinned buffer,
-    copied to the card and unpacked there by csrc/dada_unpack.cu):
+    a window's raw words read by threads into pinned host memory, copied
+    to the card and unpacked there by csrc/dada_unpack.cu):
     a. its three kernels (dada_unpack, lowcbf_unpack, dada_pack) bitwise
        equal to their plain versions at NBIT 8, 16, 32 (and 64 for the TFP
        read), NPOL 1 and 2, NCHAN 1 and 256, an odd count, on a view 333
@@ -162,7 +162,10 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     e. for each file: the numpy dada.load + to(card) ms and load_split's
        (host clock, median of 3 / 5), and its steps: the threaded read to
        pinned memory (host clock), the pinned H2D (CUDA events; GB/s), the
-       unpack and its plain version (CUDA events) beside its bound.
+       unpack, its plain version and the one torch copy that computes it
+       (CUDA events) beside its bound; the engine's host read beside it
+       with its threads started for each read and with one read in the
+       calling thread (host clock, taking turns, median and min-max).
 16. parallel: the sharded pipelines (parallel/) on ranks spawned by
     parallel.distributed.spawn, after the parent has built the kernels:
     NCCL where every rank has a card of its own, else gloo with the ranks
@@ -2298,6 +2301,8 @@ WRITE_SCALE = 2.5
 MATRIX_COUNT = {1: 1_000_003, 256: 4099}
 MATRIX_LEAD = 333
 INGEST_REPS = 5
+#: turns each host read takes against the other
+READ_REPS = 9
 
 
 def same_bits(torch, a, b) -> bool:
@@ -2331,15 +2336,7 @@ def write_dada(path, words, header):
 
 def host_ms(torch, fn, reps=INGEST_REPS):
     """Median host-clock ms of fn() and a synchronize, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    return interleaved_ms(torch, {"": fn}, reps)[""][0]
 
 
 def ingest_matrix(torch, dev):
@@ -2398,6 +2395,59 @@ def ingest_files(tmp):
                           file_words(nbit, shape, SEED + 40 + i), hdr)
         out[name] = (path, nbit, n_pol, n_chan, n)
     return out
+
+
+def read_variants(native, path, offset, n, dev):
+    """The engine's host read (``native.read_bytes``: a kept pool of threads,
+    each reading one contiguous part, then one copy to the card) beside the
+    same function with its threads started anew for each read, and with the
+    whole window read by one ``preadv`` in the calling thread (the plain
+    read: one read into pinned memory, then one copy)."""
+    import concurrent.futures
+
+    def run(pool=None, part=None):
+        kept = native._pool, native.PART
+        native._pool, native.PART = pool or kept[0], part or kept[1]
+        try:
+            return native.read_bytes(path, offset, n, dev)
+        finally:
+            native._pool, native.PART = kept
+
+    return {"engine": run,
+            "pool per read": lambda: run(
+                pool=lambda: concurrent.futures.ThreadPoolExecutor(native.THREADS)),
+            "one read": lambda: run(part=1 << 62)}
+
+
+def library_unpack(torch, raw, nbit, n_pol, n_chan, n, lowcbf):
+    """One torch call that computes what dada_unpack / lowcbf_unpack
+    compute: the word conversion and the corner turn in one copy (a
+    yardstick the port never calls)."""
+    from ska_pst_dsp_tpu_torch.ops.kernels import dada_unpack as du
+
+    words = raw.view(du.WORDS[nbit])
+    if lowcbf:
+        words = words.view(n // du.HEAP, n_chan, n_pol, du.HEAP, 2).permute(2, 1, 0, 3, 4)
+    else:
+        words = words.view(n, n_chan, n_pol, 2).permute(2, 1, 0, 3)
+    out = torch.empty(words.shape, dtype=torch.float32, device=raw.device)
+    return torch.view_as_complex(out.copy_(words)).view(n_pol, n_chan, n)
+
+
+def interleaved_ms(torch, fns, reps):
+    """Host-clock ms of each fn() and a synchronize, the fns taking turns
+    after one warm-up each: {name: (median, min, max)}."""
+    times = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: (statistics.median(v), min(v), max(v)) for k, v in times.items()}
 
 
 def numpy_read(torch, dev, path):
@@ -2499,16 +2549,31 @@ def run_ingest(torch, dev, smi):
                                      du.dada_unpack_core)
             out = kern(*args)
             err = float((out - plain(*args)).abs().max())
+            lib = (raw, nbit, n_pol, n_chan, n, lowcbf)
+            check(same_bits(torch, library_unpack(torch, *lib), out),
+                  f"ingest: the library copy differs from {kern.__name__}, {name}")
             bnd = bound(nbytes(raw, out), out.numel() * 2)
             timed[name] = dict(err=err, ms=time_ms(torch, lambda: kern(*args)),
-                               plain_ms=time_ms(torch, lambda: plain(*args)), bnd=bnd)
+                               plain_ms=time_ms(torch, lambda: plain(*args)), bnd=bnd,
+                               library_ms=time_ms(torch, lambda: library_unpack(torch, *lib)))
+            variants = read_variants(native, path, 4096, nbytes_, dev)
+            want = variants["engine"]()
+            check(all(torch.equal(v(), want) for v in variants.values()),
+                  f"ingest: the host read's variants disagree, {name}")
+            reads = interleaved_ms(torch, variants, READ_REPS)
+            log("ingest", f"{name}: raw bytes to the card, host ms, median (min-max) of "
+                f"{READ_REPS} turns: " + "; ".join(
+                    f"{k} {v[0]:.3f} ({v[1]:.3f}-{v[2]:.3f})" for k, v in reads.items())
+                + f" ({smi})")
+            del want
             log("ingest", f"{name} (NBIT {nbit}, {n_pol} pol x {n_chan} ch x {n}, "
                 f"{nbytes_ / 2**20:.1f} MiB): numpy dada.load + to(card) {np_ms:.3f} ms; "
                 f"engine load_split {eng_ms:.3f} ms ({np_ms / eng_ms:.1f}x); steps: read to "
                 f"pinned {read_ms:.3f} ms ({nbytes_ / read_ms / 1e6:.2f} GB/s), H2D "
                 f"{h2d_ms:.3f} ms ({nbytes_ / h2d_ms / 1e6:.2f} GB/s pinned), "
                 f"{kern.__name__} {timed[name]['ms']:.4f} ms (plain "
-                f"{timed[name]['plain_ms']:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) at "
+                f"{timed[name]['plain_ms']:.4f} ms, library copy "
+                f"{timed[name]['library_ms']:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) at "
                 f"{hbm / 1e12:.2f} TB/s); max|err| {err} ({smi})")
             del pinned, raw, out
 
@@ -2529,11 +2594,13 @@ def run_ingest(torch, dev, smi):
     entries = []
     for (name, replaces), key in zip(INGEST_KERNELS, (f"low{LOW_FILE_NBIT}", "lowcbf", "pack")):
         t = timed[key]
+        # dada_pack's scale, round, clip and cast is no one torch call
         entry = kernel_entry(name, "dada_unpack", replaces, (t["err"], t["err"]), 0.0, t["ms"],
-                             t["plain_ms"], t["bnd"], None)
+                             t["plain_ms"], t["bnd"], t.get("library_ms"))
         entry["launches"] = counts[name]
         if name == "dada_unpack":
-            entry["by_nbit"] = {n: {f: timed[f"low{n}"][f] for f in ("ms", "plain_ms")}
+            entry["by_nbit"] = {n: {f: timed[f"low{n}"][f] for f in ("ms", "plain_ms",
+                                                                       "library_ms")}
                                 for n in INGEST_NBITS}
         entries.append(entry)
     return entries

@@ -4,10 +4,9 @@ Counterpart of :mod:`ska_pst_dsp_tpu.io.native`, the JAX package's binding
 of its host C++ engine (``native/dada_engine.cpp``: an mmap'd read, the
 word conversion and the TFP -> PFT corner turn on a thread pool). Here the
 host only reads: a window's raw bytes are read once, from the offset the
-JAX engine computes, by threaded ``preadv`` slices into a pinned host
-buffer that is reused from one read to the next, and copied to the card
-``non_blocking`` in chunks, each chunk's copy running while the threads
-read the next.
+JAX engine computes, into pinned host memory (from PyTorch's caching host
+allocator) by a few threads, each ``preadv`` taking one contiguous part,
+and copied to the card ``non_blocking`` in one copy.
 The conversion and the corner turn are the kernels of
 :mod:`ska_pst_dsp_tpu_torch.ops.kernels.dada_unpack` on the card. A write
 packs on the card, copies the words back and appends them.
@@ -22,11 +21,10 @@ On the card nothing falls back: a build or launch failure raises.
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import logging
 import os
 import re
-import threading
-from typing import Optional
 
 import torch
 
@@ -37,13 +35,10 @@ from ..ops.kernels.dada_unpack import (
 
 module_logger = logging.getLogger(__name__)
 
-#: bytes read and copied to the card at a time: each chunk's copy runs
-#: while the next chunk is read
-CHUNK = 16 << 20
-#: bytes a reading thread takes at a time
-SLICE = 1 << 20
-#: reading threads, at most
+#: reading threads, at most; a thread takes one contiguous part of the
+#: window, of PART bytes or more
 THREADS = 8
+PART = 4 << 20
 #: bytes of a header that header_size reads (dada_engine.cpp dada_header_size)
 HEADER_SCAN = 65535
 
@@ -88,63 +83,38 @@ def _fill(fd: int, view: memoryview, a: int, b: int, offset: int) -> None:
         a += got
 
 
-def _read(path: str, offset: int, out: torch.Tensor, chunk: int, done=None) -> None:
-    """Fill the 1-D uint8 CPU tensor ``out`` with the file's bytes from
-    ``offset``: slices of SLICE bytes read by THREADS threads at once
-    (``os.preadv`` releases the interpreter lock), queued in order; as each
-    ``chunk`` bytes are in, ``done(a, b)`` is called on them while the
-    threads read on."""
-    view = memoryview(out.numpy())
-    n = len(view)
-    chunks = [(a, min(n, a + chunk)) for a in range(0, n, chunk)]
-    fd = os.open(path, os.O_RDONLY)
-    try:
-        with concurrent.futures.ThreadPoolExecutor(THREADS) as pool:
-            pending = [[pool.submit(_fill, fd, view, s, min(b, s + SLICE), offset)
-                        for s in range(a, b, SLICE)] for a, b in chunks]
-            for (a, b), reads in zip(chunks, pending):
-                for r in reads:
-                    r.result()
-                if done is not None:
-                    done(a, b)
-    finally:
-        os.close(fd)
+@functools.lru_cache(maxsize=None)
+def _pool() -> concurrent.futures.ThreadPoolExecutor:
+    """The reading threads, started on the first read and kept: a thread
+    started for each read costs more than the read of a small window."""
+    return concurrent.futures.ThreadPoolExecutor(THREADS, thread_name_prefix="dada-read")
 
 
 def read_into(path: str, offset: int, out: torch.Tensor) -> None:
     """Fill the 1-D uint8 CPU tensor ``out`` with the file's bytes from
-    ``offset``, in slices of SLICE bytes read by up to THREADS threads at
-    once. IOError where the file ends first."""
-    _read(path, offset, out, max(1, out.numel()))
-
-
-class _Staging:
-    """The pinned host buffer reads go through, reused from one read to the
-    next: a read waits for the previous read's copies out of it to finish
-    before it writes there. One read at a time holds it."""
-
-    def __init__(self):
-        self.lock = threading.Lock()
-        self.buffer: Optional[torch.Tensor] = None
-        self.copied: Optional[torch.cuda.Event] = None
-
-    def take(self, nbytes: int) -> torch.Tensor:
-        if self.copied is not None:
-            self.copied.synchronize()
-        if self.buffer is None or self.buffer.numel() < nbytes:
-            self.buffer = None
-            self.buffer = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-        return self.buffer[:nbytes]
-
-
-_STAGING = _Staging()
+    ``offset``: the window cut into up to THREADS contiguous parts of PART
+    bytes or more, each read by a thread of its own (``os.preadv`` releases
+    the interpreter lock). IOError where the file ends first."""
+    view = memoryview(out.numpy())
+    n = len(view)
+    k = max(1, min(THREADS, n // PART))
+    edges = [n * i // k for i in range(k + 1)]
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        if k == 1:
+            _fill(fd, view, 0, n, offset)
+        else:
+            list(_pool().map(lambda i: _fill(fd, view, edges[i], edges[i + 1], offset),
+                             range(k)))
+    finally:
+        os.close(fd)
 
 
 def read_bytes(path: str, offset: int, nbytes: int, device=None) -> torch.Tensor:
     """The file's bytes [offset, offset + nbytes) as a 1-D uint8 tensor on
-    ``device`` (default the card): on the card through the pinned buffer,
-    each CHUNK's copy queued on the current stream as soon as it is read,
-    while the threads read the next. IOError where the file is shorter."""
+    ``device`` (default the card): on the card read into pinned host memory,
+    then one copy queued on the current stream. IOError where the file is
+    shorter."""
     dev = torch.device("cuda" if device is None else device)
     if offset + nbytes > os.path.getsize(path):
         raise IOError(f"{path}: window of {nbytes} bytes at {offset} runs past the end "
@@ -155,16 +125,11 @@ def read_bytes(path: str, offset: int, nbytes: int, device=None) -> torch.Tensor
         return out
     if dev.type != "cuda":
         raise ValueError(f"the engine reads to cuda or cpu, not {dev}")
-    out = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    with _STAGING.lock:
-        host = _STAGING.take(nbytes)
-        try:
-            _read(path, offset, host, CHUNK,
-                  lambda a, b: out[a:b].copy_(host[a:b], non_blocking=True))
-        finally:
-            _STAGING.copied = torch.cuda.Event()
-            _STAGING.copied.record(torch.cuda.current_stream(dev))
-    return out
+    # PyTorch's caching host allocator reuses pinned blocks, and hands one
+    # out again only after the copies queued from it have finished
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    read_into(path, offset, host)
+    return host.to(dev, non_blocking=True)
 
 
 def read_split(path: str, hdr_size: int, n_pol: int, n_chan: int, nbit: int,

@@ -515,35 +515,19 @@ def test_wrappers_check_their_operands():
         du.dada_pack(torch.empty((1, 1, 2), dtype=torch.complex64, device="meta"), 16)
 
 
-def test_read_bytes_threads_and_chunks(tmp_path, monkeypatch):
-    # reads split over threads give the file's bytes, whatever the slices
+@pytest.mark.parametrize("part", [7, 4096, 1 << 30])
+def test_read_bytes_threads_and_chunks(tmp_path, monkeypatch, part):
+    # reads split over threads give the file's bytes, whatever the parts
+    # (odd ones, as many as there are threads, or one)
     data = np.random.default_rng(14).integers(0, 256, 50_001, dtype=np.uint8)
     path = tmp_path / "b.bin"
     data.tofile(path)
-    monkeypatch.setattr(native, "SLICE", 4096)  # 12 slices over the threads
+    monkeypatch.setattr(native, "PART", part)
     got = native.read_bytes(str(path), 123, 49_000, device="cpu")
     np.testing.assert_array_equal(got.numpy(), data[123:123 + 49_000])
     assert native.read_bytes(str(path), 50_001, 0, device="cpu").numel() == 0
     with pytest.raises(IOError, match="past the end"):
         native.read_bytes(str(path), 123, 49_879, device="cpu")
-
-
-def test_chunks_are_handed_on_in_order(tmp_path, monkeypatch):
-    # the card's read: each chunk is handed on (to its copy) once its
-    # slices are in, in order, while the threads read on
-    data = np.random.default_rng(15).integers(0, 256, 30_000, dtype=np.uint8)
-    path = tmp_path / "c.bin"
-    data.tofile(path)
-    monkeypatch.setattr(native, "SLICE", 1000)
-    out, seen = torch.empty(25_000, dtype=torch.uint8), []
-
-    def done(a, b):
-        seen.append((a, b))
-        np.testing.assert_array_equal(out[a:b].numpy(), data[777 + a:777 + b])
-
-    native._read(str(path), 777, out, 7000, done)
-    assert seen == [(0, 7000), (7000, 14000), (14000, 21000), (21000, 25000)]
-    np.testing.assert_array_equal(out.numpy(), data[777:777 + 25_000])
 
 
 def test_available_only_with_a_card():
