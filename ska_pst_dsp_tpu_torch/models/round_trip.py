@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ska_pst_dsp_tpu_torch.utils import geometry
+from ska_pst_dsp_tpu_torch.utils.profiling import spanned
 from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from ..convert import padded_round_trip_state, round_trip_state
@@ -79,6 +80,7 @@ class PFBRoundTrip(nn.Module):
             raise ValueError("state does not match the module's channel count")
         return self
 
+    @spanned("forward")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._invert(analysis_fused(x, self.f2d, self.ramp, self.step))
 
@@ -114,6 +116,7 @@ class PaddedPFBRoundTrip(PFBRoundTrip):
         self.delay = int(state["delay"])
         return self
 
+    @spanned("forward")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = padded_fold_fused(x, self.f2d_rev, self.step)
         return self._invert(chan_dft_ramp(g, self.chan_const, 0, self.delay))

@@ -52,6 +52,7 @@ import torch
 from torch import nn
 
 from ska_pst_dsp_tpu_torch.utils import geometry
+from ska_pst_dsp_tpu_torch.utils.profiling import spanned
 from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from ..ops import lowcbf
@@ -82,6 +83,20 @@ def _round_rms(x: torch.Tensor, rms: float) -> torch.Tensor:
 def as_tensor(x, device: torch.device) -> torch.Tensor:
     """A complex tensor or array as complex64 on ``device``."""
     return torch.as_tensor(x, device=device).to(torch.complex64)
+
+
+@spanned("carry")
+def carry(held: torch.Tensor, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The carried samples ``held`` and the new block ``x`` joined along
+    ``dim`` (the ``carry`` span), the bytes it writes counted in
+    ``carry.bytes``."""
+    out = torch.cat([held, x], dim=dim)
+    carry.bytes += out.numel() * out.element_size()
+    return out
+
+
+#: bytes the streaming stages' carries have written since the process began
+carry.bytes = 0
 
 
 @dataclasses.dataclass
@@ -151,6 +166,7 @@ class FilterBank(nn.Module):
             return self.config.kept_channels or lowcbf.KEPT
         return self.n_chan
 
+    @spanned("filterbank")
     def execute(self, state: FilterBankState, x) -> Tuple[FilterBankState, torch.Tensor]:
         """Process one block of (n_pol, [1,] n) samples: returns (new_state,
         (n_pol, n_chan_out, n_out)), a channel-major view of time-major
@@ -161,7 +177,7 @@ class FilterBank(nn.Module):
         if self.rnd_input:
             x = _round_rms(x, self.rms_input)
         if state.buffer is not None and state.buffer.shape[-1] > 0:
-            x = torch.cat([state.buffer, x], dim=-1)
+            x = carry(state.buffer, x, -1)
         n_dat = x.shape[-1]
         nu = self.os_factor.nu
         name = self.analysis_function
@@ -304,13 +320,14 @@ class InverseFilterBank(nn.Module):
                                                self.os_factor)
         self._n_chan_built = n_chan
 
+    @spanned("inverse_filterbank")
     def execute(self, state: InverseFilterBankState, x
                 ) -> Tuple[InverseFilterBankState, torch.Tensor]:
         """Invert one block of (n_pol, n_chan, n) fine channels: returns
         (new_state, (n_pol, 1, n_out)) on the module's device."""
         x = as_tensor(x, self.device)
         if state.buffer is not None and state.buffer.shape[-1] > 0:
-            x = torch.cat([state.buffer, x], dim=2)
+            x = carry(state.buffer, x, 2)
         n_pol, n_chan, n_dat = x.shape
         offset = self._offset_pending
         keep = self.n_fft - 2 * self.overlap

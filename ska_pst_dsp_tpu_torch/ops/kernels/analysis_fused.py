@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ska_pst_dsp_tpu_torch.utils import geometry
+from ska_pst_dsp_tpu_torch.utils.profiling import spanned
 from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .. import cfft
@@ -99,6 +100,7 @@ def takes(block: int, step: int, phases: int, period: int) -> bool:
     return plan(block, step, phases, period) is not None
 
 
+@spanned("kernel.analysis_fused")
 def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
                    step: int, block0: int = 0) -> torch.Tensor:
     """(n_pol, n_dat) complex64 -> time-major (n_pol, nblocks, block).

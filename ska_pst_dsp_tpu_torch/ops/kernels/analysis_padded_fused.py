@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ska_pst_dsp_tpu_torch.utils import geometry
+from ska_pst_dsp_tpu_torch.utils.profiling import spanned
 from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .. import cfft
@@ -143,6 +144,7 @@ def smem_bytes(block: int, step: int, phases: int, tiles: int = 1) -> int:
     return HEADER + (window_pad + (tiles - 1) * slide) * C_TILE * 8
 
 
+@spanned("kernel.analysis_padded_fused")
 def padded_fold_fused(x: torch.Tensor, f2d_rev: torch.Tensor, step: int) -> torch.Tensor:
     """(n_pol, n_dat) complex64 -> time-major (n_pol, n_dat // step, block)
     unreversed fold rows. f2d_rev: (phases, block) float32, the reversed

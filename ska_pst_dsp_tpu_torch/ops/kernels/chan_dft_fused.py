@@ -15,6 +15,8 @@ from typing import Tuple
 
 import torch
 
+from ska_pst_dsp_tpu_torch.utils.profiling import spanned
+
 from ..analysis import chan_dft_core
 from . import _build, device_pass_twiddles, require, stream_of, twiddles
 
@@ -40,6 +42,7 @@ def kernel_split(block: int) -> Tuple[int, int]:
     return BLOCKS[block]
 
 
+@spanned("kernel.chan_dft_fused")
 def chan_dft_ramp(g: torch.Tensor, const: torch.Tensor, block0: int = 0,
                   delay: int = 0) -> torch.Tensor:
     """(n_pol, nb, block) complex64 fold rows -> (n_pol, nb, block):

@@ -22,6 +22,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from ska_pst_dsp_tpu_torch.utils.profiling import spanned
+
 from . import _build, require, stream_of
 
 #: word type of each NBIT
@@ -110,6 +112,7 @@ def dada_pack_core(x: torch.Tensor, nbit: int, scale: float = 1.0) -> torch.Tens
 
 # --- the kernels ---------------------------------------------------------------
 
+@spanned("kernel.dada_unpack")
 def dada_unpack(raw: torch.Tensor, nbit: int, n_pol: int, n_chan: int,
                 count: int) -> torch.Tensor:
     """The TFP words of ``count`` file samples (1-D uint8, ``count * n_pol
@@ -137,6 +140,7 @@ def dada_unpack(raw: torch.Tensor, nbit: int, n_pol: int, n_chan: int,
 dada_unpack.launches = 0
 
 
+@spanned("kernel.lowcbf_unpack")
 def lowcbf_unpack(raw: torch.Tensor, nbit: int, n_pol: int, n_chan: int,
                   n_heaps: int) -> torch.Tensor:
     """``n_heaps`` LowCBF heaps (1-D uint8; each heap ``n_chan * n_pol``
@@ -166,6 +170,7 @@ def lowcbf_unpack(raw: torch.Tensor, nbit: int, n_pol: int, n_chan: int,
 lowcbf_unpack.launches = 0
 
 
+@spanned("kernel.dada_pack")
 def dada_pack(x: torch.Tensor, nbit: int, scale: float = 1.0) -> torch.Tensor:
     """complex64 (n_pol, n_chan, count) -> the TFP words of the file (1-D
     uint8): each component times ``scale`` (a float32 product), and for

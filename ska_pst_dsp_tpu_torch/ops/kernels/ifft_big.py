@@ -30,6 +30,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ska_pst_dsp_tpu_torch.utils.profiling import spanned
+
 from .. import cfft
 from ..synthesis import big_ifft_inner, big_ifft_outer, epilogue
 from . import _build, phase_table, require, stream_of, twiddle_table
@@ -155,6 +157,7 @@ def _keep_rows(n: int, n2: int, lo: int) -> Tuple[int, int]:
     return lo // n2, (n - 2 * lo) // n2
 
 
+@spanned("kernel.ifft_big_inner")
 def ifft_big_inner(x: torch.Tensor, elem: Optional[torch.Tensor], n2: int,
                    n1: int) -> torch.Tensor:
     """(n_pol, B, n2*n1) complex64, bins contiguous -> A (n_pol, B, n2, n1):
@@ -185,6 +188,7 @@ def ifft_big_inner(x: torch.Tensor, elem: Optional[torch.Tensor], n2: int,
 ifft_big_inner.launches = 0
 
 
+@spanned("kernel.ifft_big_outer")
 def ifft_big_outer(a: torch.Tensor, lo: int, roll: int, gain: float) -> torch.Tensor:
     """A (n_pol, B, n2, n1) -> (n_pol, B, N - 2*lo): N-level twiddle, the
     n1-point backward DFT over the kept outputs t = k2 + n2*k1 in

@@ -25,6 +25,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ska_pst_dsp_tpu_torch.utils.profiling import spanned
+
 from .. import cfft
 from ..synthesis import epilogue
 from . import _build, pass_twiddles, phase_table, require, stream_of, twiddle_table
@@ -101,6 +103,7 @@ def active_clusters(n1: int = 384) -> int:
     return clusters.value
 
 
+@spanned("kernel.ifft_fused")
 def fused_big_ifft(flat, elem=None, *, shape_key, n_valid: Optional[int] = None):
     """Fused IFFT(roll(X * elem, -roll)) * gain, keeping [lo, N-lo).
 

@@ -23,12 +23,13 @@ pair), and raises ValueError where neither has one.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ska_pst_dsp_tpu_torch.utils import geometry
+from ska_pst_dsp_tpu_torch.utils.profiling import spanned
 from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .. import cfft
@@ -47,6 +48,7 @@ def takes(L: int) -> bool:
     return L in LENGTHS
 
 
+@spanned("kernel.synthesis_fused")
 def synthesis_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
                     perm: torch.Tensor, L: int, keep: int, kpos: int,
                     n_blocks: int) -> torch.Tensor:
@@ -96,42 +98,58 @@ def synthesis_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
 synthesis_fused.launches = 0
 
 
+@spanned("dispatch")
+def epilogue_route(n: int, lo: int, roll: int, gain: float
+                   ) -> Tuple[str, Optional[tuple]]:
+    """The epilogue of an n-point inversion block with overlap lo:
+    ("cluster", :func:`.ifft_fused.fused_big_ifft`'s shape_key) for
+    :func:`.ifft_fused.plan_ifft`'s split where the cluster kernel takes it
+    (or where no kernel takes it: the cluster wrapper then raises on the
+    card); ("pair", :func:`.ifft_big.fused_big_ifft_oc`'s shape_key) for the
+    plan's split where only the out-of-core pair has kernels for it, for
+    :func:`.ifft_big.pair_split`'s split where neither has kernels for the
+    plan's, and where :func:`.ifft_big.plan_big_ifft` applies (on
+    :func:`.ifft_big.pair_split`'s split); ("composed", None) where no plan
+    applies. A pure function of its integers; its call is the ``dispatch``
+    span."""
+    plan = plan_ifft(n, lo)
+    if plan is not None:
+        split = None if ifft_fused.takes(*plan) else (
+            plan if ifft_big.takes(*plan) else ifft_big.pair_split(n, lo))
+        if split is None:
+            return "cluster", (n, *plan, lo, roll, gain)
+        return "pair", (n, 1, *split, lo, roll, gain)
+    if (big := plan_big_ifft(n, lo)) is not None:
+        split = ifft_big.pair_split(n, lo)
+        key = (n, *big) if split in (None, (big[0] * big[1], big[2])) else (n, 1, *split)
+        return "pair", (*key, lo, roll, gain)
+    return "composed", None
+
+
 def epilogue_dispatch(flat: torch.Tensor, elem: Optional[torch.Tensor],
                       geom: geometry.SynthesisGeometry, *, spans_nyquist: bool,
                       n_valid: int) -> torch.Tensor:
     """The inversion's epilogue on assembled spectra: (n_pol, B >= n_valid,
-    N) -> (n_pol, n_valid, N - 2 * output_overlap).
-
-    The cluster kernel for :func:`.ifft_fused.plan_ifft`'s split, or the
-    out-of-core pair for it where only that has kernels for the split, or
-    the pair on :func:`.ifft_big.pair_split`'s split where neither has
-    kernels for the plan's, or the pair where
-    :func:`.ifft_big.plan_big_ifft` applies (on
-    :func:`.ifft_big.pair_split`'s split); where no plan applies, the
-    composed epilogue, as in the JAX package, counted in
+    N) -> (n_pol, n_valid, N - 2 * output_overlap), on the route
+    :func:`epilogue_route` chooses (the ``dispatch`` span), then called
+    after that span has ended; where no plan
+    applies, the composed epilogue, as in the JAX package, counted in
     ``fused_inversion.composed_epilogues``. On the card a split no kernel
     takes raises ValueError."""
     n = geom.output_fft_length
     lo = geom.output_overlap
     roll = geom.fn_width // 2 if spans_nyquist else 0
     gain = geom.os_factor.de / geom.os_factor.nu
-    plan = plan_ifft(n, lo)
-    split = None if plan is None or ifft_fused.takes(*plan) else (
-        plan if ifft_big.takes(*plan) else ifft_big.pair_split(n, lo))
-    if plan is not None and split is None:
-        return fused_big_ifft(flat, elem, shape_key=(n, *plan, lo, roll, gain),
-                              n_valid=n_valid)
-    if plan is not None:
-        return fused_big_ifft_oc(flat[:, :n_valid], elem,
-                                 shape_key=(n, 1, *split, lo, roll, gain))
-    if (big := plan_big_ifft(n, lo)) is not None:
-        split = ifft_big.pair_split(n, lo)
-        key = (n, *big) if split in (None, (big[0] * big[1], big[2])) else (n, 1, *split)
-        return fused_big_ifft_oc(flat[:, :n_valid], elem, shape_key=(*key, lo, roll, gain))
+    route, key = epilogue_route(n, lo, roll, gain)
+    if route == "cluster":
+        return fused_big_ifft(flat, elem, shape_key=key, n_valid=n_valid)
+    if route == "pair":
+        return fused_big_ifft_oc(flat[:, :n_valid], elem, shape_key=key)
     fused_inversion.composed_epilogues += 1
     return epilogue(flat, elem, lo, roll, gain, n_valid)
 
 
+@spanned("inversion")
 def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
                     perm: torch.Tensor, elem: Optional[torch.Tensor],
                     geom: geometry.SynthesisGeometry, *, spans_nyquist: bool,

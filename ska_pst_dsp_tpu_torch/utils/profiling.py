@@ -14,12 +14,28 @@ reference sprinkles tic/toc prints through every kernel and driver
   (``SKA_PST_TRACE_DIR`` or an explicit path), and a no-op otherwise, so
   drivers can leave it permanently in place;
 * :func:`clock` — a stopwatch for the work on a device: CUDA events on a
-  card, the host clock on the CPU.
+  card, the host clock on the CPU;
+* :func:`span` and :func:`spanned` — the program's own spans at its layer
+  boundaries, ``pst:<name>`` events on the host in the profiler's trace
+  while a profiler records (a :func:`trace` scope, or any other
+  ``torch.profiler`` run), and a shared null context otherwise;
+* :func:`counters` — every counter of the program in one dict.
+
+The spans, by layer (each nests in the one above it on the host thread):
+
+* chain and stream: ``forward`` (the one-shot round trips),
+  ``filterbank`` and ``inverse_filterbank`` (the streaming stages'
+  ``execute``), ``carry`` (each carry's ``torch.cat`` in those);
+* wrappers: ``kernel.<name>`` (each of the ten kernel wrappers, under its
+  key in :func:`..ops.kernels.wrappers`), ``inversion``
+  (``fused_inversion``) and ``dispatch`` (the epilogue's choice of route,
+  ending before the chosen epilogue is called).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import os
 import time
@@ -28,6 +44,60 @@ from typing import Callable, Dict, Optional
 import torch
 
 module_logger = logging.getLogger(__name__)
+
+#: prefix of the program's annotations in the profiler's trace
+PREFIX = "pst:"
+_recording = torch.autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+def _scope(label: str):
+    """The profiler's record of one span: torch's fast RecordFunction (a
+    ``cpu_op`` event in the trace; a fraction of ``record_function``'s
+    cost while the profiler records), else ``record_function``."""
+    fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+    return torch.profiler.record_function(label) if fast is None else fast(label)
+
+
+def span(name: str):
+    """The span ``"pst:" + name`` while a profiler records; otherwise one
+    shared null context, so that a span costs one C call and a ``with``
+    when nobody traces."""
+    return _scope(PREFIX + name) if _recording() else _OFF
+
+
+def spanned(name: str):
+    """Decorator: the whole call of the function is the span ``name``
+    (:func:`span`); with no profiler recording the function is called
+    straight, which costs less than a ``with span()``."""
+    label = PREFIX + name
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _recording():
+                return fn(*args, **kwargs)
+            with _scope(label):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def counters() -> Dict[str, int]:
+    """Every counter of the program: each kernel wrapper's ``launches``
+    (by its key in :func:`..ops.kernels.wrappers`),
+    ``fused_inversion.composed_epilogues`` as ``composed_epilogues``, and
+    the bytes the streaming stages' carries have written
+    (``models.streaming.carry.bytes``) as ``carry_bytes``. Each counts from
+    the process's start; take the difference of two readings."""
+    from ..models import streaming
+    from ..ops.kernels import wrappers
+    from ..ops.kernels.synthesis_fused import fused_inversion
+
+    out = {k: w.launches for k, w in wrappers().items()}
+    out["composed_epilogues"] = fused_inversion.composed_epilogues
+    out["carry_bytes"] = streaming.carry.bytes
+    return out
 
 
 def clock(device: torch.device) -> Callable[[], float]:

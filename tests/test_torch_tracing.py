@@ -1,0 +1,288 @@
+"""The port's spans and counters (``utils/profiling.py``), on the CPU.
+
+* With no profiler recording, :func:`span` hands back one shared null
+  context and a round trip never calls ``record_function`` or the fast
+  RecordFunction.
+* Under a CPU ``torch.profiler.profile`` the low round trip, a reduced
+  SKA-Mid round trip whose epilogue takes the out-of-core route and a
+  ``FilterBank`` -> ``InverseFilterBank`` stream emit their ``pst:`` spans,
+  each nested in the span above it in its layer; ``dispatch`` ends before
+  the epilogue it chose starts.
+* Outputs are bitwise the same with the profiler on and off.
+* ``carry_bytes`` counts the bytes of every carry's ``torch.cat`` output,
+  reckoned here from the sizes of the carried buffers and the blocks.
+* :func:`counters` holds every wrapper's launches, the composed epilogues
+  and the carry's bytes.
+* On the card (marked ``cuda``; this module imports neither JAX nor the
+  JAX package, so it runs there with ``--noconftest``): the low and mid
+  main paths and the low stream emit the same spans, the out-of-core
+  pair's two kernels among mid's, one ``kernel.<name>`` span for each
+  launch its wrapper counts.
+"""
+
+import contextlib
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ska_pst_dsp_tpu_torch.design import fir
+from ska_pst_dsp_tpu_torch.entry import (
+    L, N_CHAN, OS_FACTOR, OVERLAP, TAPS_PER_CHAN, low_round_trip, mid_round_trip,
+)
+from ska_pst_dsp_tpu_torch.models import streaming
+from ska_pst_dsp_tpu_torch.models.round_trip import PaddedPFBRoundTrip, PFBRoundTrip
+from ska_pst_dsp_tpu_torch.ops.kernels import synthesis_fused as tsf
+from ska_pst_dsp_tpu_torch.ops.kernels import wrappers
+from ska_pst_dsp_tpu_torch.utils import geometry, profiling
+from ska_pst_dsp_tpu_torch.utils.rational import Rational
+
+#: a reduced SKA-Mid slice: 1024 channels at 8/7, L 512 / overlap 128, so
+#: N = 458752 = 7 * 128 * 512 and the epilogue takes the out-of-core pair
+MID_CHAN, MID_OS, MID_L, MID_OV = 1024, Rational(8, 7), 512, 128
+#: low's block of sgcht's stream, and the blocks the test stream runs
+BLOCK, BLOCKS = 65536, 4
+
+#: each span's parent among the program's spans (None: the outermost), for
+#: every span each case emits on the CPU (the plain versions run inside
+#: the wrappers' spans; the out-of-core pair's two kernels only on a card)
+NESTING = {
+    "low": {"forward": None, "kernel.analysis_fused": "forward", "inversion": "forward",
+            "kernel.synthesis_fused": "inversion", "dispatch": "inversion",
+            "kernel.ifft_fused": "inversion"},
+    "mid_pair": {"forward": None, "kernel.analysis_padded_fused": "forward",
+                 "kernel.chan_dft_fused": "forward", "inversion": "forward",
+                 "kernel.synthesis_fused": "inversion", "dispatch": "inversion"},
+    "stream": {"filterbank": None, "inverse_filterbank": None, "carry": None,
+               "kernel.analysis_fused": "filterbank", "inversion": "inverse_filterbank",
+               "kernel.synthesis_fused": "inversion", "dispatch": "inversion",
+               "kernel.ifft_fused": "inversion"},
+}
+#: on the card mid's main path runs the out-of-core pair's two kernels
+CARD_NESTING = {
+    "low": NESTING["low"], "stream": NESTING["stream"],
+    "mid": {**NESTING["mid_pair"], "kernel.ifft_big_inner": "inversion",
+            "kernel.ifft_big_outer": "inversion"},
+}
+#: the carries' parents: the stage whose execute joins them
+CARRY_PARENTS = {"filterbank", "inverse_filterbank"}
+
+
+@dataclasses.dataclass
+class LowConfig:
+    """The SKA-Low configuration as the streaming stages read it."""
+    _filt: np.ndarray
+    analysis_function: str = "polyphase_analysis"
+    channels: int = N_CHAN
+    os_factor: Rational = OS_FACTOR
+    input_fft_length: int = L
+    input_overlap: int = OVERLAP
+    deripple: bool = True
+    temporal_taper: str = "tukey"
+    kept_channels: int = None
+
+    def load_fir_filter_coeff(self):
+        return self._filt
+
+
+def _noise(shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.complex(torch.randn(shape, generator=g), torch.randn(shape, generator=g))
+
+
+@pytest.fixture(scope="module")
+def low_filt():
+    return fir.design_pfb_fir_filter(N_CHAN, OS_FACTOR, TAPS_PER_CHAN)
+
+
+@pytest.fixture(scope="module")
+def cases(low_filt):
+    """name -> a fresh run of the case: () -> its outputs."""
+    mid_filt = fir.design_pfb_fir_filter(MID_CHAN, MID_OS, 4)
+    mid_geom = geometry.SynthesisGeometry(MID_CHAN, MID_L, MID_OV, MID_OS)
+    mid_step = geometry.analysis_step(MID_CHAN, MID_OS)
+    x_low = _noise((2, 2 ** 16), 1)
+    x_mid = _noise((2, (2 * MID_OV + mid_geom.input_keep) * mid_step), 2)
+    x_stream = _noise((2, BLOCKS * BLOCK), 3)
+
+    def low():
+        m = PFBRoundTrip.from_filter(low_filt, N_CHAN, OS_FACTOR, L, OVERLAP, device="cpu",
+                                     temporal_taper="tukey")
+        return [m(x_low)]
+
+    def mid_pair():
+        m = PaddedPFBRoundTrip.from_filter(mid_filt, MID_CHAN, MID_OS, MID_L, MID_OV,
+                                           device="cpu")
+        return [m(x_mid)]
+
+    def stream():
+        return run_stream(low_filt, x_stream)
+
+    return {"low": low, "mid_pair": mid_pair, "stream": stream}
+
+
+def run_stream(filt, x, shapes=None, device="cpu"):
+    """``x`` through a fresh FilterBank then InverseFilterBank in blocks of
+    BLOCK; before each call that has a carried buffer, (its shape, the
+    block's shape) is appended to ``shapes``."""
+    cfg = LowConfig(filt)
+    fb = streaming.FilterBank(cfg, device=device)
+    inv = streaming.InverseFilterBank(cfg, device=device)
+    s_fb, s_inv = fb.init_state(), inv.init_state()
+    outs = []
+    for a in range(0, x.shape[-1], BLOCK):
+        block = x[:, a:a + BLOCK]
+        if shapes is not None and s_fb.buffer is not None:
+            shapes.append((s_fb.buffer.shape, block.shape))
+        s_fb, y = fb.execute(s_fb, block)
+        if shapes is not None and s_inv.buffer is not None:
+            shapes.append((s_inv.buffer.shape, y.shape))
+        s_inv, z = inv.execute(s_inv, y)
+        outs += [y, z]
+    return outs
+
+
+def _program_spans(prof):
+    """[(name, parent program span's name or None, start, end)] of the
+    ``pst:`` annotations of a profile on the host (with the card's activity
+    recorded an annotation that holds kernels shows on the card's timeline
+    too)."""
+    out = []
+    for ev in prof.events():
+        if not ev.name.startswith(profiling.PREFIX) or ev.device_type != DeviceType.CPU:
+            continue
+        parent = ev.cpu_parent
+        while parent is not None and not parent.name.startswith(profiling.PREFIX):
+            parent = parent.cpu_parent
+        out.append((ev.name[len(profiling.PREFIX):],
+                    None if parent is None else parent.name[len(profiling.PREFIX):],
+                    ev.time_range.start, ev.time_range.end))
+    return out
+
+
+def _profiled(fn):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, _program_spans(prof)
+
+
+def test_span_off_is_one_shared_null_context():
+    assert not torch.autograd._profiler_enabled()
+    assert profiling.span("forward") is profiling.span("dispatch")
+    assert isinstance(profiling.span("carry"), contextlib.nullcontext)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.span("carry"):
+            pass
+    assert [e.name for e in prof.events()] == ["pst:carry"]
+
+
+def test_no_profiler_no_record_function(cases, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function called with no profiler recording")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    out = cases["low"]()
+    assert out[0].shape[0] == 2 and torch.isfinite(out[0].abs()).all()
+
+
+@pytest.mark.parametrize("case", sorted(NESTING))
+def test_spans_nest_by_layer(cases, case):
+    _, spans = _profiled(cases[case])
+    want = NESTING[case]
+    assert {n for n, *_ in spans} == set(want)
+    for name, parent, _, _ in spans:
+        if name == "carry":
+            assert parent in CARRY_PARENTS
+        else:
+            assert parent == want[name], (name, parent)
+    # a request's spans: one of each; the stream's: one each a block
+    counts = {n: sum(1 for s in spans if s[0] == n) for n in want}
+    if case == "stream":
+        assert counts["filterbank"] == counts["inverse_filterbank"] == BLOCKS
+        assert counts["carry"] == 2 * BLOCKS - 2  # the first call of each has none
+    else:
+        assert set(counts.values()) == {1}
+    # the dispatch chooses, then the chosen epilogue runs after it
+    for _, _, a, b in (s for s in spans if s[0] == "dispatch"):
+        later = [s for s in spans if s[0] == "kernel.ifft_fused" and s[2] >= b]
+        assert case == "mid_pair" or later
+
+
+def test_mid_pair_takes_the_out_of_core_route(cases, monkeypatch):
+    g = geometry.SynthesisGeometry(MID_CHAN, MID_L, MID_OV, MID_OS)
+    route, key = tsf.epilogue_route(g.output_fft_length, g.output_overlap,
+                                    g.fn_width // 2, 7 / 8)
+    assert route == "pair" and key[:4] == (g.output_fft_length, 7, 128, 512)
+    taken = []
+    pair = tsf.fused_big_ifft_oc
+    monkeypatch.setattr(tsf, "fused_big_ifft_oc",
+                        lambda *a, **k: taken.append(k["shape_key"]) or pair(*a, **k))
+    cases["mid_pair"]()
+    assert taken == [key]
+
+
+@pytest.mark.parametrize("case", ["low", "stream"])
+def test_outputs_bitwise_with_profiler_on_and_off(cases, case):
+    off = cases[case]()
+    on, spans = _profiled(cases[case])
+    assert spans and len(on) == len(off)
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+
+
+def test_carry_bytes_counts_the_cat_outputs(low_filt):
+    shapes = []
+    before = streaming.carry.bytes
+    run_stream(low_filt, _noise((2, 6 * BLOCK), 4), shapes)
+    counted = streaming.carry.bytes - before
+    # every carried buffer is joined to the block after it: complex64 bytes
+    # of a buffer of n samples and a block of m, per polarisation and channel
+    want = sum(8 * int(np.prod(buf[:-1])) * (buf[-1] + blk[-1])
+               for buf, blk in shapes if buf[-1] > 0)
+    assert len(shapes) == 2 * 6 - 2 and counted == want > 0
+
+
+def test_counters_hold_every_counter(cases):
+    before = profiling.counters()
+    assert set(before) == {*wrappers(), "composed_epilogues", "carry_bytes"}
+    assert all(isinstance(v, int) for v in before.values())
+    cases["stream"]()
+    after = profiling.counters()
+    # the CPU runs the plain versions: no launch, the carries counted
+    assert after["carry_bytes"] > before["carry_bytes"]
+    assert {k: after[k] - before[k] for k in wrappers()} == dict.fromkeys(wrappers(), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CARD_NESTING))
+def test_card_spans_nest_and_match_the_launches(low_filt, case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    if case == "stream":
+        x = _noise((2, BLOCKS * BLOCK), 5).to(dev)
+        run = lambda: run_stream(low_filt, x, device=dev)  # noqa: E731
+    else:
+        model = (low_round_trip if case == "low" else mid_round_trip)(dev)
+        x = _noise((2, 2 ** 23 if case == "low" else 4_587_520), 5).to(dev)
+        run = lambda: [model(x)]  # noqa: E731
+    run()
+    before = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize(dev)
+    after = profiling.counters()
+    spans = _program_spans(prof)
+    want = CARD_NESTING[case]
+    assert {n for n, *_ in spans} == set(want)
+    for name, parent, _, _ in spans:
+        assert parent in CARRY_PARENTS if name == "carry" else parent == want[name], (
+            name, parent)
+    launched = {k: after[k] - before[k] for k in wrappers()}
+    assert launched == {k: sum(1 for s in spans if s[0] == f"kernel.{k}") for k in wrappers()}
+    assert after["composed_epilogues"] == before["composed_epilogues"]

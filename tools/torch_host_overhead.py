@@ -15,7 +15,11 @@ the ctypes launch and the whole wrapper of ``analysis_fused`` and
 ``fused_big_ifft`` (the epilogue beside torch.fft.ifft), and of
 ``padded_fold_fused`` at the mid main path's shape, its launch with the
 stream's tensor map found among those the library keeps and with it encoded
-anew.
+anew. Last, the program's spans (``utils/profiling.py``): a ``with
+span(...)``, a call through ``spanned`` and a ``with record_function``
+beside the bare call, each with no profiler recording and under a
+recording ``torch.profiler``, and the epilogue's choice of route (the
+``dispatch`` span's work) at the low and mid main paths' geometries.
 """
 
 from __future__ import annotations
@@ -57,7 +61,10 @@ def main() -> int:
     from ska_pst_dsp_tpu_torch.ops.kernels import analysis_padded_fused as apf
     from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import analysis_fused
     from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import fused_big_ifft, plan_ifft
-    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import LENGTHS, synthesis_fused
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import (
+        LENGTHS, epilogue_route, synthesis_fused,
+    )
+    from ska_pst_dsp_tpu_torch.utils.profiling import span, spanned
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -134,8 +141,8 @@ def main() -> int:
         "synthesis_fused (whole wrapper)": lambda: synthesis_fused(*fargs),
         "analysis_fused_launch (ctypes, launch)": lambda: lib.analysis_fused_launch(
             x.data_ptr(), chan.data_ptr(), low.f2d.data_ptr(), ptw.data_ptr(), ptw.data_ptr(),
-            low.ramp.data_ptr(), 2, x.shape[1], nblocks, 256, 1, 8, low.step, phases,
-            low.ramp.shape[0], 0, SMEM_LIMIT, stream_of(x)),
+            low.ramp.data_ptr(), 2, x.shape[1], x.stride(0), nblocks, 256, 1, 8, low.step,
+            phases, low.ramp.shape[0], 0, SMEM_LIMIT, stream_of(x)),
         "analysis_fused (whole wrapper)": lambda: analysis_fused(x, low.f2d, low.ramp, low.step),
         "padded_fold_launch (ctypes, launch, tensor map kept)": lambda: fold_launch(xm),
         "padded_fold_launch (ctypes, launch, tensor map encoded)": lambda: fold_launch(
@@ -145,9 +152,36 @@ def main() -> int:
         "fused_big_ifft (whole wrapper)": lambda: fused_big_ifft(flat, None, shape_key=key),
         "torch.fft.ifft (2, B, 49152)": lambda: torch.fft.ifft(flat, dim=-1),
     }
+
+    def in_span():
+        with span("x"):
+            pass
+
+    def bare():
+        pass
+
+    def route(g):
+        return epilogue_route(g.output_fft_length, g.output_overlap, g.fn_width // 2,
+                              g.os_factor.de / g.os_factor.nu)
+
+    def in_record_function():
+        with torch.profiler.record_function("x"):
+            pass
+
+    spans = {"bare call": bare, "with span (empty)": in_span,
+             "spanned call (empty)": spanned("x")(bare),
+             "with torch.profiler.record_function (empty)": in_record_function}
+    steps.update({f"{k}, no profiler": fn for k, fn in spans.items()})
+    steps["epilogue_route (low, cluster)"] = lambda: route(lg)
+    steps["epilogue_route (mid, pair)"] = lambda: route(geom)
     with torch.cuda.device(dev):
         for name, fn in steps.items():
             print(f"[host] {name}: {host_us(torch, fn):.2f} us per call ({smi})", flush=True)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]):
+            for name, fn in spans.items():
+                print(f"[host] {name}, profiler recording: {host_us(torch, fn):.2f} us per "
+                      f"call ({smi})", flush=True)
     return 0
 
 
