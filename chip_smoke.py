@@ -16,9 +16,15 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    tests/test_pallas.py; each kernel's time beside its plain version's, back
    to back and, from torch.profiler, on the device; the epilogue's resident
    clusters, its ratio to torch.fft.ifft and to a yardstick, the ifft_big
-   pair run at the low shape (n2 = 1 * 128, n1 = 384).
+   pair run at the low shape (n2 = 1 * 128, n1 = 384). Then the fused
+   inversion (``inversion_fused``: frontend and cluster epilogue in one
+   kernel, which the low main path runs) against its plain version (the
+   frontend then the epilogue; 1.2e-5 * scale, with and without ``elem``)
+   at 2 x 272 blocks and at a stream block's batch of 2 x 2 blocks of a
+   channel-major view, each beside the two kernels it replaces.
 4. slice: 2 pol x 2^23 samples (bench.py's size) through
-   ``PFBRoundTrip`` on the kernels: every launch counter rises, the output is
+   ``PFBRoundTrip`` on the kernels: analysis_fused and inversion_fused
+   launch once each and nothing else, the output is
    finite and matches the plain chain on the card (1.2e-5 * scale) and, on a
    2^19-sample prefix, the fp64 numpy oracle (3e-6 * scale, the tolerance of
    tests/test_synthesis.py:37).
@@ -194,7 +200,8 @@ Phases (one line each; any failure raises and the exit code is non-zero):
 Every bound is taken against the card's peaks from the bench's table
 (``bench.PEAKS``, by ``torch.cuda.get_device_name``). The line before the
 last is a JSON object with one entry per kernel (one per pallas_call of the
-JAX package, then the ingest engine's three); the last line is
+JAX package, the fused inversion, then the ingest engine's three); the last
+line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -504,6 +511,82 @@ def other_geometries(torch, dev):
             + f", bound {bnd[0]:.4f} ms ({bnd[1]})")
 
 
+def inversion_entry(torch, model, chan, smi):
+    """The fused SKA-Low inversion kernel against its plain version (the
+    frontend then the epilogue) at the main path's 2 x 272 blocks, with and
+    without ``elem``, and at a stream block's batch (2 x 2 blocks of a
+    channel-major view), each beside the two-kernel route it replaces
+    (synthesis_fused then fused_big_ifft); its kernels-line entry."""
+    from ska_pst_dsp_tpu_torch.entry import L, OVERLAP
+    from ska_pst_dsp_tpu_torch.ops import synthesis as ps
+    from ska_pst_dsp_tpu_torch.ops.kernels import inversion_fused as inv
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import fused_big_ifft
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import synthesis_fused
+    from ska_pst_dsp_tpu_torch.utils import windows
+
+    g = model.geom
+    consts = (model.t_taper, model.dr, model.perm)
+    keep, kpos = g.input_keep, (L // 2 + g.discard) % L
+    n, lo, roll = g.output_fft_length, g.output_overlap, g.fn_width // 2
+    gain = g.os_factor.de / g.os_factor.nu
+    elem = torch.as_tensor(np.roll(windows.build("tukey", n, OVERLAP), roll)
+                           .astype(np.complex64), device=chan.device)
+    check(inv.takes(L, chan.shape[2], n, lo), "inversion_fused does not take the low geometry")
+
+    def fused(x_tc, nb, e=None):
+        return inv.inversion_fused(x_tc, *consts, e, keep, kpos, nb, lo, roll, gain)
+
+    def plain(x_tc, nb, e=None):
+        fn = ps.frontend(x_tc, *consts, L, keep, kpos, nb)
+        return ps.epilogue(fn.reshape(x_tc.shape[0], nb, n), e, lo, roll, gain, nb)
+
+    def two_kernels(x_tc, nb):
+        fn = synthesis_fused(x_tc, *consts, L, keep, kpos, nb)
+        return fused_big_ifft(fn.reshape(x_tc.shape[0], nb, n), None,
+                              shape_key=(n, 128, 384, lo, roll, gain), n_valid=nb)
+
+    nb = g.n_blocks(chan.shape[1])
+    with_elem = rel_err(fused(chan, nb, elem), plain(chan, nb, elem))
+    compare("inversion_fused with elem", with_elem, SYNTHESIS_TOL,
+            time_ms(torch, lambda: fused(chan, nb, elem)),
+            time_ms(torch, lambda: plain(chan, nb, elem)))
+    err = max(rel_err(fused(chan, nb), plain(chan, nb)), with_elem, key=lambda e: e[1])
+    flops = fft_flops(L, 2 * nb * chan.shape[2]) + fft_flops(n, 2 * nb)
+    out_bytes = 2 * nb * (n - 2 * lo) * 8
+    entry = kernel_entry("inversion_fused", "inversion_fused", "none alone: fuses the ports of "
+                         + PALLAS + "synthesis_fused.py:244 and " + PALLAS + "ifft_fused.py:268",
+                         err, SYNTHESIS_TOL, time_ms(torch, lambda: fused(chan, nb)),
+                         time_ms(torch, lambda: plain(chan, nb)),
+                         bound(nbytes(chan, *consts) + out_bytes, flops), None)
+    entry.update(more_times(torch, "inversion_fused", lambda: fused(chan, nb), None,
+                            "inversion_fused_kernel", smi))
+    entry["two_kernel_ms"] = time_ms(torch, lambda: two_kernels(chan, nb))
+    # the bound with every frame read from device memory, its overlap again
+    entry["bound_ms_frames_reread"] = bound(
+        2 * nb * chan.shape[2] * L * 8 + out_bytes, flops)[0]
+    entry["active_clusters"] = inv.active_clusters()
+    # a stream block's batch: 2 pol x 2 inversion blocks of a channel-major view
+    nb_s = 2
+    cm = torch.as_tensor(noise((2, chan.shape[2], 2 * OVERLAP + nb_s * keep + 5), SEED + 17),
+                         device=chan.device)[:, :, 5:].transpose(1, 2)
+    serr = rel_err(fused(cm, nb_s), plain(cm, nb_s))
+    check(serr[1] <= SYNTHESIS_TOL, f"inversion_fused at a stream batch: {serr[1]:.3g}")
+    entry["stream_batch"] = {
+        "blocks": 2 * nb_s, "max_rel_err": serr[1], "ms": time_ms(torch, lambda: fused(cm, nb_s)),
+        "plain_ms": time_ms(torch, lambda: plain(cm, nb_s)),
+        "two_kernel_ms": time_ms(torch, lambda: two_kernels(cm, nb_s)),
+        "bound_ms": bound(2 * nb_s * chan.shape[2] * L * 8 + 2 * nb_s * (n - 2 * lo) * 8,
+                          fft_flops(L, 2 * nb_s * chan.shape[2]) + fft_flops(n, 2 * nb_s))[0]}
+    log("kernels", f"inversion_fused: {entry['active_clusters']} clusters of 8 resident; "
+        f"{entry['ms']:.4f} ms one call against the two kernels' {entry['two_kernel_ms']:.4f} "
+        f"ms; bound {entry['bound_ms']:.4f} ms (each input read once; "
+        f"{entry['bound_ms_frames_reread']:.4f} with every frame read again); stream batch "
+        f"of {2 * nb_s} blocks: {entry['stream_batch']['ms']:.4f} ms against the two kernels' "
+        f"{entry['stream_batch']['two_kernel_ms']:.4f} ms, max|err|/scale {serr[1]:.3g} "
+        f"({smi})")
+    return entry
+
+
 def main() -> int:
     import torch
 
@@ -601,7 +684,7 @@ def main() -> int:
                  fft_flops(L, n_frames) + 2 * L * n_frames), lib_ms)
     kernels[-1].update(more_times(torch, "synthesis_fused", lambda: synthesis_fused(*fargs),
                                   lib_call, "synthesis_frontend_kernel", smi))
-    del chan, lib_call
+    del lib_call
 
     n, lo, roll = g.output_fft_length, g.output_overlap, g.fn_width // 2
     gain = OS_FACTOR.de / OS_FACTOR.nu
@@ -654,12 +737,16 @@ def main() -> int:
         + (", ".join(f"{k} {v:.4f} ms" for k, v in pair["device_ms"].items())
            or "not measured") + f"; max|err|/scale {pair_err[1]:.3g}) ({smi})")
     del fn, flat
+    kernels.append(inversion_entry(torch, model, chan, smi))
+    del chan
 
     # 4. the slice at full size through the module, then the oracle prefix
     out, launches = counted_forward(torch, model, x)
     log("slice", f"launch counts over one forward of 2 x 2^23: {launches}")
+    ran = {k: v for k, v in launches.items() if v}
+    check(ran == dict.fromkeys(LOW_KERNELS, 1),
+          f"the low forward launched {ran}, expected {LOW_KERNELS} once each")
     for entry in kernels:
-        check(launches[entry["name"]] > 0, f"{entry['name']} was not launched by the main path")
         entry["launches"] = launches[entry["name"]]
     n_out = g.n_blocks(geometry.analysis_nblocks(N_DAT, 3073, N_CHAN, OS_FACTOR)) * g.output_keep
     check(tuple(out.shape) == (2, 1, n_out), f"output shape {tuple(out.shape)}")
@@ -1157,7 +1244,7 @@ def run_streaming(torch, dev, smi, one_shot_ms):
     from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import polyphase_synthesis_fused
     from ska_pst_dsp_tpu_torch.utils.config import load_config
 
-    kernels = {"low": ("analysis_fused", "synthesis_fused", "ifft_fused"),
+    kernels = {"low": LOW_KERNELS,
                "mid": ("analysis_padded_fused", "chan_dft_fused", "synthesis_fused",
                        "ifft_big_inner", "ifft_big_outer")}
     for name, n_dat in (("low", N_DAT), ("mid", MID_N_DAT)):
@@ -1444,8 +1531,7 @@ def run_two_stage(torch, dev, smi):
     low = load_config("low")
     tone = cascade_blocks(torch, PureTone(TONE, device=dev))
     cases = (
-        ("oversampled", {}, {"nch2": 256}, ("analysis_fused", "synthesis_fused", "ifft_fused"),
-         False),
+        ("oversampled", {}, {"nch2": 256}, LOW_KERNELS, False),
         ("critical", {"critical": True}, {"nch2": 192}, ("analysis_fused", "synthesis_fused"),
          True),
         ("critical, combine 16", {"critical": True}, {"nch2": 192, "combine": 16},
@@ -1601,7 +1687,7 @@ def run_dedispersion(torch, dev, smi):
         with plain_versions_raise(torch):
             b = inv(h)
         counts = read_counts(torch, ws)
-        kernels = (("synthesis_fused", "ifft_fused") if name == "low"
+        kernels = (("inversion_fused",) if name == "low"
                    else ("synthesis_fused", "ifft_big_inner", "ifft_big_outer"))
         expect_launches(f"dedisp-{name}", counts, kernels, composed=False)
         c = ps.polyphase_synthesis(chan.transpose(1, 2), cfg.input_fft_length, cfg.os_factor,
@@ -1634,7 +1720,11 @@ def run_dedispersion(torch, dev, smi):
 PRODUCTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "products")
 #: the mid data_gen tone, in cycles per sample (an integer bin of 4,587,520)
 MID_TONE = 0.1
-LOW_KERNELS = ("analysis_fused", "synthesis_fused", "ifft_fused")
+#: the low main path: the analysis, then the fused inversion
+LOW_KERNELS = ("analysis_fused", "inversion_fused")
+#: the low chain on a 2-D mesh: its corner turn sits between the frontend
+#: and the epilogue, so it runs the two kernels
+LOW_CORNER_TURN_KERNELS = ("analysis_fused", "synthesis_fused", "ifft_fused")
 MID_KERNELS = ("analysis_padded_fused", "chan_dft_fused", "synthesis_fused", "ifft_big_inner",
                "ifft_big_outer")
 PAIR = ("ifft_big_inner", "ifft_big_outer")
@@ -1776,7 +1866,7 @@ def sweep_kernels(cfg, extra):
     41472-point (LowCBF's 216 kept channels) inversions have no epilogue
     plan in either package; the combine-16 inversions (589824 points) run
     on the ifft_big pair, mid's single stage on the pair, low's on the
-    cluster epilogue."""
+    fused inversion."""
     if cfg is None:
         return (), False
     fwd = ("analysis_padded_fused", "chan_dft_fused") if cfg == "mid" else ("analysis_fused",)
@@ -1787,7 +1877,7 @@ def sweep_kernels(cfg, extra):
     elif "--critical" in extra or cfg == "lowpsi":
         epi = ()
     else:
-        epi = ("ifft_fused",)
+        return fwd + ("inversion_fused",), False
     return fwd + ("synthesis_fused",) + epi, not epi
 
 
@@ -2144,8 +2234,9 @@ def verify_modules(torch, dev, smi, tmp):
             f"folded {r['folded_mean_diff_db']:.2f} dB over {r['n_compared']} samples; "
             f"{seconds:.2f} s ({smi})")
 
-    for name, kernels, composed in (("low", LOW_KERNELS, MATRIX_GROUP_INVERSIONS),
-                                    ("mid", MID_KERNELS, 0)):
+    # at low the full-band inversions run fused, the channel groups' composed
+    for name, kernels, composed in (("low", LOW_KERNELS + ("synthesis_fused",),
+                                     MATRIX_GROUP_INVERSIONS), ("mid", MID_KERNELS, 0)):
         # a directory each: the drift baseline is the previous report's
         out = os.path.join(tmp, f"matrix-{name}")
         os.makedirs(out)
@@ -2656,7 +2747,7 @@ def parallel_cases(world, paths):
     for dc, dt in ((2, 1),) if world == 2 else ((2, 2), (4, 1)):
         cases.append((f"low 2-D {dc} x {dt}", Call(ct.sharded_round_trip_2d, (x_low, *low),
                                                    mesh_2d=(dc, dt)), "time_chan", dc,
-                      LOW_KERNELS, "low"))
+                      LOW_CORNER_TURN_KERNELS, "low"))
     cases.append(("mid 1-D", Call(sh.sharded_round_trip_padded, (x_mid, *mid)), "time", 1,
                   MID_KERNELS, "mid"))
     dc, dt = 2, world // 2

@@ -15,7 +15,8 @@ prints ONE JSON line
 
 * low (:data:`CONFIGS`): 256 channels, OS 4/3, 3073 taps, L=256 / overlap
   48, 2 pol x 2^23 samples through :class:`.models.PFBRoundTrip`
-  (analysis_fused, synthesis_fused, ifft_fused); mid: 4096 channels, OS
+  (analysis_fused, then inversion_fused: the frontend and the epilogue in one
+  kernel); mid: 4096 channels, OS
   8/7, the 100353-tap two-stage filter zero-padded, L=512 / overlap 128, 2
   pol x 4,587,520 samples through :class:`.models.PaddedPFBRoundTrip` (the
   padded fold, the channel DFT, the frontend, the ifft_big pair). The
@@ -84,7 +85,7 @@ PEAKS = {
 }
 #: the kernels each round trip launches once a call (none composed)
 KERNELS = {
-    "low": ("analysis_fused", "synthesis_fused", "ifft_fused"),
+    "low": ("analysis_fused", "inversion_fused"),
     "mid": ("analysis_padded_fused", "chan_dft_fused", "synthesis_fused",
             "ifft_big_inner", "ifft_big_outer"),
 }

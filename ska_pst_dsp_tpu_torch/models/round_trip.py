@@ -3,8 +3,9 @@
 :class:`PFBRoundTrip` (SKA-Low) runs the fused chain the JAX package times
 on its chip (bench.py: ``polyphase_analysis_fused(..., time_major=True,
 keep_padding=True)`` then ``polyphase_synthesis_fused(...,
-time_major_in=True, valid_len=nb)``): three CUDA kernels — analysis,
-inversion frontend, epilogue. :class:`PaddedPFBRoundTrip` (SKA-Mid) runs
+time_major_in=True, valid_len=nb)``): two CUDA kernels — the analysis,
+and the inversion's frontend and epilogue fused in one
+(:mod:`..ops.kernels.inversion_fused`). :class:`PaddedPFBRoundTrip` (SKA-Mid) runs
 bench.py's mid chain (``polyphase_analysis_padded_fused(...,
 time_major=True)`` then ``polyphase_synthesis_fused(...,
 time_major_in=True)``) on five: padded fold, channel DFT, frontend and the

@@ -20,7 +20,10 @@ on it: nothing on the card gives way to the plain version:
 * :mod:`.ifft_big`        — mid's out-of-core epilogue (two launches);
 * :mod:`.dada_unpack`     — the DADA ingest engine's unpacks (file words
   to complex64 planes, TFP and LowCBF) and pack (the write side), which
-  replace the JAX package's host C++ engine, not a Pallas kernel.
+  replace the JAX package's host C++ engine, not a Pallas kernel;
+* :mod:`.inversion_fused` — the SKA-Low inversion's frontend and cluster
+  epilogue in one kernel, the assembled spectra kept in the cluster's
+  shared memory (fuses two Pallas kernels' ports; replaces neither alone).
 
 The sources live in ``ska_pst_dsp_tpu_torch/csrc/``; :mod:`._build` compiles
 them on first use. This module holds the host-side helpers the wrappers
@@ -47,22 +50,24 @@ RADICES = (1, 3, 7)
 
 
 def wrappers() -> Dict[str, Callable]:
-    """The ten kernels' wrappers, every one with its ``launches`` counter:
-    the seven by the name of the Pallas kernel each replaces, then the
-    ingest engine's three."""
+    """The eleven kernels' wrappers, every one with its ``launches``
+    counter: the seven by the name of the Pallas kernel each replaces, then
+    the ingest engine's three, then the fused SKA-Low inversion."""
     from .analysis_fused import analysis_fused
     from .analysis_padded_fused import padded_fold_fused
     from .chan_dft_fused import chan_dft_ramp
     from .dada_unpack import dada_pack, dada_unpack, lowcbf_unpack
     from .ifft_big import ifft_big_inner, ifft_big_outer
     from .ifft_fused import fused_big_ifft
+    from .inversion_fused import inversion_fused
     from .synthesis_fused import synthesis_fused
 
     return {"analysis_fused": analysis_fused, "synthesis_fused": synthesis_fused,
             "ifft_fused": fused_big_ifft, "analysis_padded_fused": padded_fold_fused,
             "chan_dft_fused": chan_dft_ramp, "ifft_big_inner": ifft_big_inner,
             "ifft_big_outer": ifft_big_outer, "dada_unpack": dada_unpack,
-            "lowcbf_unpack": lowcbf_unpack, "dada_pack": dada_pack}
+            "lowcbf_unpack": lowcbf_unpack, "dada_pack": dada_pack,
+            "inversion_fused": inversion_fused}
 
 
 def radix(n: int) -> Tuple[int, int, int]:

@@ -8,7 +8,12 @@ only the kept, derippled passband bins, already in assembled spectrum order
 (n_pol, n_blocks, n_chan, FN_width). Its plain version is
 :func:`ska_pst_dsp_tpu_torch.ops.synthesis.frontend`.
 
-The epilogue follows the JAX package's dispatch (synthesis_fused.py:419-427):
+At the SKA-Low geometry :func:`fused_inversion` runs neither this kernel nor
+an epilogue kernel but :mod:`.inversion_fused`, which fuses the two so that
+the assembled spectra stay in a thread-block cluster's shared memory; the
+choice is :func:`.inversion_fused.takes`, made before anything is launched.
+Elsewhere the epilogue follows the JAX package's dispatch
+(synthesis_fused.py:419-427):
 the fused epilogue (:mod:`.ifft_fused`) where :func:`.ifft_fused.plan_ifft`
 applies (low); else the out-of-core pair (:mod:`.ifft_big`) where
 :func:`.ifft_big.plan_big_ifft` applies (mid's 1.8M-point IFFT); otherwise,
@@ -34,7 +39,9 @@ from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .. import cfft
 from ..synthesis import epilogue, frontend, synthesis_constants
-from . import _build, device_pass_twiddles, ifft_big, ifft_fused, require, stream_of
+from . import (
+    _build, device_pass_twiddles, ifft_big, ifft_fused, inversion_fused, require, stream_of,
+)
 from .ifft_big import fused_big_ifft_oc, plan_big_ifft
 from .ifft_fused import fused_big_ifft, plan_ifft
 
@@ -138,8 +145,7 @@ def epilogue_dispatch(flat: torch.Tensor, elem: Optional[torch.Tensor],
     takes raises ValueError."""
     n = geom.output_fft_length
     lo = geom.output_overlap
-    roll = geom.fn_width // 2 if spans_nyquist else 0
-    gain = geom.os_factor.de / geom.os_factor.nu
+    roll, gain = _roll_gain(geom, spans_nyquist)
     route, key = epilogue_route(n, lo, roll, gain)
     if route == "cluster":
         return fused_big_ifft(flat, elem, shape_key=key, n_valid=n_valid)
@@ -149,27 +155,40 @@ def epilogue_dispatch(flat: torch.Tensor, elem: Optional[torch.Tensor],
     return epilogue(flat, elem, lo, roll, gain, n_valid)
 
 
+def _roll_gain(geom: geometry.SynthesisGeometry, spans_nyquist: bool) -> Tuple[int, float]:
+    """The epilogue's DC-centering roll and its gain."""
+    return (geom.fn_width // 2 if spans_nyquist else 0,
+            geom.os_factor.de / geom.os_factor.nu)
+
+
 @spanned("inversion")
 def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
                     perm: torch.Tensor, elem: Optional[torch.Tensor],
                     geom: geometry.SynthesisGeometry, *, spans_nyquist: bool,
                     valid_len: Optional[int] = None) -> torch.Tensor:
-    """Frontend kernel + :func:`epilogue_dispatch` on a (n_pol, n_dat,
+    """The fused kernel (:mod:`.inversion_fused`) where
+    :func:`.inversion_fused.takes` the geometry (SKA-Low); elsewhere the
+    frontend kernel + :func:`epilogue_dispatch`. On a (n_pol, n_dat,
     n_chan) view; the first ``valid_len`` samples (default all) are data.
     Returns (n_pol, 1, n_blocks * output_keep) complex64. On the card a
     frame length or a split no kernel takes raises ValueError."""
-    n_pol, n_dat, _ = x_tc.shape
+    n_pol, n_dat, n_chan = x_tc.shape
     L = geom.input_fft_length
     if n_dat < L:
         raise ValueError(
             f"fused synthesis needs at least one frame: n_dat={n_dat} < L={L}"
         )
     n_blocks = geom.n_blocks(n_dat if valid_len is None else valid_len)
-    fn = synthesis_fused(
-        x_tc, t_taper, dr, perm, L, geom.input_keep,
-        (L // 2 + geom.discard) % L, n_blocks,
-    )
-    flat = fn.reshape(n_pol, n_blocks, geom.output_fft_length)
+    kpos = (L // 2 + geom.discard) % L
+    n, lo = geom.output_fft_length, geom.output_overlap
+    if inversion_fused.takes(L, n_chan, n, lo):
+        out = inversion_fused.inversion_fused(
+            x_tc, t_taper, dr, perm, elem, geom.input_keep, kpos, n_blocks, lo,
+            *_roll_gain(geom, spans_nyquist),
+        )
+        return out.reshape(n_pol, 1, -1)
+    fn = synthesis_fused(x_tc, t_taper, dr, perm, L, geom.input_keep, kpos, n_blocks)
+    flat = fn.reshape(n_pol, n_blocks, n)
     out = epilogue_dispatch(flat, elem, geom, spans_nyquist=spans_nyquist,
                             n_valid=n_blocks)
     return out.reshape(n_pol, 1, -1)

@@ -26,7 +26,7 @@ The spans, by layer (each nests in the one above it on the host thread):
 * chain and stream: ``forward`` (the one-shot round trips),
   ``filterbank`` and ``inverse_filterbank`` (the streaming stages'
   ``execute``), ``carry`` (each carry's ``torch.cat`` in those);
-* wrappers: ``kernel.<name>`` (each of the ten kernel wrappers, under its
+* wrappers: ``kernel.<name>`` (each of the eleven kernel wrappers, under its
   key in :func:`..ops.kernels.wrappers`), ``inversion``
   (``fused_inversion``) and ``dispatch`` (the epilogue's choice of route,
   ending before the chosen epilogue is called).

@@ -15,12 +15,15 @@ from ska_pst_dsp_tpu_torch.io import dada
 from ska_pst_dsp_tpu_torch.ops import analysis, synthesis
 from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import analysis_fused
 from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import fused_big_ifft
+from ska_pst_dsp_tpu_torch.ops.kernels.inversion_fused import inversion_fused
 from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import synthesis_fused
 from ska_pst_dsp_tpu_torch.utils.config import load_config
 
 ANALYSIS_TOL = 8e-6
 SYNTHESIS_TOL = 1.2e-5
-LOW_KERNELS = (analysis_fused, synthesis_fused, fused_big_ifft)
+#: the low chain's kernels, and the two the fused inversion stands in for there
+LOW_KERNELS = (analysis_fused, inversion_fused)
+PAIR_KERNELS = (synthesis_fused, fused_big_ifft)
 
 
 @pytest.fixture
@@ -40,13 +43,13 @@ def test_file_round_trip_low_on_kernels(cuda, tmp_path):
     filt = cfg.load_fir_filter_coeff()
     src = data_gen.generate_test_vector(domain_name="freq", n_bins=2 ** 20)(
         [0.26], [0.0], output_dir=str(tmp_path), n_pol=2)
-    for k in LOW_KERNELS:
+    for k in LOW_KERNELS + PAIR_KERNELS:
         k.launches = 0
     chan = data_gen.channelize(src.file_path, channels=256, os_factor_str="4/3",
                                fir_filter_path=cfg.fir_filter_path, output_dir=str(tmp_path))
     synth = data_gen.synthesize(chan.file_path, input_fft_length=256, input_overlap=48,
                                 output_dir=str(tmp_path))
-    assert [k.launches for k in LOW_KERNELS] == [1, 1, 1]
+    assert [k.launches for k in LOW_KERNELS + PAIR_KERNELS] == [1, 1, 0, 0]
     x = torch.as_tensor(dada.load(src.file_path)[0], device=cuda)
     plain_chan = analysis.polyphase_analysis(x, filt, 256, "4/3")
     plain = synthesis.polyphase_synthesis(
@@ -61,10 +64,11 @@ def test_file_round_trip_low_on_kernels(cuda, tmp_path):
 def test_sgcht_invert_test_low_without_fallback(cuda):
     import chip_smoke
 
-    for k in LOW_KERNELS:
+    for k in LOW_KERNELS + PAIR_KERNELS:
         k.launches = 0
     with chip_smoke.plain_versions_raise(torch) as patched:
         rc = sgcht.run(["--signal", "complex_sinusoid", "--cfg", "low", "--invert", "--test",
                         "--blocks", "3", "--blocksz", "131072"])
     assert patched > 0 and rc == 0
     assert all(k.launches > 0 for k in LOW_KERNELS)
+    assert not any(k.launches for k in PAIR_KERNELS)

@@ -43,6 +43,7 @@ from ska_pst_dsp_tpu_torch.ops.kernels import analysis_padded_fused as apf
 from ska_pst_dsp_tpu_torch.ops.kernels import ifft_big as big
 from ska_pst_dsp_tpu_torch.ops.kernels import analysis_fused as af
 from ska_pst_dsp_tpu_torch.ops.kernels import ifft_fused as itf
+from ska_pst_dsp_tpu_torch.ops.kernels import inversion_fused as inv
 from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import (
     analysis_fused, polyphase_analysis_fused,
 )
@@ -520,9 +521,10 @@ def emu_8xg(v, tw_pass, sign=1):
     return (y * tw) @ _dft_matrix(g, sign)  # [..., d, k]
 
 
-def emu_cluster_epilogue(X, elem, n, lo, roll, gain, n_valid):
+def emu_cluster_epilogue(X, elem, n, lo, roll, gain, n_valid, cl=None):
     """ifft_cluster_kernel on each transform, the CL blocks of a cluster
-    (itf.PLANS: n1 = r1 * q1, q1 = 8*G): block c's columns m1 in
+    (itf.PLANS: n1 = r1 * q1, q1 = 8*G; ``cl`` overrides the plan's CL, as
+    inversion_fused_kernel runs n1 = 384 on eight): block c's columns m1 in
     [c*n1/CL, (c+1)*n1/CL) of all 128 rows (the bulk copies, each a whole
     number of 16 bytes from a 16-byte offset), times elem; the 128-point
     transforms over m2 (emu_8xg, sign +1); output k2 = d + 8*k of group d
@@ -536,7 +538,8 @@ def emu_cluster_epilogue(X, elem, n, lo, roll, gain, n_valid):
     stores per sample."""
     n2 = itf.N2
     n1 = n // n2
-    r1, q1, cl = itf.PLANS[n1]
+    r1, q1, plan_cl = itf.PLANS[n1]
+    cl = plan_cl if cl is None else cl
     assert r1 * q1 == n1
     cpc, rows = n1 // cl, n2 // cl
     assert cpc * cl == n1 and (cpc * 8) % 16 == 0  # whole, aligned bulk copies
@@ -575,6 +578,46 @@ def emu_cluster_epilogue(X, elem, n, lo, roll, gain, n_valid):
                 out[p, b, t] = y[:, kept] * ph
                 np.add.at(stores[p, b], t.ravel(), 1)
     return out, stores
+
+
+def emu_inversion_fused(x_tc, taper, dr, perm, elem, keep, kpos, n_blocks, lo, roll, gain):
+    """inversion_fused_kernel on a (n_pol, n_dat, 256) stream, L = 256:
+    block r of the cluster is the frontend of channels [32r, 32r + 32) as
+    16 * 16 (t = j + 16*m: taper, the 16-point DFT over m, times w_L^(j*d)
+    from the exact table; then the 16-point DFT over j: bin d + 16*e); each
+    kept bin j' = (k - kpos) mod L < 192, times dr[j'] * gain/N, goes to
+    k' = (192*c + j' - roll) mod N, row k' // 384 of the column buffer of
+    block (k' % 384) // 48, each slot of each block exactly once; then the
+    cluster epilogue on eight blocks (emu_cluster_epilogue) on the gathered
+    block with elem read at the unshifted bin k' + roll and no roll phase
+    or gain left. Returns the output and the count of stores per sample."""
+    n_pol, _, n_chan = x_tc.shape
+    n_l, fnw, cl, cpc, n1 = taper.size, dr.size, 8, 48, 384
+    n = n_chan * fnw
+    assert (n_l, n_chan, fnw) == (256, 256, 192) and (n // n1, n1) == inv.SPLIT
+    t = np.arange(n_l)
+    frames = np.stack([x_tc[:, b * keep + t][:, :, perm] for b in range(n_blocks)], 1)
+    v = (frames.transpose(0, 1, 3, 2) * taper).astype(np.complex64)  # [p, b, c, t]
+    v = v.reshape(n_pol, n_blocks, n_chan, 16, 16)  # [.., m, j]
+    a = np.einsum("...mj,md->...jd", v, _dft_matrix(16, -1))
+    jd = np.arange(16)[:, None] * np.arange(16)[None, :]
+    a = a * twiddle_table(n_l, -1)[jd]
+    y = np.einsum("...jd,je->...ed", a, _dft_matrix(16, -1)).reshape(
+        n_pol, n_blocks, n_chan, n_l)  # bin 16*e + d
+    jk = (t - kpos) % n_l
+    kept = jk < fnw
+    scale = np.float32(gain / n)
+    cols = np.zeros((n_pol, n_blocks, cl, n // n1, cpc), np.complex64)
+    stores = np.zeros(cols.shape, np.int64)
+    c = np.arange(n_chan)[:, None]
+    k = (fnw * c + jk[kept][None, :] - roll) % n  # [c, kept bin]
+    m2, m1 = k // n1, k % n1
+    cols[:, :, m1 // cpc, m2, m1 % cpc] = y[..., kept] * (dr[jk[kept]] * scale)
+    np.add.at(stores, (slice(None), slice(None), m1 // cpc, m2, m1 % cpc), 1)
+    assert (stores == 1).all()  # every column slot of every block written once
+    flat = cols.transpose(0, 1, 3, 2, 4).reshape(n_pol, n_blocks, n)
+    e = None if elem is None else np.roll(elem, -roll)
+    return emu_cluster_epilogue(flat, e, n, lo, 0, n, n_blocks, cl=cl)
 
 
 def emu_big_inner(w, n2, n1, tables):
@@ -1523,6 +1566,133 @@ class TestDropIns:
         assert synthesis_fused.launches == before
 
 
+def _low_inversion_args(n_chan=N_CHAN, n_l=L, ov=OV, os_f=OS, elem_seed=None):
+    """(constants, keep, kpos, lo, roll, gain, elem) of an inversion
+    geometry, elem a random (N,) factor or None."""
+    g = geometry.SynthesisGeometry(n_chan, n_l, ov, os_f)
+    c = tsynth.synthesis_constants(n_chan, n_l, os_f, ov, temporal_taper="tukey")
+    c["dr"] = np.linspace(0.5, 1.5, g.fn_width).astype(np.float32)
+    elem = None if elem_seed is None else _noise((g.output_fft_length,), elem_seed)
+    return (g, [torch.as_tensor(c[k]) for k in ("t_taper", "dr", "perm")], g.input_keep,
+            (n_l // 2 + g.discard) % n_l, g.output_overlap, g.fn_width // 2,
+            os_f.de / os_f.nu, elem)
+
+
+class TestInversionFused:
+    """The fused SKA-Low inversion (ops/kernels/inversion_fused.py,
+    csrc/inversion_fused.cu) on the CPU: its plain version, its predicate,
+    the route that takes it and the kernel's index maps in numpy."""
+
+    @pytest.mark.parametrize("n_chan,n_l,ov,os_f", [
+        (N_CHAN, L, OV, OS),               # SKA-Low
+        (32, 64, 8, Rational(4, 3)),       # a reduced geometry: the plain version only
+    ])
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_plain_is_frontend_then_epilogue(self, n_chan, n_l, ov, os_f, with_elem):
+        g, consts, keep, kpos, lo, roll, gain, elem = _low_inversion_args(
+            n_chan, n_l, ov, os_f, 70 if with_elem else None)
+        x = torch.as_tensor(_noise((2, n_chan, 2 * ov + 3 * keep + 5), 71))[:, :, 5:]
+        x_tc, nb = x.transpose(1, 2), 3
+        e = None if elem is None else torch.as_tensor(elem)
+        got = inv.inversion_fused(x_tc, *consts, e, keep, kpos, nb, lo, roll, gain)
+        fn = tsynth.frontend(x_tc, *consts, n_l, keep, kpos, nb)
+        want = tsynth.epilogue(fn.reshape(2, nb, g.output_fft_length), e, lo, roll, gain, nb)
+        assert got.shape == (2, nb, g.output_keep) and torch.equal(got, want)
+        if n_chan == N_CHAN:  # and the two wrappers it stands in for, on the CPU
+            fn = synthesis_fused(x_tc, *consts, n_l, keep, kpos, nb)
+            pair = fused_big_ifft(fn.reshape(2, nb, N), e,
+                                  shape_key=(N, *inv.SPLIT, lo, roll, gain), n_valid=nb)
+            assert torch.equal(got, pair)
+
+    @pytest.mark.parametrize("geom,taken", [
+        ((L, N_CHAN, N, LO), True),                           # SKA-Low
+        ((512, 4096, 1_835_008, 458_752), False),             # SKA-Mid
+        ((256, 512, 98_304, 18_432), False),                  # 512 channels at 4/3
+        ((256, 128, 24_576, 4_608), False),                   # 128 channels: n1 = 192
+        ((256, 256, 57_344, 7_168), False),                   # 256 channels at 8/7: n1 = 448
+        ((256, 128, 16_384, 512), False),                     # an n1 = 128 split
+        ((L, N_CHAN, N, LO + 64), False),                     # no plan: overlap not whole rows
+        ((128, N_CHAN, N, LO), False),                        # another frame length
+    ])
+    def test_takes(self, geom, taken):
+        assert inv.takes(*geom) == taken
+        if geom[2] in (57_344, 16_384, 24_576):  # the cluster kernel's other splits
+            assert itf.takes(*plan_ifft(*geom[2:]))
+
+    @pytest.mark.parametrize("name", ["low", "128ch-4/3", "256ch-8/7", "512ch-4/3",
+                                      "216ch-monotonic"])
+    def test_route(self, name, monkeypatch):
+        # fused_inversion launches the fused wrapper exactly where takes
+        # holds, before any frontend, and the two-kernel route elsewhere
+        n_chan, os_f, n_l, ov, kw = {
+            "low": (N_CHAN, OS, L, OV, {}),
+            "216ch-monotonic": (216, OS, L, OV, {"monotonic": True}),
+        }.get(name, EXTRA.get(name, (None,) * 4)[:4] + ({},))
+        g = geometry.SynthesisGeometry(n_chan, n_l, ov, os_f)
+        c = tsynth.synthesis_constants(n_chan, n_l, os_f, ov, temporal_taper="tukey", **kw)
+        consts = [torch.as_tensor(c[k]) for k in ("t_taper", "dr", "perm")]
+        calls = []
+
+        def spy(which, wrapped):
+            def fn(*a, **k):
+                calls.append(which)
+                return wrapped(*a, **k)
+            return fn
+
+        monkeypatch.setattr(inv, "inversion_fused", spy("fused", inv.inversion_fused))
+        monkeypatch.setattr(tsf, "synthesis_fused", spy("frontend", synthesis_fused))
+        monkeypatch.setattr(tsf, "epilogue_route", spy("route", tsf.epilogue_route))
+        x = torch.as_tensor(_noise((2, 2 * ov + 2 * g.input_keep, n_chan), 72))
+        got = tsf.fused_inversion(x, *consts, None, g, spans_nyquist=True)
+        taken = inv.takes(n_l, n_chan, g.output_fft_length, g.output_overlap)
+        assert taken == (name == "low")
+        assert calls == (["fused"] if taken else ["frontend", "route"])
+        ref = tsynth.inversion_core(x, *consts, None, g, spans_nyquist=True)
+        assert torch.equal(got, ref)
+
+    @pytest.mark.parametrize("with_elem", [False, True])
+    @pytest.mark.parametrize("layout", ["time_major", "channel_major"])
+    def test_kernel_emulation(self, with_elem, layout):
+        # csrc/inversion_fused.cu's index maps: the 16 * 16 frontend, the
+        # roll folded into where each kept bin is stored, the column buffers
+        # of eight blocks each slot written once, the epilogue on them
+        g, consts, keep, kpos, lo, roll, gain, elem = _low_inversion_args(
+            elem_seed=73 if with_elem else None)
+        nb = 2
+        if layout == "time_major":
+            x = _noise((2, 2 * OV + nb * keep + 3, N_CHAN), 74)[:, 3:]
+            x_tc = torch.as_tensor(x)
+        else:
+            x = _noise((2, N_CHAN, 2 * OV + nb * keep + 3), 74)[:, :, 3:].transpose(0, 2, 1)
+            x_tc = torch.as_tensor(np.ascontiguousarray(x.transpose(0, 2, 1))).transpose(1, 2)
+        got, stores = emu_inversion_fused(x, *(t.numpy() for t in consts), elem, keep, kpos,
+                                          nb, lo, roll, gain)
+        assert (stores == 1).all()  # every kept sample written exactly once
+        ref = inv.inversion_fused(x_tc, *consts, None if elem is None else torch.as_tensor(elem),
+                                  keep, kpos, nb, lo, roll, gain).numpy()
+        assert _rel_err(got, ref) < SYNTHESIS_TOL
+
+    def test_kernel_smem_two_blocks_an_sm(self):
+        # csrc/inversion_fused.cu: columns, the receive buffer (which holds
+        # the frontend's 16 rows of 257 points), the tables, the taper and
+        # deripple fit twice in an SM's 228 KB, 1 KB a block reserved
+        cols, recv, rows = 128 * 48, 16 * 385, 16 * 257
+        tables = L + 126 + 24 * 48
+        smem = 8 * (cols + recv + tables) + 4 * (L + 192)
+        assert rows <= recv and 2 * (smem + 1024) <= 228 * 1024 and smem <= SMEM_LIMIT
+
+    def test_not_taken_raises_off_the_cpu(self):
+        # the raw wrapper refuses another geometry from the predicate, before
+        # anything is launched (a meta tensor: no data, no card)
+        g, consts, keep, kpos, lo, roll, gain, _ = _low_inversion_args(128)
+        x = torch.empty((1, 2 * OV + keep, 128), dtype=torch.complex64, device="meta")
+        consts = [t.to("meta") for t in consts]
+        before = inv.inversion_fused.launches
+        with pytest.raises(ValueError, match="inversion_fused takes"):
+            inv.inversion_fused(x, *consts, None, keep, kpos, 1, lo, roll, gain)
+        assert inv.inversion_fused.launches == before
+
+
 @pytest.mark.cuda
 class TestOnCard:
     """Each kernel against its plain version on the card, at small shapes
@@ -1569,6 +1739,57 @@ class TestOnCard:
         assert synthesis_fused.launches == before + 1
         ref = tsynth.frontend(x, *args, 512, geom.input_keep, kpos, nb)
         assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
+
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_inversion_fused_full_low(self, cuda, with_elem):
+        # the low request's 2 pol x 272 blocks of time-major channels
+        g, consts, keep, kpos, lo, roll, gain, elem = _low_inversion_args(
+            elem_seed=75 if with_elem else None)
+        nb = 272
+        x = torch.as_tensor(_noise((2, 2 * OV + nb * keep, N_CHAN), 76), device=cuda)
+        consts = [t.to(cuda) for t in consts]
+        e = None if elem is None else torch.as_tensor(elem, device=cuda)
+        before = inv.inversion_fused.launches
+        got = inv.inversion_fused(x, *consts, e, keep, kpos, nb, lo, roll, gain)
+        assert inv.inversion_fused.launches == before + 1
+        fn = tsynth.frontend(x, *consts, L, keep, kpos, nb)
+        ref = tsynth.epilogue(fn.reshape(2, nb, N), e, lo, roll, gain, nb)
+        assert _rel_err(got.cpu(), ref.cpu()) < 4.7e-7
+
+    @pytest.mark.parametrize("nb", [1, 2, 3, 4])
+    @pytest.mark.parametrize("layout", ["time_major", "channel_major", "offset_view"])
+    def test_inversion_fused_stream_batches(self, cuda, nb, layout):
+        # a stream block's 1-4 transforms a polarization; the streaming
+        # stage's channel-major view, with and without a sample offset
+        g, consts, keep, kpos, lo, roll, gain, elem = _low_inversion_args(elem_seed=77)
+        n_dat = 2 * OV + nb * keep
+        if layout == "time_major":
+            x = torch.as_tensor(_noise((2, n_dat, N_CHAN), 78), device=cuda)
+        else:
+            off = 7 if layout == "offset_view" else 0
+            x = torch.as_tensor(_noise((2, N_CHAN, n_dat + off), 78),
+                                device=cuda)[:, :, off:].transpose(1, 2)
+        consts = [t.to(cuda) for t in consts]
+        for e in (None, torch.as_tensor(elem, device=cuda)):
+            got = inv.inversion_fused(x, *consts, e, keep, kpos, nb, lo, roll, gain)
+            fn = tsynth.frontend(x, *consts, L, keep, kpos, nb)
+            ref = tsynth.epilogue(fn.reshape(2, nb, N), e, lo, roll, gain, nb)
+            assert _rel_err(got.cpu(), ref.cpu()) < 4.7e-7
+
+    def test_low_forward_launches_the_fused_inversion(self, cuda):
+        # one low forward: the analysis and the fused inversion once each,
+        # neither the frontend nor the cluster epilogue
+        from ska_pst_dsp_tpu_torch.entry import low_round_trip
+        from ska_pst_dsp_tpu_torch.ops.kernels import wrappers
+
+        model = low_round_trip(cuda)
+        x = torch.as_tensor(_noise((2, 2 ** 20), 79), device=cuda)
+        ws = wrappers()
+        before = {k: w.launches for k, w in ws.items()}
+        out = model(x)
+        ran = {k: w.launches - before[k] for k, w in ws.items() if w.launches != before[k]}
+        assert ran == {"analysis_fused": 1, "inversion_fused": 1}
+        assert _rel_err(out.cpu(), model.reference(x).cpu()) < SYNTHESIS_TOL
 
     @pytest.mark.parametrize("with_elem", [False, True])
     @pytest.mark.parametrize("n_b,n_valid", [(3, 2), (272, 272)])

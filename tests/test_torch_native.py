@@ -490,7 +490,7 @@ def test_tile_columns():
 
 def test_wrappers_registered_and_cpu_uncounted():
     ws = kernels.wrappers()
-    assert {"dada_unpack", "lowcbf_unpack", "dada_pack"} <= set(ws) and len(ws) == 10
+    assert {"dada_unpack", "lowcbf_unpack", "dada_pack"} <= set(ws) and len(ws) == 11
     before = {k: ws[k].launches for k in ("dada_unpack", "lowcbf_unpack", "dada_pack")}
     raw = torch.zeros(4 * 2 * 2, dtype=torch.uint8)
     du.dada_unpack(raw, 16, 2, 1, 2)

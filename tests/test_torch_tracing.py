@@ -7,7 +7,8 @@
   SKA-Mid round trip whose epilogue takes the out-of-core route and a
   ``FilterBank`` -> ``InverseFilterBank`` stream emit their ``pst:`` spans,
   each nested in the span above it in its layer; ``dispatch`` ends before
-  the epilogue it chose starts.
+  the epilogue it chose starts, and SKA-Low's inversion (the one-shot round
+  trip and the stream) is the fused wrapper alone, with no dispatch.
 * Outputs are bitwise the same with the profiler on and off.
 * ``carry_bytes`` counts the bytes of every carry's ``torch.cat`` output,
   reckoned here from the sizes of the carried buffers and the blocks.
@@ -50,16 +51,15 @@ BLOCK, BLOCKS = 65536, 4
 #: every span each case emits on the CPU (the plain versions run inside
 #: the wrappers' spans; the out-of-core pair's two kernels only on a card)
 NESTING = {
+    # SKA-Low's inversion is one fused wrapper, chosen with no dispatch
     "low": {"forward": None, "kernel.analysis_fused": "forward", "inversion": "forward",
-            "kernel.synthesis_fused": "inversion", "dispatch": "inversion",
-            "kernel.ifft_fused": "inversion"},
+            "kernel.inversion_fused": "inversion"},
     "mid_pair": {"forward": None, "kernel.analysis_padded_fused": "forward",
                  "kernel.chan_dft_fused": "forward", "inversion": "forward",
                  "kernel.synthesis_fused": "inversion", "dispatch": "inversion"},
     "stream": {"filterbank": None, "inverse_filterbank": None, "carry": None,
                "kernel.analysis_fused": "filterbank", "inversion": "inverse_filterbank",
-               "kernel.synthesis_fused": "inversion", "dispatch": "inversion",
-               "kernel.ifft_fused": "inversion"},
+               "kernel.inversion_fused": "inversion"},
 }
 #: on the card mid's main path runs the out-of-core pair's two kernels
 CARD_NESTING = {
@@ -207,7 +207,8 @@ def test_spans_nest_by_layer(cases, case):
         assert counts["carry"] == 2 * BLOCKS - 2  # the first call of each has none
     else:
         assert set(counts.values()) == {1}
-    # the dispatch chooses, then the chosen epilogue runs after it
+    # where a dispatch chooses, the chosen epilogue runs after it (on the
+    # CPU the out-of-core pair's kernels have no spans)
     for _, _, a, b in (s for s in spans if s[0] == "dispatch"):
         later = [s for s in spans if s[0] == "kernel.ifft_fused" and s[2] >= b]
         assert case == "mid_pair" or later
