@@ -4,8 +4,8 @@
 
 For each seed: the cell's traffic at its own size, as many requests as a
 run keeps (KEEP samples, each ``group`` requests), then the program's
-outputs and the bfloat16 reference's outputs for the same requests, each
-held to the float64 reference by the cell's number (``max_rel_err``).
+outputs and the kind's bfloat16 reference's outputs for the same requests,
+each held to its float64 reference by the cell's number (``max_rel_err``).
 One JSON line a seed: ``{"seed", "program", "control"}``. The control has
 to read above the cell's limit, the program below it; the benchmark's own
 runs do not run this.
@@ -21,7 +21,6 @@ from typing import Optional
 import torch
 
 from . import design, generator, run
-from .reference import Reference
 from .trace import Tracer
 
 
@@ -32,7 +31,7 @@ def readings(workload: str, seed: int, *, device="cuda", bench: Optional[dict] =
     cell = run.by_name(bench["workloads"], workload, "workload")
     cfg = run.load_json(run.ROOT / run.by_name(bench["configs"], cell["config"], "config")["file"])
     params = traffic_params or run.load_json(run.HERE / "traffic" / f"{cell['traffic']}.json")
-    filt = design.prototype_filter(cfg)
+    filt = design.prototype_filter(cfg, run.ROOT)
     traffic = generator.make(params, cfg, filt, seed, torch.device(device))
     traffic.setup()
     tr = Tracer(False)
@@ -44,8 +43,8 @@ def readings(workload: str, seed: int, *, device="cuda", bench: Optional[dict] =
             keeper.offer(i - traffic.warm_requests, traffic.record(i, out))
     kept = [r for sample in keeper.kept for r in sample]
     traffic.free_program()
-    exact = traffic.pairs(kept, Reference(cfg, filt, device))
-    low = traffic.pairs(kept, Reference(cfg, filt, device, "bf16"))
+    exact = traffic.pairs(kept, traffic.reference(device))
+    low = traffic.pairs(kept, traffic.reference(device, "bf16"))
     traffic.close()
     return {"program": max(run.rel_err(g, w) for g, w in exact),
             "control": max(run.rel_err(lw, w) for (_, lw), (_, w) in zip(low, exact))}

@@ -2,18 +2,23 @@
 
 Plain NumPy/SciPy copies of the reference designs (design_PFB_FIR_filter.m,
 design_PFB_FIR_filter_two_stage.m, polyphase_synthesis.m's deripple,
-PFBWindow.m's tukey). The benchmark designs each configuration's filter
-once per run and hands the same coefficients to the program under test
-and to :mod:`pstbench.reference`; the deripple and the taper are worked out
-again by the reference from those coefficients alone.
+PFBWindow.m's tukey), and a reader of published coefficient files. The
+benchmark designs (or reads) each configuration's filter once per run and
+hands the same coefficients to the program under test and to
+:mod:`pstbench.reference`; the deripple and the taper are worked out again
+by the reference from those coefficients alone.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Tuple
 
 import numpy as np
 import scipy.signal
+
+#: the checkout's root, which a coefficient file's path is relative to
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def os_parts(cfg: dict) -> Tuple[int, int]:
@@ -75,22 +80,42 @@ def two_stage(n_chan: int, nu: int, de: int, os_taps_per_channel: int,
     return np.fft.fftshift(np.real(np.fft.ifft(hz))).astype(np.float64)
 
 
-def prototype_filter(cfg: dict) -> np.ndarray:
+def coefficient_file(path: str, root: Path = ROOT) -> np.ndarray:
+    """The taps of a published coefficient file, float64 and 1-D: a
+    ``.npy`` file through ``np.load``, anything else as whitespace-separated
+    numbers in the order written. ``path`` is relative to ``root``; one that
+    leads outside it is refused, as are taps that are not finite."""
+    root = Path(root).resolve()
+    full = (root / path).resolve()
+    if not full.is_relative_to(root):
+        raise ValueError(f"coefficient file {path!r} lies outside {root}")
+    if full.suffix == ".npy":
+        h = np.asarray(np.load(full, allow_pickle=False), dtype=np.float64)
+    else:
+        h = np.array([float(v) for v in full.read_text().split()], dtype=np.float64)
+    if h.ndim != 1 or not np.isfinite(h).all():
+        raise ValueError(f"{path}: the taps are not one finite row (shape {h.shape})")
+    return h
+
+
+def prototype_filter(cfg: dict, root: Path = ROOT) -> np.ndarray:
     """The configuration's prototype filter, float64, as its ``filter``
-    entry describes it; raises where the design's length is not
-    ``fir_filter_taps``."""
+    entry describes it: ``least_squares``, ``two_stage``, or ``file`` (the
+    taps of ``path``, relative to ``root``: :func:`coefficient_file`);
+    raises where the filter's length is not ``fir_filter_taps``."""
     spec = cfg["filter"]
-    nu, de = os_parts(cfg)
-    if spec["design"] == "least_squares":
-        h = least_squares(cfg["channels"], nu, de, spec["taps_per_channel"],
+    if spec["design"] == "file":
+        h = coefficient_file(spec["path"], root)
+    elif spec["design"] == "least_squares":
+        h = least_squares(cfg["channels"], *os_parts(cfg), spec["taps_per_channel"],
                           spec["stopband_weight"])
     elif spec["design"] == "two_stage":
-        h = two_stage(cfg["channels"], nu, de, spec["os_taps_per_channel"],
+        h = two_stage(cfg["channels"], *os_parts(cfg), spec["os_taps_per_channel"],
                       spec["stopband_weight"])
     else:
         raise ValueError(f"unknown filter design {spec['design']!r}")
     if h.size != cfg["fir_filter_taps"]:
-        raise ValueError(f"{cfg['name']}: the design gives {h.size} taps, "
+        raise ValueError(f"{cfg['name']}: the filter has {h.size} taps, "
                          f"not {cfg['fir_filter_taps']}")
     return h
 

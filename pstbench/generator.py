@@ -18,20 +18,29 @@ the next handed over: a file or stream reader waits for each reply.
   it); a request reads one window through ``io.dada.load_split`` and runs
   the round trip.
 
-Each kind says which outputs it keeps for the check (:meth:`record`) and
-what the reference says they should be (:meth:`pairs`).
+Each kind says which outputs it keeps for the check (:meth:`record`), the
+plain reference it is held to (:meth:`reference`), what that reference says
+the outputs should be (:meth:`pairs`), and the least time its work could
+take (:meth:`least_seconds`).
+
+A kind that is not one of these three is found by its name: the file
+``pstbench/kinds/<kind>.py``, whose ``KIND`` is a :class:`Traffic`
+subclass. Its plain reference lives in ``pstbench/references/<name>.py``
+(plain ``torch`` and ``numpy`` in float64, nothing of the program;
+:func:`load` finds it), and it imports the program itself, inside its
+functions, as :mod:`pstbench.system` does.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from . import dadafile, noise, system
+from . import dadafile, noise, roofline, system
 from .reference import Geometry, Reference, geometry
 from .trace import Tracer, tmp_dir
 
@@ -72,6 +81,17 @@ class Traffic:
     def pairs(self, records: List[tuple], ref: Reference) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """(output, reference) pairs for the kept records."""
         raise NotImplementedError
+
+    def reference(self, device, precision: str = "fp64"):
+        """The plain reference that :meth:`pairs` reads, at ``precision``
+        (the control's ``bf16`` too): the round trip's by default."""
+        return Reference(self.cfg, self.filt, device, precision)
+
+    def least_seconds(self, samples: int, device_name: str) -> Optional[float]:
+        """The least time the card ``device_name`` could take over
+        ``samples`` complex input samples of this kind's work, counted by
+        :mod:`pstbench.roofline`'s rule: the round trip's by default."""
+        return roofline.least_seconds(self.g, samples, device_name)
 
     def free_program(self) -> None:
         """Drop the program's state before the reference runs."""
@@ -231,6 +251,29 @@ def _runs(records: List[tuple]) -> List[List[tuple]]:
 KINDS = {"oneshot": OneShot, "stream": Stream, "dada": Dada}
 
 
+def load(folder: str, name: str):
+    """The benchmark's file ``pstbench/<folder>/<name>.py``, loaded by
+    path (:func:`pstbench.run.load_module`); a ValueError naming the file
+    where there is none."""
+    from . import run
+
+    path = run.HERE / folder / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"{name!r} is not in pstbench/{folder}: no file {path}")
+    return run.load_module(path)
+
+
+def kind(name: str) -> type:
+    """The traffic kind ``name``: one of :data:`KINDS`, else the ``KIND``
+    of ``pstbench/kinds/<name>.py``."""
+    if name in KINDS:
+        return KINDS[name]
+    cls = getattr(load("kinds", name), "KIND", None)
+    if not (isinstance(cls, type) and issubclass(cls, Traffic)):
+        raise ValueError(f"pstbench/kinds/{name}.py has no KIND that is a Traffic subclass")
+    return cls
+
+
 def make(params: dict, cfg: dict, filt: np.ndarray, seed: int, device) -> Traffic:
     """The mix ``params`` (a traffic file's contents) bound to a config."""
-    return KINDS[params["kind"]](params, cfg, filt, seed, device)
+    return kind(params["kind"])(params, cfg, filt, seed, device)

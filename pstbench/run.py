@@ -7,12 +7,15 @@ at the root of the checkout; each is found by its name: the configuration
 in the file its entry names, the traffic mix in
 ``pstbench/traffic/<traffic>.json``, each metric's reader in
 ``pstbench/metrics/<metric>.py`` and the cell's limits in
-``pstbench/limits/<workload>.json``.
+``pstbench/limits/<workload>.json``; a traffic kind that
+:mod:`pstbench.generator` lacks in ``pstbench/kinds/<kind>.py``, with its
+plain reference in ``pstbench/references/``.
 
 A run: set-up (imports, the card, the filter design, the program's
 modules, the inputs, a fixed warm-up), then a closed loop of requests for
-``--seconds``, then the check of the kept outputs against the plain
-reference (:mod:`pstbench.reference`) once the program's state is freed.
+``--seconds``, then the check of the kept outputs against the kind's plain
+reference (:meth:`pstbench.generator.Traffic.reference`) once the
+program's state is freed.
 With ``--trace 1`` it also records spans and profiles a steady stretch of
 the window, and reports the per-layer metrics in place of the end-to-end
 ones. Without a CUDA card it exits with code 2 and prints no result;
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import importlib.util
 import json
@@ -73,10 +77,13 @@ def by_name(items: List[dict], name: str, what: str) -> dict:
 
 
 def load_module(path: Path):
-    """A module of the benchmark loaded from its file."""
+    """A module of the benchmark loaded from its file, and held in
+    ``sys.modules`` under its name (``pstbench_<folder>_<stem>``), which
+    a dataclass in it needs."""
     spec = importlib.util.spec_from_file_location(f"pstbench_{path.parent.name}_{path.stem}",
                                                   path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return mod
 
@@ -106,7 +113,13 @@ class Run:
     window_s: float               # first hand-off to last completion
     setup_s: float
     device_name: str
+    #: the kind's least time on this card over a number of complex input
+    #: samples (Traffic.least_seconds); None on a card without a roofline
+    least_seconds: Callable[[int], Optional[float]]
     trace: Optional[TraceData] = None
+    #: the program's counters over the traced stretch (their growth from
+    #: the profiler's start to its stop); None untraced or without counters
+    counters: Optional[Dict[str, int]] = None
 
 
 class Keeper:
@@ -185,25 +198,33 @@ def run(bench: dict, workload: str, seed: int, seconds: float, trace: bool, *,
     dev = torch.device(device)
     importlib.import_module("ska_pst_dsp_tpu_torch")
 
-    filt = design.prototype_filter(cfg)
+    filt = design.prototype_filter(cfg, ROOT)
     traffic = generator.make(params, cfg, filt, seed, dev)
     if patch is not None:
         patch(traffic)
     traffic.setup()
     try:
-        return _measure(bench, workload, cfg, params, limits, filt, traffic, seed, seconds,
-                        trace, dev, t_entry)
+        return _measure(bench, workload, cfg, params, limits, traffic, seed, seconds, trace,
+                        dev, t_entry)
     finally:
         traffic.close()
 
 
-def _measure(bench, workload, cfg, params, limits, filt, traffic, seed, seconds, trace, dev,
+def growth(before: Optional[Dict[str, int]], after: Optional[Dict[str, int]]
+           ) -> Optional[Dict[str, int]]:
+    """Each counter's growth from ``before`` to ``after``; None where
+    either reading is missing."""
+    if before is None or after is None:
+        return None
+    return {k: v - before.get(k, 0) for k, v in after.items()}
+
+
+def _measure(bench, workload, cfg, params, limits, traffic, seed, seconds, trace, dev,
              t_entry) -> dict:
     """The warm-up, the window, the metrics and the check of :func:`run`."""
     import torch
 
-    from . import stats
-    from .reference import Reference
+    from . import program, stats
     from .trace import Profile, Tracer, breakdown, read_profile, tmp_dir
 
     tr = Tracer(trace)
@@ -215,8 +236,10 @@ def _measure(bench, workload, cfg, params, limits, filt, traffic, seed, seconds,
     del warm
     i0 = traffic.warm_requests
     if trace:
-        # the profiler's first start sets up its tracing for seconds: done
-        # here, so that the stretch in the window starts at once
+        # the profiler's first start sets up its tracing for seconds, and
+        # the counters' first reading imports what they read: done here, so
+        # that the stretch in the window starts at once
+        program.counters()
         first = Profile()
         first.start(i0)
         traffic.request(i0, Tracer(False))
@@ -226,6 +249,8 @@ def _measure(bench, workload, cfg, params, limits, filt, traffic, seed, seconds,
     keeper = Keeper(seed, traffic.group)
 
     profile = Profile() if trace else None
+    # the program's counters at the profiler's start, then their growth to its stop
+    counted = None
     lat: List[float] = []
     gc.collect()
     gc.disable()
@@ -234,6 +259,7 @@ def _measure(bench, workload, cfg, params, limits, filt, traffic, seed, seconds,
     trace_at, trace_end = t0 + TRACE_AT * seconds, math.inf
     while True:
         if profile is not None and profile.first is None and time.perf_counter() >= trace_at:
+            counted = program.counters()
             profile.start(i)
         tr.request = i
         h = time.perf_counter()
@@ -250,10 +276,12 @@ def _measure(bench, workload, cfg, params, limits, filt, traffic, seed, seconds,
         i += 1
         if profile is not None and profile.last is None and e >= trace_end:
             profile.stop(i)
+            counted = growth(counted, program.counters())
         if e - t0 >= seconds:
             break
     if profile is not None and profile.first is not None and profile.last is None:
         profile.stop(i)
+        counted = growth(counted, program.counters())
     window = e - t0
     gc.enable()
     setup_s = t0 - t_entry
@@ -271,7 +299,9 @@ def _measure(bench, workload, cfg, params, limits, filt, traffic, seed, seconds,
             td = read_profile(profile, os.path.join(tmp, f"{tag}.trace.json"))
     device_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     record = Run(cfg, params, traffic.samples_per_request, traffic.bytes_per_request, lat,
-                 window, setup_s, device_name, td)
+                 window, setup_s, device_name,
+                 functools.partial(traffic.least_seconds, device_name=device_name), td,
+                 counted)
     metrics = {}
     for m in cell_metrics(bench, workload, trace):
         value = load_module(HERE / "metrics" / f"{m['name']}.py").read(record)
@@ -284,8 +314,7 @@ def _measure(bench, workload, cfg, params, limits, filt, traffic, seed, seconds,
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    ref = Reference(cfg, filt, dev)
-    pairs = traffic.pairs(kept, ref)
+    pairs = traffic.pairs(kept, traffic.reference(dev))
     err = max((rel_err(g, w) for g, w in pairs), default=math.inf)
     checks = {"max_rel_err": {"value": err, "limit": limits["max_rel_err"]["limit"]}}
     correct = all(c["value"] <= c["limit"] for c in checks.values())

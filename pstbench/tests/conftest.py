@@ -1,6 +1,12 @@
 """Shared pieces of the benchmark's tests: small traffic mixes and small
-configurations that the CPU runs in seconds."""
+configurations that the CPU runs in seconds, and a cell of a new kind that
+comes in as new files."""
 
+import copy
+import shutil
+from pathlib import Path
+
+import numpy as np
 import pytest
 
 #: each cell's traffic cut to a size the CPU runs in a second
@@ -39,3 +45,49 @@ def bench():
     if all(w["name"] != DADA_CELL["name"] for w in b["workloads"]):
         b["workloads"].append(DADA_CELL)
     return b
+
+
+#: the folders the harness finds things in by name
+DATA = ("configs", "traffic", "metrics", "limits", "kinds", "references")
+#: a sample of what a configuration of a new shape brings, laid out as
+#: under pstbench/: a config whose filter is read from a file, a traffic
+#: mix, limits, a kind, its reference and a metric reader
+NEWKIND = Path(__file__).resolve().parent / "newkind"
+NEWKIND_CELL = "low_taps.analysis"
+
+
+def copy_data(here: Path) -> None:
+    """Copy the harness's data folders (those it has) to ``here``."""
+    from pstbench import run
+
+    for d in DATA:
+        if (run.HERE / d).is_dir():
+            shutil.copytree(run.HERE / d, here / d)
+
+
+@pytest.fixture
+def new_kind(bench, tmp_path, monkeypatch):
+    """(BENCHMARK.json with the cell of NEWKIND, the copy of the harness's
+    data folders it runs from): the copy has NEWKIND's files added, the
+    checkout's root is ``tmp_path``, and the taps file the config reads is
+    written there."""
+    from pstbench import design, run
+
+    here = tmp_path / "pstbench"
+    copy_data(here)
+    shutil.copytree(NEWKIND, here, dirs_exist_ok=True)
+    (tmp_path / "config").mkdir()
+    np.save(tmp_path / "config" / "low_taps.npy",
+            design.prototype_filter(run.load_json(run.HERE / "configs" / "low.json")))
+    bench = copy.deepcopy(bench)
+    bench["configs"].append({"name": "low_taps", "source": "test",
+                             "file": "pstbench/configs/low_taps.json", "reduced": [],
+                             "why": "test"})
+    bench["workloads"].append({"name": NEWKIND_CELL, "config": "low_taps",
+                               "traffic": "analysis_tiny", "chips": 1, "why": "test"})
+    bench["end_to_end"].append({"name": "least_ms_per_msample", "unit": "ms",
+                                "better": "lower", "bound": 0.25, "source": "host_clock",
+                                "workloads": [NEWKIND_CELL]})
+    monkeypatch.setattr(run, "HERE", here)
+    monkeypatch.setattr(run, "ROOT", tmp_path)
+    return bench, here

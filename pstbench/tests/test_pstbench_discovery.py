@@ -4,12 +4,14 @@ configurations, traffic, limits and metrics by name."""
 import json
 import re
 import shutil
+from pathlib import Path
 
 import pytest
 
-from pstbench import run
+import pstbench
+from pstbench import design, generator, reference, roofline, run
 
-from .conftest import SMALL
+from .conftest import NEWKIND, NEWKIND_CELL, SMALL, copy_data
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -60,8 +62,7 @@ def test_a_new_cell_is_new_files_and_entries(bench, tmp_path, monkeypatch):
     """A traffic mix, a metric and a cell's limits added as files, found by
     the names of new entries, with no file of the harness edited."""
     here = tmp_path / "pstbench"
-    for d in ("configs", "traffic", "metrics", "limits"):
-        shutil.copytree(run.HERE / d, here / d)
+    copy_data(here)
     (here / "traffic" / "tiny.json").write_text(json.dumps(SMALL["low.oneshot"]))
     (here / "metrics" / "requests_traced.py").write_text(
         "def read(run):\n    return None if run.trace is None else run.trace.requests\n")
@@ -78,3 +79,50 @@ def test_a_new_cell_is_new_files_and_entries(bench, tmp_path, monkeypatch):
     assert res["correct"] and set(res["metrics"]) == {"throughput_msps", "latency_p95_ms",
                                                       "setup_s"}
     assert [m["name"] for m in run.cell_metrics(bench, "low.tiny", True)] == ["requests_traced"]
+
+
+def _files(top: Path) -> dict:
+    """{path relative to ``top``: bytes} of every file under it, caches and
+    the tests left out."""
+    return {p.relative_to(top): p.read_bytes() for p in top.rglob("*")
+            if p.is_file() and not {"__pycache__", "tests"} & set(p.relative_to(top).parts)}
+
+
+def test_a_new_kind_is_new_files(new_kind, monkeypatch):
+    """A kind, its plain reference, its work count, a config whose filter
+    is read from a file, a traffic mix, limits and a metric reader, all
+    added as files beside a copy of the harness's data: the run is
+    correct, reads the kind's own work count, and no file of the harness
+    is edited."""
+    bench, here = new_kind
+    harness = _files(Path(pstbench.__file__).resolve().parent)
+    monkeypatch.setitem(roofline.PEAKS, "cpu", (1e11, 1e12))
+    res = run.run(bench, NEWKIND_CELL, 2**31 + 3, 0.3, False, device="cpu")
+    assert res["correct"], res["checks"]
+    assert res["checks"]["max_rel_err"]["value"] < 1e-6
+
+    cfg = run.load_json(here / "configs" / "low_taps.json")
+    params = run.load_json(here / "traffic" / "analysis_tiny.json")
+    kind = generator.kind("analysis")
+    assert kind.__module__ == "pstbench_kinds_analysis" and issubclass(kind, generator.Traffic)
+    own = kind(params, cfg, design.prototype_filter(cfg, run.ROOT), 1, "cpu")
+    least = res["metrics"]["least_ms_per_msample"]["value"]
+    # bound by its bytes: 8 in and 8 * 4/3 out a sample over 1e11 B/s
+    assert least == own.least_seconds(10**6, "cpu") * 1e3 == pytest.approx(8e6 * 7 / 3 / 1e8)
+    assert least != roofline.least_seconds(reference.geometry(cfg), 10**6, "cpu") * 1e3
+
+    copied, added = _files(here), _files(NEWKIND)
+    assert not set(added) & set(harness)
+    assert {p: copied[p] for p in copied if p not in added} == {
+        p: b for p, b in harness.items() if p.parts[0] in ("configs", "traffic", "metrics",
+                                                           "limits", "kinds", "references")}
+    assert _files(Path(pstbench.__file__).resolve().parent) == harness
+
+
+def test_an_unknown_kind_names_the_file_it_looked_for(new_kind):
+    _, here = new_kind
+    with pytest.raises(ValueError, match=re.escape(str(here / "kinds" / "nonesuch.py"))):
+        generator.kind("nonesuch")
+    (here / "kinds" / "hollow.py").write_text("KIND = dict\n")
+    with pytest.raises(ValueError, match="no KIND that is a Traffic subclass"):
+        generator.kind("hollow")

@@ -10,7 +10,7 @@ import torch
 
 from pstbench import generator, run
 
-from .conftest import SMALL
+from .conftest import NEWKIND_CELL, SMALL
 
 SEED = 2**31 + 99
 
@@ -89,6 +89,16 @@ def test_sound_run_is_correct(bench, workload):
 def test_broken_round_trip_is_not_correct(bench, workload, fault):
     res = _run(bench, workload, fault)
     assert not res["correct"], res["checks"]
+
+
+@pytest.mark.parametrize("fault", [None, half_batch, altered_answer])
+def test_a_new_kind_is_held_to_its_own_reference(new_kind, fault):
+    """The kind that came in as files (conftest.NEWKIND), checked against
+    the reference it brought: sound, it is correct; with a polarisation
+    left out or one answer altered, it is not."""
+    bench, _ = new_kind
+    res = run.run(bench, NEWKIND_CELL, SEED, 0.3, False, device="cpu", patch=fault)
+    assert res["correct"] is (fault is None), res["checks"]
 
 
 @pytest.mark.parametrize("stage", ["analysis", "inversion"])

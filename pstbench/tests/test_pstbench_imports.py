@@ -1,5 +1,6 @@
 """What the benchmark loads: no JAX and no JAX package in a run's
-process, and nothing of the program in the reference."""
+process, and nothing of the program in the references (the round trip's,
+and each kind's in pstbench/references/)."""
 
 import json
 import os
@@ -18,17 +19,26 @@ bench = run.load_json(run.ROOT / "BENCHMARK.json")
 res = run.run(bench, "low.oneshot", 2**31 + 7, 0.2, False, device="cpu",
               traffic_params=SMALL["low.oneshot"])
 import pstbench.control, pstbench.reference, pstbench.generator
-for p in sorted((run.HERE / "metrics").glob("*.py")):
-    run.load_module(p)
+from pstbench.tests.conftest import NEWKIND
+for folder in ("metrics", "kinds"):
+    for p in sorted((run.HERE / folder).glob("*.py")) + sorted((NEWKIND / folder).glob("*.py")):
+        run.load_module(p)
 print(json.dumps({"correct": res["correct"],
                   "top": sorted({m.split(".")[0] for m in sys.modules})}))
 """
 
 REFERENCE_ONLY = """
 import json, sys
+from pathlib import Path
 import pstbench.reference, pstbench.design, pstbench.stats, pstbench.roofline
 import pstbench.dadafile, pstbench.noise
-print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
+from pstbench.run import HERE, load_module
+newkind = HERE / "tests" / "newkind"
+files = sorted((HERE / "references").glob("*.py")) + sorted((newkind / "references").glob("*.py"))
+for p in files:
+    load_module(p)
+print(json.dumps({"files": [str(p) for p in files],
+                  "top": sorted({m.split(".")[0] for m in sys.modules})}))
 """
 
 
@@ -75,13 +85,15 @@ def _python(code):
 def test_a_run_loads_no_jax_and_no_jax_package():
     res = _python(RUN_SMALL)
     assert res["correct"]
-    assert "ska_pst_dsp_tpu_torch" in res["top"]
+    assert {"ska_pst_dsp_tpu_torch", "pstbench_kinds_analysis"} <= set(res["top"])
     assert not set(res["top"]) & set(run.FORBIDDEN)
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    top = _python(REFERENCE_ONLY)
-    assert "torch" in top
+    res = _python(REFERENCE_ONLY)
+    top = res["top"]
+    assert any(f.endswith("newkind/references/analysis.py") for f in res["files"])
+    assert "torch" in top and "pstbench_references_analysis" in top
     assert not set(top) & {"ska_pst_dsp_tpu_torch", *run.FORBIDDEN}
 
 
