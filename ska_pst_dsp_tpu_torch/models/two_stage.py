@@ -10,7 +10,9 @@ inversion.
 
 Stage 1 emits time-major spectra and stage 2 wants one stream per coarse
 channel, so one contiguous corner turn (n_pol, T, nch1) -> (n_pol*nch1, T)
-sits between them.
+sits between them. The cascade's own reshapes (that corner turn, the chomp
+and the layout of the output, the inverse's slabs) are the ``corner_turn``
+span; the bytes of those that copy are counted in ``corner_turn.bytes``.
 """
 
 from __future__ import annotations
@@ -21,11 +23,26 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ska_pst_dsp_tpu_torch.utils.profiling import span, spanned
 from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .streaming import (
     LOWCBF, FilterBank, FilterBankState, InverseFilterBank, InverseFilterBankState, as_tensor,
 )
+
+
+def corner_turn(src: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``out``, a reshape of ``src`` by the cascade's own code; where it
+    is a copy (not a view of ``src``'s storage), its bytes are counted in
+    ``corner_turn.bytes``."""
+    if out.untyped_storage().data_ptr() != src.untyped_storage().data_ptr():
+        corner_turn.bytes += out.numel() * out.element_size()
+    return out
+
+
+#: bytes the cascades' corner turns, chomps and slab reshapes have copied
+#: since the process began
+corner_turn.bytes = 0
 
 
 @dataclasses.dataclass
@@ -67,6 +84,7 @@ class TwoStageFilterBank(nn.Module):
     def init_state(self) -> TwoStageFilterBankState:
         return TwoStageFilterBankState(self.stage1.init_state(), self.stage2.init_state())
 
+    @spanned("two_stage.filterbank")
     def execute(self, state: TwoStageFilterBankState, x
                 ) -> Tuple[TwoStageFilterBankState, torch.Tensor]:
         """(n_pol, [1,] n) samples -> (new_state, (n_pol, nch1*nch2, T2))."""
@@ -84,31 +102,32 @@ class TwoStageFilterBank(nn.Module):
 
         # the corner turn: one stream per coarse channel, (n_pol*nch1, T)
         n_pol = out1.shape[0]
-        streams = out1[:, :nch1, :].reshape(n_pol * nch1, out1.shape[2])
+        with span("corner_turn"):
+            streams = corner_turn(out1, out1[:, :nch1, :].reshape(n_pol * nch1, out1.shape[2]))
         s2, out2 = self.stage2.execute(state.stage2, streams)
         t2 = out2.shape[2]
-        out2 = out2.reshape(n_pol, nch1, nch2_orig, t2)
-
-        if self.critical and offset > 0:
-            if self.stage2_monotonic:
-                # LowCBF stage 2 emits its KEPT channels fftshifted (DC at
-                # the middle): the oversampling-redundant channels are the
-                # band EDGES, offset/2 each end. The reference's generic
-                # middle chomp below assumes DC-first order
-                # (TwoStageFilterBank.m:106-107 notes the fftshifted
-                # variant, commented out).
-                out2 = out2[:, :, offset // 2: offset // 2 + nch2, :]
-            else:
-                # chomp oversampled middle channels; stage-2 channel 0 is
-                # DC and nch2/2 is Nyquist (TwoStageFilterBank.m:102-105).
-                # The matlab 1-based overlapping assignment keeps tmp[j]
-                # for j<nch2/2-1 and tmp[j+offset] for j>=nch2/2-1 (second
-                # write wins at the seam).
-                half = nch2 // 2
-                out2 = torch.cat([out2[:, :, :half - 1, :],
-                                  out2[:, :, half - 1 + offset: nch2 + offset, :]], dim=2)
-
-        out = out2.reshape(n_pol, nch1 * out2.shape[2], t2)
+        with span("corner_turn"):
+            out2 = corner_turn(out2, out2.reshape(n_pol, nch1, nch2_orig, t2))
+            if self.critical and offset > 0:
+                if self.stage2_monotonic:
+                    # LowCBF stage 2 emits its KEPT channels fftshifted (DC at
+                    # the middle): the oversampling-redundant channels are the
+                    # band EDGES, offset/2 each end. The reference's generic
+                    # middle chomp below assumes DC-first order
+                    # (TwoStageFilterBank.m:106-107 notes the fftshifted
+                    # variant, commented out).
+                    out2 = out2[:, :, offset // 2: offset // 2 + nch2, :]
+                else:
+                    # chomp oversampled middle channels; stage-2 channel 0 is
+                    # DC and nch2/2 is Nyquist (TwoStageFilterBank.m:102-105).
+                    # The matlab 1-based overlapping assignment keeps tmp[j]
+                    # for j<nch2/2-1 and tmp[j+offset] for j>=nch2/2-1 (second
+                    # write wins at the seam).
+                    half = nch2 // 2
+                    out2 = corner_turn(out2, torch.cat(
+                        [out2[:, :, :half - 1, :],
+                         out2[:, :, half - 1 + offset: nch2 + offset, :]], dim=2))
+            out = corner_turn(out2, out2.reshape(n_pol, nch1 * out2.shape[2], t2))
         return TwoStageFilterBankState(s1, s2), out
 
 
@@ -172,6 +191,7 @@ class TwoStageInverseFilterBank(nn.Module):
             )
         return TwoStageInverseFilterBankState(self._inv.init_state())
 
+    @spanned("two_stage.inverse_filterbank")
     def execute(self, state: TwoStageInverseFilterBankState, x
                 ) -> Tuple[TwoStageInverseFilterBankState, torch.Tensor]:
         """(n_pol, nchan, n) fine channels -> (new_state, (n_pol, nch_out,
@@ -181,7 +201,9 @@ class TwoStageInverseFilterBank(nn.Module):
         nch_in = self.nch2 * self.combine
         nch_out = 1 if self.single else nchan // nch_in
         # batch coarse channels: (n_pol*nch_out, nch_in, T)
-        slabs = x[:, : nch_out * nch_in, :].reshape(n_pol * nch_out, nch_in, n_dat)
+        with span("corner_turn"):
+            slabs = corner_turn(x, x[:, : nch_out * nch_in, :].reshape(n_pol * nch_out, nch_in,
+                                                                      n_dat))
         s2, inv = self._inv.execute(state.stage2, slabs)
         # inv: (n_pol*nch_out, 1, T_out) -> (n_pol, nch_out, T_out)
         return TwoStageInverseFilterBankState(s2), inv.reshape(n_pol, nch_out, inv.shape[2])

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ska_pst_dsp_tpu_torch.utils import geometry
-from ska_pst_dsp_tpu_torch.utils.profiling import spanned
+from ska_pst_dsp_tpu_torch.utils.profiling import span, spanned
 from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .. import cfft
@@ -140,7 +140,8 @@ def epilogue_dispatch(flat: torch.Tensor, elem: Optional[torch.Tensor],
     N) -> (n_pol, n_valid, N - 2 * output_overlap), on the route
     :func:`epilogue_route` chooses (the ``dispatch`` span), then called
     after that span has ended; where no plan
-    applies, the composed epilogue, as in the JAX package, counted in
+    applies, the composed epilogue, as in the JAX package (the
+    ``composed_epilogue`` span), counted in
     ``fused_inversion.composed_epilogues``. On the card a split no kernel
     takes raises ValueError."""
     n = geom.output_fft_length
@@ -152,7 +153,8 @@ def epilogue_dispatch(flat: torch.Tensor, elem: Optional[torch.Tensor],
     if route == "pair":
         return fused_big_ifft_oc(flat[:, :n_valid], elem, shape_key=key)
     fused_inversion.composed_epilogues += 1
-    return epilogue(flat, elem, lo, roll, gain, n_valid)
+    with span("composed_epilogue"):
+        return epilogue(flat, elem, lo, roll, gain, n_valid)
 
 
 def _roll_gain(geom: geometry.SynthesisGeometry, spans_nyquist: bool) -> Tuple[int, float]:

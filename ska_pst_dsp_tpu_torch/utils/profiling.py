@@ -26,10 +26,17 @@ The spans, by layer (each nests in the one above it on the host thread):
 * chain and stream: ``forward`` (the one-shot round trips),
   ``filterbank`` and ``inverse_filterbank`` (the streaming stages'
   ``execute``), ``carry`` (each carry's ``torch.cat`` in those);
+  ``two_stage.filterbank`` and ``two_stage.inverse_filterbank`` (the
+  cascades' ``execute``, around their stages' spans) and ``corner_turn``
+  (in those, around the cascade's own reshapes: stage 1's spectra into
+  one stream per coarse channel, the chomp and the output's layout, the
+  inverse's slabs);
 * wrappers: ``kernel.<name>`` (each of the eleven kernel wrappers, under its
   key in :func:`..ops.kernels.wrappers`), ``inversion``
-  (``fused_inversion``) and ``dispatch`` (the epilogue's choice of route,
-  ending before the chosen epilogue is called).
+  (``fused_inversion``), ``dispatch`` (the epilogue's choice of route,
+  ending before the chosen epilogue is called) and ``composed_epilogue``
+  (in ``inversion``: the composed epilogue, where no kernel's plan covers
+  the block's length).
 """
 
 from __future__ import annotations
@@ -86,17 +93,20 @@ def spanned(name: str):
 def counters() -> Dict[str, int]:
     """Every counter of the program: each kernel wrapper's ``launches``
     (by its key in :func:`..ops.kernels.wrappers`),
-    ``fused_inversion.composed_epilogues`` as ``composed_epilogues``, and
-    the bytes the streaming stages' carries have written
-    (``models.streaming.carry.bytes``) as ``carry_bytes``. Each counts from
-    the process's start; take the difference of two readings."""
-    from ..models import streaming
+    ``fused_inversion.composed_epilogues`` as ``composed_epilogues``, the
+    bytes the streaming stages' carries have written
+    (``models.streaming.carry.bytes``) as ``carry_bytes``, and the bytes
+    the cascades' corner turns have copied
+    (``models.two_stage.corner_turn.bytes``) as ``corner_turn_bytes``. Each
+    counts from the process's start; take the difference of two readings."""
+    from ..models import streaming, two_stage
     from ..ops.kernels import wrappers
     from ..ops.kernels.synthesis_fused import fused_inversion
 
     out = {k: w.launches for k, w in wrappers().items()}
     out["composed_epilogues"] = fused_inversion.composed_epilogues
     out["carry_bytes"] = streaming.carry.bytes
+    out["corner_turn_bytes"] = two_stage.corner_turn.bytes
     return out
 
 

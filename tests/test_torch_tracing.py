@@ -12,13 +12,22 @@
 * Outputs are bitwise the same with the profiler on and off.
 * ``carry_bytes`` counts the bytes of every carry's ``torch.cat`` output,
   reckoned here from the sizes of the carried buffers and the blocks.
-* :func:`counters` holds every wrapper's launches, the composed epilogues
-  and the carry's bytes.
+* :func:`counters` holds every wrapper's launches, the composed epilogues,
+  the carry's bytes and the cascades' corner-turn bytes.
+* A cascade (a 16-channel stage 1 into the LowCBF firmware filterbank,
+  then each coarse channel's inversion, oversampled and critical) emits
+  ``two_stage.filterbank`` and ``two_stage.inverse_filterbank`` around its
+  stages' spans, ``corner_turn`` in those, and ``composed_epilogue`` in
+  ``inversion`` after its ``dispatch``; ``corner_turn_bytes`` grows by the
+  bytes of the two copies a forward makes, and by nothing where every
+  reshape is a view.
 * On the card (marked ``cuda``; this module imports neither JAX nor the
   JAX package, so it runs there with ``--noconftest``): the low and mid
   main paths and the low stream emit the same spans, the out-of-core
   pair's two kernels among mid's, one ``kernel.<name>`` span for each
-  launch its wrapper counts.
+  launch its wrapper counts; so does SKA-Low's PST cascade (sps into
+  lowpsi), one ``composed_epilogue`` span for each composed epilogue
+  counted.
 """
 
 import contextlib
@@ -34,11 +43,12 @@ from ska_pst_dsp_tpu_torch.design import fir
 from ska_pst_dsp_tpu_torch.entry import (
     L, N_CHAN, OS_FACTOR, OVERLAP, TAPS_PER_CHAN, low_round_trip, mid_round_trip,
 )
-from ska_pst_dsp_tpu_torch.models import streaming
+from ska_pst_dsp_tpu_torch.models import streaming, two_stage
 from ska_pst_dsp_tpu_torch.models.round_trip import PaddedPFBRoundTrip, PFBRoundTrip
 from ska_pst_dsp_tpu_torch.ops.kernels import synthesis_fused as tsf
 from ska_pst_dsp_tpu_torch.ops.kernels import wrappers
 from ska_pst_dsp_tpu_torch.utils import geometry, profiling
+from ska_pst_dsp_tpu_torch.utils.config import load_config
 from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 #: a reduced SKA-Mid slice: 1024 channels at 8/7, L 512 / overlap 128, so
@@ -69,6 +79,22 @@ CARD_NESTING = {
 }
 #: the carries' parents: the stage whose execute joins them
 CARRY_PARENTS = {"filterbank", "inverse_filterbank"}
+#: each span a cascade's forward and inverse emit -> its possible parents
+CASCADE_NESTING = {
+    "two_stage.filterbank": {None}, "two_stage.inverse_filterbank": {None},
+    "filterbank": {"two_stage.filterbank"},
+    "corner_turn": {"two_stage.filterbank", "two_stage.inverse_filterbank"},
+    "kernel.analysis_fused": {"filterbank"},
+    "inverse_filterbank": {"two_stage.inverse_filterbank"},
+    "inversion": {"inverse_filterbank"},
+    "kernel.synthesis_fused": {"inversion"}, "dispatch": {"inversion"},
+    "composed_epilogue": {"inversion"},
+}
+#: the CPU cascade's stage 1: 16 channels at OS 4/3 (hop 12), 12 taps a
+#: channel; its input gives each coarse channel one inversion block (256
+#: LowCBF spectra behind the first call's pad of 1536, at hop 192)
+CASCADE_CHAN = 16
+CASCADE_N = (256 * 192 + 3072 - 1536) * 12 + 13 * CASCADE_CHAN
 
 
 @dataclasses.dataclass
@@ -143,6 +169,29 @@ def run_stream(filt, x, shapes=None, device="cpu"):
         s_inv, z = inv.execute(s_inv, y)
         outs += [y, z]
     return outs
+
+
+def run_cascade(configs, x, device="cpu", **kw):
+    """``x`` through a fresh cascade (``kw``: ``critical`` or ``single``)
+    and its inverse, one call each; returns (forward's output, the
+    stage-1 spectra it emitted, inverse's output)."""
+    stage1, stage2 = configs
+    os2 = Rational.coerce(stage2.os_factor)
+    nch2 = os2.normalize(stage2.channels) if kw.get("critical") else stage2.kept_channels
+    fb = two_stage.TwoStageFilterBank(stage1, stage2, device=device, **kw)
+    inv = two_stage.TwoStageInverseFilterBank(stage1, stage2, nch2=nch2, device=device,
+                                              single=kw.get("single", False))
+    state, y = fb.execute(fb.init_state(), x)
+    _, z = inv.execute(inv.init_state(), y)
+    return y, state.stage1.emitted, z
+
+
+@pytest.fixture(scope="module")
+def cascade_configs():
+    """(the CPU cascade's stage 1, the LowCBF stage 2 of lowpsi)."""
+    lowpsi = load_config("lowpsi")
+    filt = fir.design_pfb_fir_filter(CASCADE_CHAN, OS_FACTOR, TAPS_PER_CHAN)
+    return LowConfig(filt, channels=CASCADE_CHAN), lowpsi
 
 
 def _program_spans(prof):
@@ -250,13 +299,51 @@ def test_carry_bytes_counts_the_cat_outputs(low_filt):
 
 def test_counters_hold_every_counter(cases):
     before = profiling.counters()
-    assert set(before) == {*wrappers(), "composed_epilogues", "carry_bytes"}
+    assert set(before) == {*wrappers(), "composed_epilogues", "carry_bytes",
+                           "corner_turn_bytes"}
     assert all(isinstance(v, int) for v in before.values())
     cases["stream"]()
     after = profiling.counters()
     # the CPU runs the plain versions: no launch, the carries counted
     assert after["carry_bytes"] > before["carry_bytes"]
     assert {k: after[k] - before[k] for k in wrappers()} == dict.fromkeys(wrappers(), 0)
+
+
+@pytest.mark.parametrize("critical", [False, True])
+def test_cascade_spans_nest(cascade_configs, critical):
+    x = _noise((2, CASCADE_N), 6)
+    before = profiling.counters()
+    (y, _, z), spans = _profiled(lambda: run_cascade(cascade_configs, x, critical=critical))
+    assert z.shape == (2, CASCADE_CHAN, 216 * 192 - 2 * 7776 if not critical
+                       else 192 * 192 - 2 * 36 * 192)
+    assert {n for n, *_ in spans} == set(CASCADE_NESTING)
+    for name, parent, _, _ in spans:
+        assert parent in CASCADE_NESTING[name], (name, parent)
+    counts = {n: sum(1 for s in spans if s[0] == n) for n in CASCADE_NESTING}
+    # stage 1 and stage 2 of the forward; its two reshapes and the slabs
+    assert counts["filterbank"] == counts["kernel.analysis_fused"] == 2
+    assert counts["corner_turn"] == 3
+    assert counts["composed_epilogue"] == 1
+    assert profiling.counters()["composed_epilogues"] == before["composed_epilogues"] + 1
+    (dispatch,) = [s for s in spans if s[0] == "dispatch"]
+    (composed,) = [s for s in spans if s[0] == "composed_epilogue"]
+    assert composed[2] >= dispatch[3]
+
+
+@pytest.mark.parametrize("kw", [{}, {"critical": True}, {"single": True}])
+def test_corner_turn_bytes_counts_the_cascades_copies(cascade_configs, kw):
+    """The forward copies stage 1's spectra into one stream per coarse
+    channel and stage 2's channels into the output's layout; the chomp
+    (a slice of each coarse channel's kept channels) and the inverse's
+    slabs are views. With one coarse channel every reshape is a view."""
+    x = _noise((2, CASCADE_N), 7)
+    before = two_stage.corner_turn.bytes
+    y, spectra1, z = run_cascade(cascade_configs, x, **kw)
+    counted = two_stage.corner_turn.bytes - before
+    assert spectra1 > 0 and y.shape[-1] > 0 and z.shape[-1] > 0
+    want = 0 if kw.get("single") else 8 * (2 * CASCADE_CHAN * spectra1 + y.numel())
+    assert counted == want
+    assert profiling.counters()["corner_turn_bytes"] == two_stage.corner_turn.bytes
 
 
 @pytest.mark.cuda
@@ -287,3 +374,34 @@ def test_card_spans_nest_and_match_the_launches(low_filt, case):
     launched = {k: after[k] - before[k] for k in wrappers()}
     assert launched == {k: sum(1 for s in spans if s[0] == f"kernel.{k}") for k in wrappers()}
     assert after["composed_epilogues"] == before["composed_epilogues"]
+
+
+@pytest.mark.cuda
+def test_card_cascade_spans_match_the_launches():
+    """SKA-Low's PST cascade (sps into lowpsi) on the card over one
+    inversion block: the same spans as on the CPU, one ``kernel.<name>``
+    span for each launch, one ``composed_epilogue`` span for each composed
+    epilogue counted, and the corner turns' copies counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    configs = load_config("sps"), load_config("lowpsi")
+    x = _noise((2, (256 * 192 + 3072 - 1536) * 216 + 6400), 8).to(dev)
+    run_cascade(configs, x, device=dev)
+    before = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        y, spectra1, z = run_cascade(configs, x, device=dev)
+        torch.cuda.synchronize(dev)
+    after = profiling.counters()
+    spans = _program_spans(prof)
+    assert z.shape == (2, 256, 216 * 192 - 2 * 7776)
+    assert {n for n, *_ in spans} == set(CASCADE_NESTING)
+    for name, parent, _, _ in spans:
+        assert parent in CASCADE_NESTING[name], (name, parent)
+    launched = {k: after[k] - before[k] for k in wrappers()}
+    assert launched == {k: sum(1 for s in spans if s[0] == f"kernel.{k}") for k in wrappers()}
+    assert launched["analysis_fused"] == 2 and launched["synthesis_fused"] == 1
+    assert (after["composed_epilogues"] - before["composed_epilogues"]
+            == sum(1 for s in spans if s[0] == "composed_epilogue") == 1)
+    assert (after["corner_turn_bytes"] - before["corner_turn_bytes"]
+            == 8 * (2 * 256 * spectra1 + y.numel()))
