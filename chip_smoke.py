@@ -21,7 +21,13 @@ Phases (one line each; any failure raises and the exit code is non-zero):
    kernel, which the low main path runs) against its plain version (the
    frontend then the epilogue; 1.2e-5 * scale, with and without ``elem``)
    at 2 x 272 blocks and at a stream block's batch of 2 x 2 blocks of a
-   channel-major view, each beside the two kernels it replaces.
+   channel-major view, each beside the two kernels it replaces; and its
+   instance at a LowCBF PST slab's geometry (216 monotonic channels, 41472
+   points) at the SKA-Low PST cascade's shapes, 512 slabs of 9 and of 18
+   blocks of a channel-major buffer read through its transposed view,
+   against its plain version (with and without ``elem``) and beside the
+   route it replaces there, the frontend kernel then the composed epilogue
+   (cuFFT, roll, scale, strided keep).
 4. slice: 2 pol x 2^23 samples (bench.py's size) through
    ``PFBRoundTrip`` on the kernels: analysis_fused and inversion_fused
    launch once each and nothing else, the output is
@@ -82,7 +88,7 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     TestImpulse at -60 dB; each kernel at the cascades' geometries and the
     corner turn, timed against its plain version, bound and library call.
 11. sps -> lowpsi: the SKA-Low PST chain (LowCBF over 512 streams, the
-    216-channel monotonic inversion, composed epilogue), as phase 10. Then
+    216-channel monotonic inversion on the fused inversion), as phase 10. Then
     the LowCBF route on the card (the analysis kernel with the quarter-turn
     table) against the port's fp64 oracle
     (``oracle.polyphase_analysis_lowcbf``) over every spectrum, at 2e-6
@@ -114,8 +120,9 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     each) and -c mid's three single-stage entries (at the committed
     report's 1048576-sample blocks), each case with the plain versions
     patched to raise (torch.fft and the plain epilogue left where the
-    inversion has no epilogue plan, 36864 and 41472 points, whose composed
-    epilogues are counted instead), its launches as expected and each
+    inversion has no epilogue plan and no fused kernel, the critical
+    cascades' 36864 points, whose composed epilogues are counted instead),
+    its launches as expected and each
     status equal to the committed products/report.test_sgcht.<cfg>.json;
     current_performance -c low -d both -n 8 --strict (every in-window point
     <= -60 dB); at3 565 at its defaults, each variant's SNR within 0.5 dB
@@ -587,6 +594,81 @@ def inversion_entry(torch, model, chan, smi):
     return entry
 
 
+def slab_inversion(torch, dev, smi):
+    """The fused inversion at a LowCBF PST slab's geometry (216 monotonic
+    channels, 41472 points) at the SKA-Low PST cascade's shapes: 512 slabs
+    (2 pol x 256 coarse channels) of 9 and of 18 blocks, read through the
+    transposed view of a channel-major buffer as the inverse carry hands it
+    over; against its plain version (the frontend then the epilogue; with
+    and without ``elem``) and beside the route it replaces, the frontend
+    kernel then the composed epilogue (the library chain: cuFFT, roll,
+    scale, the strided keep); ms for one call, the kernel's on the device,
+    its bound (each input sample read once, each output written once, the
+    FFT flops). Returns {blocks: entry}."""
+    from ska_pst_dsp_tpu_torch.ops import synthesis as ps
+    from ska_pst_dsp_tpu_torch.ops.kernels import inversion_fused as inv
+    from ska_pst_dsp_tpu_torch.ops.kernels import synthesis_fused as tsf
+    from ska_pst_dsp_tpu_torch.utils import geometry
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+    cfg = load_config("lowpsi")
+    n_chan, L, ov, os_f = (cfg.kept_channels, cfg.input_fft_length, cfg.input_overlap,
+                           cfg.os_factor)
+    g = geometry.SynthesisGeometry(n_chan, L, ov, os_f)
+    c = ps.synthesis_constants(n_chan, L, os_f, ov, deripple_coeff=cfg.load_fir_filter_coeff(),
+                               temporal_taper="tukey", monotonic=True)
+    consts = [torch.as_tensor(c[k], device=dev) for k in ("t_taper", "dr", "perm")]
+    keep, kpos = g.input_keep, (L // 2 + g.discard) % L
+    n, lo, roll, gain = g.output_fft_length, g.output_overlap, g.fn_width // 2, os_f.de / os_f.nu
+    check(inv.takes(L, n_chan, n, lo), "inversion_fused does not take the slab geometry")
+    elem = torch.as_tensor(noise((n,), SEED + n_chan), device=dev)
+    gen = torch.Generator(device=dev)
+    entries = {}
+    for nb in (9, 18):
+        n_dat = 2 * ov + nb * keep
+        gen.manual_seed(SEED + nb)
+        x = torch.randn((512, n_chan, n_dat + 64), dtype=torch.complex64, device=dev,
+                        generator=gen)[:, :, :n_dat].transpose(1, 2)
+
+        def fused(e=None):
+            return inv.inversion_fused(x, *consts, e, keep, kpos, nb, lo, roll, gain)
+
+        def plain(e=None):
+            fn = ps.frontend(x, *consts, L, keep, kpos, nb)
+            return ps.epilogue(fn.reshape(512, nb, n), e, lo, roll, gain, nb)
+
+        def chain():
+            fn = tsf.synthesis_fused(x, *consts, L, keep, kpos, nb)
+            return tsf.epilogue_dispatch(fn.reshape(512, nb, n), None, g, spans_nyquist=True,
+                                         n_valid=nb)
+
+        err = max(rel_err(fused(), plain()), rel_err(fused(elem), plain(elem)),
+                  key=lambda e: e[1])
+        check(err[1] <= SYNTHESIS_TOL, f"inversion_fused at the slab, {nb} blocks: {err[1]:.3g}")
+        composed = tsf.fused_inversion.composed_epilogues
+        chain()
+        check(tsf.fused_inversion.composed_epilogues == composed + 1,
+              "the slab's two-kernel route composes its epilogue")
+        n_tr = 512 * nb
+        bnd = bound(nbytes(x, *consts) + n_tr * (n - 2 * lo) * 8,
+                    fft_flops(L, n_tr * n_chan) + fft_flops(n, n_tr))
+        e = {"blocks": n_tr, "max_rel_err": err[1], "ms": time_ms(torch, fused),
+             "plain_ms": time_ms(torch, plain), "library_chain_ms": time_ms(torch, chain),
+             "device_ms": device_ms(torch, fused, "inversion_fused_kernel"),
+             "bound_ms": bnd[0], "bound_by": bnd[1]}
+        entries[nb] = e
+        log("kernels", f"inversion_fused at the slab geometry, 512 x {nb} blocks "
+            f"(channel-major view): max|err|/scale {err[1]:.3g} (tol {SYNTHESIS_TOL}); "
+            f"kernel {e['ms']:.4f} ms, device "
+            + (", ".join(f"{k} {v:.4f} ms" for k, v in e["device_ms"].items())
+               or "not measured")
+            + f"; frontend kernel + composed epilogue {e['library_chain_ms']:.4f} ms; plain "
+            f"{e['plain_ms']:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}) ({smi})")
+        del x
+        torch.cuda.empty_cache()
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -739,6 +821,7 @@ def main() -> int:
     del fn, flat
     kernels.append(inversion_entry(torch, model, chan, smi))
     del chan
+    kernels[-1]["slab_216"] = slab_inversion(torch, dev, smi)
 
     # 4. the slice at full size through the module, then the oracle prefix
     out, launches = counted_forward(torch, model, x)
@@ -1553,7 +1636,7 @@ def run_sps_lowpsi(torch, dev, smi):
     """Phase 11: the SKA-Low PST chain, sps (256 ch, OS 32/27) then the
     LowCBF firmware filterbank (lowpsi: 216 of 256 channels kept) over 512
     streams, and the oversampled monotonic inversion of the 216-channel
-    slabs (composed epilogue: 41472 points have no plan), 2 pol x 2^25
+    slabs (the fused inversion: 41472 points have no epilogue plan), 2 pol x 2^25
     samples in 4 blocks; the tone passes TestPureTone at -60 dB. Then the
     LowCBF route on the card against the port's fp64 oracle: 2 pol x 2^23
     noise on the first call, a 2^20 prefix on a later call, and 8 of the
@@ -1565,7 +1648,7 @@ def run_sps_lowpsi(torch, dev, smi):
     sps, lowpsi = load_config("sps"), load_config("lowpsi")
     tone = cascade_blocks(torch, PureTone(TONE, device=dev))
     run_case(torch, dev, smi, "sps-lowpsi", sps, lowpsi, "oversampled, tone", {},
-             {"nch2": lowpsi.kept_channels}, ("analysis_fused", "synthesis_fused"), True, tone,
+             {"nch2": lowpsi.kept_channels}, LOW_KERNELS, False, tone,
              (cascade_testers(sps, lowpsi),))
     filt = lowpsi.load_fir_filter_coeff()
     x = torch.as_tensor(noise((2, N_DAT), SEED + 11), device=dev)
@@ -1862,11 +1945,11 @@ def run_data_gen(torch, dev, smi):
 
 def sweep_kernels(cfg, extra):
     """(the kernels a test_sgcht case launches, whether its inversion's
-    epilogue is composed by design): the 36864-point (critical) and
-    41472-point (LowCBF's 216 kept channels) inversions have no epilogue
-    plan in either package; the combine-16 inversions (589824 points) run
-    on the ifft_big pair, mid's single stage on the pair, low's on the
-    fused inversion."""
+    epilogue is composed by design): the 36864-point (critical) inversions
+    have no epilogue plan in either package and no fused kernel; the
+    combine-16 inversions (589824 points) run on the ifft_big pair, mid's
+    single stage on the pair, low's and the 41472-point ones (LowCBF's 216
+    kept channels) on the fused inversion."""
     if cfg is None:
         return (), False
     fwd = ("analysis_padded_fused", "chan_dft_fused") if cfg == "mid" else ("analysis_fused",)
@@ -1874,7 +1957,7 @@ def sweep_kernels(cfg, extra):
         return fwd, False
     if "--combine" in extra or cfg == "mid":
         epi = PAIR
-    elif "--critical" in extra or cfg == "lowpsi":
+    elif "--critical" in extra:
         epi = ()
     else:
         return fwd + ("inversion_fused",), False

@@ -1,81 +1,111 @@
-// Fused SKA-Low Golden inversion: the frontend (overlap-save frame,
-// temporal taper, L-point forward DFT, fftshifted passband keep, deripple,
-// channel permutation) and the backward-FFT epilogue (elementwise factor,
+// Fused Golden inversion: the frontend (overlap-save frame, temporal taper,
+// L-point forward DFT, fftshifted passband keep, deripple, channel
+// permutation) and the backward-FFT epilogue (elementwise factor,
 // DC-centering roll, overlap discard, gain) in one launch, each assembled
-// 49152-point block held in the shared memory of one thread-block cluster
-// from the frontend's last pass to the kept output samples.
+// block held in the shared memory of one thread-block cluster from the
+// frontend's last pass to the kept output samples.
 //
 // Replaces no Pallas kernel alone: it fuses the ports of
 //   ska_pst_dsp_tpu/ops/pallas/synthesis_fused.py::_fused_synthesis
 //   (csrc/synthesis_fused.cu) and
 //   ska_pst_dsp_tpu/ops/pallas/ifft_fused.py::fused_big_ifft
-//   (csrc/ifft_fused.cu, the cluster route)
-// at the one geometry where the epilogue's cluster can hold a block and
-// the frontend's tile fills one of its thread blocks: L = 256, 256
-// channels, FN_width = 192, N = 49152 = 128 * 384. It computes
+//   (csrc/ifft_fused.cu, the cluster route; elsewhere the composed epilogue)
+// at the two geometries where the epilogue's cluster can hold a block and
+// the frontend's tiles fill its thread blocks, L = 256, FN_width = 192
+// (InvPlan):
+//   * SKA-Low: 256 channels, N = 49152 = 128 * 384 (LowPlan);
+//   * a LowCBF PST slab, the 216 kept channels of one coarse channel of the
+//     SKA-Low PST cascade: N = 41472 = 216 * 192 (PsiPlan). Neither package
+//     has an epilogue plan at this length (41472 = 2^9 * 3^4: no split with
+//     n2 a multiple of 128 and n1 a multiple of 8), so without this kernel
+//     it runs the frontend kernel and the composed epilogue (cuFFT, roll,
+//     scale, a strided copy). It computes
 //
 //   X[p, b, 192*c + j] = dr[j] * sum_t taper[t] * x[p, b*keep + t, perm[c]]
 //                               * w_L^(t * ((kpos + j) mod L))
 //   y[p, b, t - lo]    = IFFT(roll(X[p, b] * elem, -roll))[t] * gain,
 //                        t in [lo, N - lo)
 //
-// as synthesis_fused followed by fused_big_ifft compute it, the epilogue
-// with the same passes and tables; the frontend's DFT runs as 16 * 16.
+// as synthesis_fused followed by the epilogue computes it; the frontend's
+// DFT runs as 16 * 16.
 //
-// What bounds it on the H100: bytes. The two kernels it replaces met in
-// device memory: the frontend wrote each (pol, block)'s assembled spectrum
-// (384 KiB) and the epilogue read it straight back, 544 * 768 KiB = 428 MB
-// a low request (2 pol x 272 blocks). Without that traffic the request
-// must still read its 544 * 256 channels x 256-sample frames (286 MB, less
-// where neighbouring frames meet in L2) and write the 30720 kept samples of
-// each block (134 MB): 419 MB, 0.125 ms at 3.35 TB/s, against ~3.5 Gflop
-// of FFT (0.052 ms at 67 TFLOP/s).
+// What bounds it on the H100: bytes. The two kernels it replaces at SKA-Low
+// met in device memory: the frontend wrote each (pol, block)'s assembled
+// spectrum (384 KiB) and the epilogue read it straight back, 544 * 768 KiB
+// = 428 MB a low request (2 pol x 272 blocks). Without that traffic the
+// request must still read its 544 * 256 channels x 256-sample frames (286
+// MB, less where neighbouring frames meet in L2) and write the 30720 kept
+// samples of each block (134 MB): 419 MB, 0.125 ms at 3.35 TB/s, against
+// ~3.5 Gflop of FFT (0.052 ms at 67 TFLOP/s). A cascade slab's transform
+// reads 216 x 256 frame samples (442 KB; 276 KB of them new) and writes
+// 25920 samples (207 KB) for ~5.4 Mflop of FFT: ~10 flop a byte, under the
+// fp32 ridge of ~20.
 //
 // Design: one persistent cluster of eight 256-thread blocks per resident
-// slot walks over the (pol, block) transforms (eight: 256 channels are
-// eight 32-channel tiles, and eight blocks are the largest portable
+// slot walks over the (pol, block) transforms (eight: the largest portable
 // cluster), two blocks an SM. For each transform, with the four-step split
-// N = n2 * n1 = 128 * 384, input k = 384*m2 + m1, output t = k2 + 128*k1:
-//   * block r is the frontend of channels [32r, 32r + 32), in two halves
-//     of 16. The thread of (channel c, j) loads its 16 frame samples
-//     t = j + 16*m from device memory into registers (strides are
-//     arguments: a channel-major stream or a sample_offset view needs no
-//     copy; 16 channels of one time row are 128 contiguous bytes of the
-//     time-major stream), tapers them there, runs the 16-point DFT over m
-//     and the twiddle w_L^(j*d) and stores them in a row of 257 points
-//     (odd: 16 channels at one offset hit 16 banks); the thread of (c, d)
-//     then runs the 16-point DFT over j of bins k = d + 16*e in registers.
-//     The second half's samples load during the first half's passes;
+// N = n2 * n1, input k = n1*m2 + m1, output t = k2 + n2*k1:
+//   * block r is the frontend of channels [C*r, C*r + C) (C = 32, or 27 in
+//     the cascade's slab), in two halves of up to 16 (16 + 16, 16 + 11: a
+//     short half's spare threads load and store nothing). The thread of (channel c,
+//     j) loads its 16 frame samples t = j + 16*m from device memory into
+//     registers (strides are arguments: a channel-major stream or a
+//     sample_offset view needs no copy), tapers them there, runs the
+//     16-point DFT over m and the twiddle w_L^(j*d) and stores them in a row
+//     of 257 points (odd: 16 channels at one offset hit 16 banks); the
+//     thread of (c, d) then runs the 16-point DFT over j of bins
+//     k = d + 16*e in registers. The lanes of the first pass lie on
+//     channels (16 channels of one time row are 128 contiguous bytes of the
+//     time-major stream the one-shot round trip hands over); the slab's
+//     kernel puts them on time, for the channel-major slabs the cascade's
+//     inverse hands over (a warp loads two channels' 128 contiguous bytes;
+//     its rows, skewed by j, are its own through both passes, so warp
+//     barriers order them: 3.06 against 3.33 ms for 512 x 9 channel-major
+//     slab transforms on the H100, 4.18 against 3.08 time-major). The
+//     second half's samples load during the first half's passes;
 //   * the epilogue's roll is a circular shift of its input, and its gain a
 //     factor: each kept bin j' of channel c, times dr[j'] * gain/N, goes to
-//     k' = (192*c + j' - roll) mod N, row m2 = k' / 384 and column
-//     m1 = k' % 384, straight into the column buffer of the block that owns
-//     m1 (map_shared_rank: block r owns m1 in [48r, 48r + 48)): the
+//     k' = (192*c + j' - roll) mod N, row m2 = k' / n1 and column
+//     m1 = k' % n1, straight into the column buffer of the block that owns
+//     m1 (map_shared_rank: block r owns m1 in [r*n1/8, (r+1)*n1/8)): the
 //     assembled block never leaves the cluster, and the output needs no
 //     phase;
 //   * a cluster barrier; meanwhile each thread loads the next transform's
 //     first-half samples into its registers, in flight through the
 //     epilogue;
-//   * then the epilogue of csrc/ifft_fused.cu on its 48 columns and 16
-//     rows k2 in [16r, 16r + 16): the 128-point column DFTs (radix 8 in
-//     shared memory, times elem at the shifted bin; 16 points in
-//     registers), the N-level twiddle and the exchange into the rows'
-//     owners, a cluster barrier, the 384-point row DFTs (radix 3 and
-//     radix 8 in registers, 16 points in registers) and only the kept
-//     samples stored;
+//   * then the epilogue of csrc/ifft_fused.cu on the block's n1/8 columns
+//     and n2/8 rows: the n2-point column DFTs (times elem at the shifted
+//     bin), the N-level twiddle w_N^(m1*k2) = tab_a[k2 / S] * tab_b[k2 % S]
+//     (two exact float64-built tables) and the exchange into the rows'
+//     owners, a cluster barrier, the n1 = 3 * 8 * G-point row DFTs (radix 3
+//     and radix 8 in registers, G points in registers) and only the kept
+//     samples stored. At SKA-Low n2 = 128 runs as a radix-8 pass in shared
+//     memory and 16 points in registers (S = 16), n1 = 384 with G = 16;
 //   * two cluster barriers a transform: the one after the column stores
 //     also tells each block that every other has read its frontend rows
 //     and its receive buffer of the transform before, and the one after
 //     the exchange that every other has read its columns.
+// The cascade's split, 216 * 192: the output overlap 7776 = 36 * 216 and
+// the keep region 25920 = 120 * 216 are whole rows; with n1 = 192 = FN_width
+// each channel's bins fill one row m2 (two rows with the roll), and
+// n1 = 3 * 8 * 8 is csrc/ifft_fused.cu's row plan at 192 (R1 = 3, Q1 = 64);
+// 216 = 6 * 6 * 6 runs as three radix-6 passes (dft6: 2 * 3 by the
+// prime-factor map, a third of the direct sum's arithmetic), the first two
+// in shared memory with a per-pass table of their twiddles, the third in
+// registers straight into the exchange (S = 36: k2 = d0 + 6*d1 + 36*d2).
+// Eight blocks of 27 channels, 24 columns and 27 rows keep the 256-channel
+// kernel's cluster, threads and frontend halves; 216 = 9 * 24 would need a
+// non-portable cluster of nine.
 // Why 256 threads and two blocks an SM: with one 512-thread block an SM
 // (the first version) every warp of the SM waited at the same barriers; a
 // transform took ~11 us a cluster against ~3.5 us of shared-memory traffic,
 // no faster than the two kernels. Two blocks of two clusters interleave
-// their phases. Shared memory per block (110 KiB, under half the SM's 228
-// KB): 48 KiB of columns, 48 KiB of rows whose first 32 KiB also hold the
-// frontend's 16 rows of a half, 11 KiB of tables; w_n1 is read through L1.
-// fp32 SIMT arithmetic throughout. The two-kernel route stays for every
-// other geometry (SKA-Mid, the other cluster splits, the cascades).
+// their phases. Shared memory per block (SKA-Low 110 KiB, the slab 95 KiB,
+// under half the SM's 228 KB): the columns, the rows (whose first 32 KiB
+// also hold the frontend's 16 rows of a half) and the tables; w_n1 is read
+// through L1. fp32 SIMT arithmetic throughout. The two-kernel route stays
+// for every other geometry (SKA-Mid, the other cluster splits, the critical
+// cascades).
 #include <cooperative_groups.h>
 
 #include "bulk_async.cuh"
@@ -85,65 +115,107 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kCl = 8;                 // thread blocks of a cluster
-constexpr int kChan = 32;              // channels per block
-constexpr int kHalf = 16;              // channels of one frontend half
-constexpr int kNChan = kChan * kCl;    // 256
+constexpr int kHalf = 16;              // channels of a full frontend half
 constexpr int kFnw = 192;              // kept bins per channel
-constexpr int kN2 = 128, kN1 = 384;    // N = 49152 = kN2 * kN1
-constexpr int kR1 = 3, kQ1 = 128, kG = 16;  // n1 = 3 * 8 * 16
-constexpr int kTwA = 8, kTwB = 16;     // k2 = 16*a + b
-constexpr int kCpc = kN1 / kCl;        // columns m1 per block
-constexpr int kRows = kN2 / kCl;       // rows k2 per block
-constexpr int kLdr = kN1 + 1;          // row stride of the receive buffer (odd)
-
 constexpr int kL = 256;                // the frame length L
 constexpr int kR = 16;                 // L = 16 * 16: two passes of 16 points
 constexpr int kLd = kL + 1;            // frontend row stride (odd)
 static_assert(kR * kR == kL && kHalf * kR == kThreads, "inversion: frontend tiling");
-static_assert(kNChan * kFnw == kN2 * kN1 && 2 * kFnw == kN1, "inversion: two channels a row");
-static_assert(kR1 * kQ1 == kN1 && kQ1 == 8 * kG && kCpc * kCl == kN1, "inversion: row split");
-constexpr int kN = kN2 * kN1;
 
-// shared memory, in float2: the frontend's rows of a half share the
-// receive buffer (the rows are read before the cluster barrier after which
-// other blocks write the receive buffer)
-constexpr int kCol = kN2 * kCpc;                 // [m2][kCpc]
-constexpr int kRecv = kRows * kLdr;              // [k2 - r0][kLdr]
-constexpr int kBuf = kHalf * kLd;                // [channel][kLd]
-static_assert(kBuf <= kRecv, "inversion: frontend rows inside the receive buffer");
-constexpr int kTwC = FftRegPlan<7>::kTw;         // backward 128-point per-pass table
-constexpr int kTab = (kTwA + kTwB) * kCpc;
-constexpr int kF2 = kCol + kRecv + kL + kTwC + kTab;
-constexpr size_t kSmem = static_cast<size_t>(kF2) * sizeof(float2) +
-                         static_cast<size_t>(kL + kFnw) * sizeof(float);
-// two blocks an SM: 228 KB, less 1 KB each for the system
-static_assert(2 * (kSmem + 1024) <= 228 * 1024, "inversion: two blocks an SM");
+// One instantiation: NCHAN channels, N = NCHAN * 192 = N2 * N1 with
+// N1 = R1 * Q1 (Q1 = 8 * G); the column transform N2 is 128 = 8 * 16 or
+// 216 = 6 * 6 * 6; CM: the frontend's first-pass lanes on time (see
+// lane_chan).
+template <int NCHAN, int N2, int R1, int Q1, bool CM>
+struct InvPlan {
+  static constexpr bool kCm = CM;
+  static constexpr int kChan = NCHAN / kCl;         // channels per block
+  static constexpr int kHalf1 = kChan - kHalf;      // channels of the second half
+  static constexpr int kN2 = N2, kR1 = R1, kQ1 = Q1, kN1 = R1 * Q1, kG = Q1 / 8;
+  static constexpr int kN = N2 * kN1;
+  static constexpr int kCpc = kN1 / kCl;            // columns m1 per block
+  static constexpr int kRows = N2 / kCl;            // rows k2 per block
+  static constexpr int kLdr = kN1 + 1;              // row stride of the receive buffer (odd)
+  static constexpr int kTwS = N2 == 128 ? 16 : 36;  // k2 = S*a + b
+  static constexpr int kTwA = N2 / kTwS, kTwB = kTwS;
+  // the column transform's per-pass table: the 128-point one
+  // (fft_reg_pass_tw), or the radix-6 passes of span 36 and 6 (5 rows each)
+  static constexpr int kTwC = N2 == 128 ? FftRegPlan<7>::kTw : 5 * 36 + 5 * 6;
+  // the row transform's radix-8 pass reads the 128-point table: the column
+  // table at SKA-Low, a second table in the slab
+  static constexpr int kTwR = N2 == 128 ? 0 : FftRegPlan<7>::kTw;
+  // shared memory, in float2: the frontend's rows of a half share the
+  // receive buffer (the rows are read before the cluster barrier after
+  // which other blocks write the receive buffer)
+  static constexpr int kCol = N2 * kCpc;            // [m2][kCpc]
+  static constexpr int kRecv = kRows * kLdr;        // [k2 - r0][kLdr]
+  static constexpr int kBuf = kHalf * kLd;          // [channel][kLd]
+  static constexpr int kTab = (kTwA + kTwB) * kCpc;
+  static constexpr int kF2 = kCol + kRecv + kL + kTwC + kTwR + kTab;
+  static constexpr size_t kSmem = static_cast<size_t>(kF2) * sizeof(float2) +
+                                  static_cast<size_t>(kL + kFnw) * sizeof(float);
+  static_assert(kChan * kCl == NCHAN && kHalf1 > 0 && kHalf1 <= kHalf,
+                "inversion: two frontend halves a block");
+  static_assert(NCHAN * kFnw == kN && kCpc * kCl == kN1 && kRows * kCl == N2,
+                "inversion: the split");
+  static_assert((N2 == 128 || N2 == 216) && (Q1 == 64 || Q1 == 128) && R1 == 3,
+                "inversion: the instantiated transforms");
+  static_assert(kBuf <= kRecv, "inversion: frontend rows inside the receive buffer");
+  // two blocks an SM: 228 KB, less 1 KB each for the system
+  static_assert(2 * (kSmem + 1024) <= 228 * 1024, "inversion: two blocks an SM");
+};
 
-// The first-pass samples of thread (c, j) = (tid % 16, tid / 16), channel
-// ch0 + c, for transform tr: v[m] = x[pol, b*keep + j + 16*m, perm[ch0 + c]].
+// SKA-Low: 49152 = 128 * 384, lanes on channels (the one-shot round trip
+// hands the analysis' time-major channels over)
+using LowPlan = InvPlan<256, 128, 3, 128, false>;
+// a LowCBF PST slab: 41472 = 216 * 192, lanes on time (the cascade's
+// inverse hands channel-major slabs over)
+using PsiPlan = InvPlan<216, 216, 3, 64, true>;
+
+// The thread of (channel c, j) in the frontend's first pass: lanes on
+// channels, (tid % 16, tid / 16), which suits a time-major stream; lanes on
+// time, (tid / 16, tid % 16), which suits a channel-major one (CM: a warp
+// reads two channels' 16 consecutive samples, 256 contiguous bytes).
+template <bool CM>
+__device__ __forceinline__ int lane_chan() {
+  return CM ? threadIdx.x >> 4 : threadIdx.x & 15;
+}
+
+// The first-pass samples of thread (c, j), channel ch0 + c, for transform
+// tr: v[m] = x[pol, b*keep + j + 16*m, perm[ch0 + c]]. In a half of NC < 16
+// channels the spare threads (c >= NC) load nothing: their rows are never
+// read.
+template <class P, int NC>
 __device__ __forceinline__ void frame_load(float2 (&v)[kR], const float2* x, const int* perm,
                                            long long sp, long long st, long long sc,
                                            int n_blocks, int keep, int tr, int ch0) {
+  constexpr bool CM = P::kCm;
   const int pol = tr / n_blocks;
   const int b = tr - pol * n_blocks;
-  const float2* xb = x + pol * sp +
-                     (static_cast<long long>(b) * keep + (threadIdx.x >> 4)) * st +
-                     static_cast<long long>(__ldg(perm + ch0 + (threadIdx.x & 15))) * sc;
+  const int c = lane_chan<CM>();
+  if (NC < kHalf && c >= NC) return;
+  const int j = CM ? threadIdx.x & 15 : threadIdx.x >> 4;
+  const float2* xb = x + pol * sp + (static_cast<long long>(b) * keep + j) * st +
+                     static_cast<long long>(__ldg(perm + ch0 + c)) * sc;
 #pragma unroll
   for (int m = 0; m < kR; ++m) v[m] = xb[static_cast<long long>(kR * m) * st];
 }
 
-// One half of the frontend: the L-point DFTs of 16 channels from ch0,
+// One half of the frontend: the L-point DFTs of NC channels from ch0,
 // L = 16 * 16 with t = j + 16*m and bin k = d + 16*e, whose first-pass
-// samples are in v; the next half's (ch_next, transform tr_next; none where
-// tr_next < 0) are loaded into v after the first pass. The first pass (the
-// thread of (c, j)): taper, the 16-point DFT over m in registers, times
-// w_L^(j*d), into row c at 16*j + d. The second (the thread of (c, d)): the
-// 16-point DFT over j in registers; each kept bin, j' = (k - kpos) mod L <
-// FN_width, times dr[j'] * gain/N, at k' = (192*c + j' - roll) mod N of the
-// assembled block (the epilogue's roll, as a shift of its input): row
-// m2 = k' / 384, column m1 = k' % 384, in the shared memory of the block
-// that owns m1. Ends with every thread past its reads of buf.
+// samples are in v; the next half's (NN channels from ch_next, transform
+// tr_next; none where tr_next < 0) are loaded into v after the first pass.
+// The first pass (the thread of (c, j)): taper, the 16-point DFT over m in
+// registers, times w_L^(j*d), into row c at 16*j + d (with lanes on time at
+// 16*j + (d + j) % 16: a half-warp's 16 j at one d hit 16 banks). The
+// second (the thread of (c, d), c < NC): the 16-point DFT over j in
+// registers; each kept bin, j' = (k - kpos) mod L < FN_width, times
+// dr[j'] * gain/N, at k' = (192*c + j' - roll) mod N of the assembled block
+// (the epilogue's roll, as a shift of its input): row m2 = k' / n1, column
+// m1 = k' % n1, in the shared memory of the block that owns m1. Ends with
+// every thread past its reads of buf. With lanes on time a warp's two rows
+// are its own in both passes, so a warp barrier orders them.
+template <class P, int NC, int NN>
 __device__ __forceinline__ void frontend_half(float2 (&v)[kR], float2* buf, float2* col,
                                               const float2* twf, const float* tap,
                                               const float* drs, int ch0, int kpos, int roll,
@@ -151,79 +223,109 @@ __device__ __forceinline__ void frontend_half(float2 (&v)[kR], float2* buf, floa
                                               long long st, long long sc, int n_blocks,
                                               int keep, int tr_next, int ch_next,
                                               cg::cluster_group& cluster) {
+  constexpr bool CM = P::kCm;
   const int tid = threadIdx.x;
-  {
-    const int c = tid & 15;
-    const int j = tid >> 4;
+  const int cf = lane_chan<CM>();
+  if (NC == kHalf || cf < NC) {
+    const int j = CM ? tid & 15 : tid >> 4;
 #pragma unroll
     for (int m = 0; m < kR; ++m) v[m] = c_scale(v[m], tap[j + kR * m]);
     dft16<-1>(v);
-    float2* row = buf + c * kLd + kR * j;
-    row[0] = v[0];
+    float2* row = buf + cf * kLd + kR * j;
+    row[CM ? j : 0] = v[0];
 #pragma unroll
-    for (int d = 1; d < kR; ++d) row[d] = j == 0 ? v[d] : c_mul(v[d], twf[j * d]);
+    for (int d = 1; d < kR; ++d) {
+      row[CM ? (d + j) & 15 : d] = j == 0 ? v[d] : c_mul(v[d], twf[j * d]);
+    }
   }
-  if (tr_next >= 0) frame_load(v, x, perm, sp, st, sc, n_blocks, keep, tr_next, ch_next);
-  __syncthreads();
+  if (tr_next >= 0) frame_load<P, NN>(v, x, perm, sp, st, sc, n_blocks, keep, tr_next, ch_next);
+  if constexpr (CM) __syncwarp();
+  else __syncthreads();
 
   const int c = tid >> 4;
   const int d = tid & 15;
-  float2 w[kR];
-  const float2* row = buf + c * kLd + d;
+  if (NC == kHalf || c < NC) {
+    float2 w[kR];
+    const float2* row = buf + c * kLd;
 #pragma unroll
-  for (int j = 0; j < kR; ++j) w[j] = row[kR * j];
-  dft16<-1>(w);
-  const int k_ch = (ch0 + c) * kFnw - roll;
+    for (int j = 0; j < kR; ++j) w[j] = row[kR * j + (CM ? (d + j) & 15 : d)];
+    dft16<-1>(w);
+    const int k_ch = (ch0 + c) * kFnw - roll;
 #pragma unroll
-  for (int e = 0; e < kR; ++e) {
-    int j = d + kR * e - kpos;
-    if (j < 0) j += kL;
-    if (j < kFnw) {
-      int k = k_ch + j;
-      if (k < 0) k += kN;
-      const int m2 = k / kN1;
-      const int m1 = k - m2 * kN1;
-      const int owner = m1 / kCpc;
-      float2* dst = cluster.map_shared_rank(col, owner);
-      dst[m2 * kCpc + m1 - owner * kCpc] = c_scale(w[e], drs[j]);
+    for (int e = 0; e < kR; ++e) {
+      int j = d + kR * e - kpos;
+      if (j < 0) j += kL;
+      if (j < kFnw) {
+        int k = k_ch + j;
+        if (k < 0) k += P::kN;
+        const int m2 = k / P::kN1;
+        const int m1 = k - m2 * P::kN1;
+        const int owner = m1 / P::kCpc;
+        float2* dst = cluster.map_shared_rank(col, owner);
+        dst[m2 * P::kCpc + m1 - owner * P::kCpc] = c_scale(w[e], drs[j]);
+      }
     }
   }
-  __syncthreads();
+  if constexpr (CM) __syncwarp();
+  else __syncthreads();
 }
 
+// The backward 6-point DFT in registers, natural order, as 2 * 3 by the
+// prime-factor map (no twiddles): the 3-point DFTs of the inputs
+// 3*n1 + 2*n2 (mod 6), then the 2-point DFTs into outputs 3*k1 + 4*k2
+// (mod 6); a third of dft_radix<6>'s direct sum.
+__device__ __forceinline__ void dft6(float2 (&v)[6]) {
+  float2 a[3] = {v[0], v[2], v[4]};
+  float2 b[3] = {v[3], v[5], v[1]};
+  dft_radix<3, 1>(a);
+  dft_radix<3, 1>(b);
+  v[0] = c_add(a[0], b[0]);
+  v[3] = c_sub(a[0], b[0]);
+  v[4] = c_add(a[1], b[1]);
+  v[1] = c_sub(a[1], b[1]);
+  v[2] = c_add(a[2], b[2]);
+  v[5] = c_sub(a[2], b[2]);
+}
+
+template <class P>
 __global__ void __launch_bounds__(kThreads, 2)
 inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ elem,
                        float2* __restrict__ out, const float* __restrict__ taper,
                        const float* __restrict__ dr, const int* __restrict__ perm,
                        const float2* __restrict__ tw_l, const float2* __restrict__ tw_pass,
                        const float2* __restrict__ tw_n1, const float2* __restrict__ tw_a,
-                       const float2* __restrict__ tw_b, long long sp, long long st,
-                       long long sc, int n_blocks, int n_tr, int keep, int kpos, int roll,
-                       int k1_lo, int n1_keep, float scale) {
+                       const float2* __restrict__ tw_b, const float2* __restrict__ tw_row,
+                       long long sp, long long st, long long sc, int n_blocks, int n_tr,
+                       int keep, int kpos, int roll, int k1_lo, int n1_keep, float scale) {
+  constexpr int kN = P::kN, kN1 = P::kN1, kN2 = P::kN2, kCpc = P::kCpc, kRows = P::kRows;
+  constexpr int kLdr = P::kLdr, kR1 = P::kR1, kQ1 = P::kQ1, kG = P::kG, kTwA = P::kTwA;
+  constexpr int TS = 16 / kG;  // w_Q1^(j*d) = w_128^(TS*j*d) = twr[(d - 1)*16 + TS*j]
   extern __shared__ __align__(16) float2 smem[];
-  float2* col = smem;             // [m2][kCpc]: this block's columns of the block
-  float2* recv = col + kCol;      // [k2 - r0][kLdr]: R1 sub-rows of Q1
-  float2* buf = recv;             // the frontend's 16 channel rows of a half
-  float2* twf = recv + kRecv;     // w_L^m, forward
-  float2* tw = twf + kL;          // per-pass table of the 128-point backward transform
-  float2* tab = tw + kTwC;        // [a][c] w_N^(16*a*m1), then [b][c] w_N^(b*m1)
-  float* tap = reinterpret_cast<float*>(tab + kTab);
-  float* drs = tap + kL;          // dr[j] * gain/N
+  float2* col = smem;               // [m2][kCpc]: this block's columns of the block
+  float2* recv = col + P::kCol;     // [k2 - r0][kLdr]: R1 sub-rows of Q1
+  float2* buf = recv;               // the frontend's 16 channel rows of a half
+  float2* twf = recv + P::kRecv;    // w_L^m, forward
+  float2* tw = twf + kL;            // per-pass table of the column transform
+  float2* twr = P::kTwR ? tw + P::kTwC : tw;  // the 128-point table of the rows
+  float2* tab = tw + P::kTwC + P::kTwR;  // [a][c] w_N^(S*a*m1), then [b][c] w_N^(b*m1)
+  float* tap = reinterpret_cast<float*>(tab + P::kTab);
+  float* drs = tap + kL;            // dr[j] * gain/N
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
-  const int ch0 = rank * kChan;   // this block's channels
-  const int c0 = rank * kCpc;     // this block's columns
-  const int r0 = rank * kRows;    // this block's rows
+  const int ch0 = rank * P::kChan;  // this block's channels
+  const int c0 = rank * kCpc;       // this block's columns
+  const int r0 = rank * kRows;      // this block's rows
   const int n_cl = gridDim.x / kCl;
   const long long out_len = static_cast<long long>(n1_keep) * kN2;
 
   int tr = blockIdx.x / kCl;
   float2 v[kR];
-  if (tr < n_tr) frame_load(v, x, perm, sp, st, sc, n_blocks, keep, tr, ch0);
+  if (tr < n_tr) frame_load<P, kHalf>(v, x, perm, sp, st, sc, n_blocks, keep, tr, ch0);
   for (int i = tid; i < kL; i += kThreads) twf[i] = tw_l[i];
-  for (int i = tid; i < kTwC; i += kThreads) tw[i] = tw_pass[i];
-  for (int i = tid; i < kTab; i += kThreads) {
+  for (int i = tid; i < P::kTwC; i += kThreads) tw[i] = tw_pass[i];
+  for (int i = tid; i < P::kTwR; i += kThreads) twr[i] = tw_row[i];
+  for (int i = tid; i < P::kTab; i += kThreads) {
     const int row = i / kCpc;
     const int c = i - row * kCpc;
     tab[i] = row < kTwA ? tw_a[row * kN1 + c0 + c] : tw_b[(row - kTwA) * kN1 + c0 + c];
@@ -236,68 +338,137 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
   cluster_wait();
 
   for (; tr < n_tr; tr += n_cl) {
-    // the frontend of this block's 32 channels, two halves of 16; the
-    // second half's samples are loaded during the first
-    frontend_half(v, buf, col, twf, tap, drs, ch0, kpos, roll, x, perm, sp, st, sc, n_blocks,
-                  keep, tr, ch0 + kHalf, cluster);
-    frontend_half(v, buf, col, twf, tap, drs, ch0 + kHalf, kpos, roll, x, perm, sp, st, sc,
-                  n_blocks, keep, -1, 0, cluster);
+    // the frontend of this block's channels, two halves; the second half's
+    // samples are loaded during the first
+    frontend_half<P, kHalf, P::kHalf1>(v, buf, col, twf, tap, drs, ch0, kpos, roll, x, perm,
+                                       sp, st, sc, n_blocks, keep, tr, ch0 + kHalf, cluster);
+    frontend_half<P, P::kHalf1, kHalf>(v, buf, col, twf, tap, drs, ch0 + kHalf, kpos, roll,
+                                       x, perm, sp, st, sc, n_blocks, keep, -1, 0, cluster);
     cluster_arrive();  // this block's part of the assembled block is stored
     // the next transform's first half, in flight through the epilogue
-    if (tr + n_cl < n_tr) frame_load(v, x, perm, sp, st, sc, n_blocks, keep, tr + n_cl, ch0);
+    if (tr + n_cl < n_tr) {
+      frame_load<P, kHalf>(v, x, perm, sp, st, sc, n_blocks, keep, tr + n_cl, ch0);
+    }
     cluster_wait();  // every block's columns are complete, every frontend row read
 
-    // columns, 128 = 8 * 16: the radix-8 pass of span 16 (times elem on the
-    // way in); lanes on neighbouring columns
-    for (int item = tid; item < kCpc * 16; item += kThreads) {
-      const int c = item % kCpc;
-      const int j = item / kCpc;
-      float2 w[8];
+    if constexpr (kN2 == 128) {
+      // columns, 128 = 8 * 16: the radix-8 pass of span 16 (times elem on
+      // the way in); lanes on neighbouring columns
+      for (int item = tid; item < kCpc * 16; item += kThreads) {
+        const int c = item % kCpc;
+        const int j = item / kCpc;
+        float2 w[8];
 #pragma unroll
-      for (int m = 0; m < 8; ++m) w[m] = col[(j + 16 * m) * kCpc + c];
-      if (elem != nullptr) {
+        for (int m = 0; m < 8; ++m) w[m] = col[(j + 16 * m) * kCpc + c];
+        if (elem != nullptr) {
 #pragma unroll
-        for (int m = 0; m < 8; ++m) {
-          int k = (j + 16 * m) * kN1 + c0 + c + roll;  // the position's bin before the shift
-          if (k >= kN) k -= kN;
-          w[m] = c_mul(w[m], __ldg(elem + k));
+          for (int m = 0; m < 8; ++m) {
+            int k = (j + 16 * m) * kN1 + c0 + c + roll;  // the position's bin before the shift
+            if (k >= kN) k -= kN;
+            w[m] = c_mul(w[m], __ldg(elem + k));
+          }
+        }
+        dft_reg<8, 1>(w);
+        if (j != 0) {
+#pragma unroll
+          for (int d = 1; d < 8; ++d) w[d] = c_mul(w[d], tw[(d - 1) * 16 + j]);
+        }
+#pragma unroll
+        for (int d = 0; d < 8; ++d) col[(j + 16 * d) * kCpc + c] = w[d];
+      }
+      __syncthreads();
+
+      // then the 16-point DFT of each group d in registers: outputs
+      // k2 = d + 8*k, times the N-level twiddle, into row k2 of the block
+      // that owns it
+      for (int item = tid; item < kCpc * 8; item += kThreads) {
+        const int c = item % kCpc;
+        const int d = item / kCpc;
+        float2 w[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) w[j] = col[(16 * d + j) * kCpc + c];
+        dft16<1>(w);
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          const int k2 = d + 8 * k;
+          const float2 t = c_mul(tab[(k2 >> 4) * kCpc + c], tab[(kTwA + (k2 & 15)) * kCpc + c]);
+          float2* dst = cluster.map_shared_rank(recv, k2 / kRows);
+          dst[(k2 % kRows) * kLdr + c0 + c] = c_mul(w[k], t);
         }
       }
-      dft_reg<8, 1>(w);
-      if (j != 0) {
+    } else {
+      // columns, 216 = 6 * 6 * 6: the radix-6 pass of span 36 (times elem
+      // on the way in), then the pass of span 6 within each group of 36;
+      // lanes on neighbouring columns
+      for (int item = tid; item < kCpc * 36; item += kThreads) {
+        const int c = item % kCpc;
+        const int j = item / kCpc;
+        float2 w[6];
 #pragma unroll
-        for (int d = 1; d < 8; ++d) w[d] = c_mul(w[d], tw[(d - 1) * 16 + j]);
+        for (int m = 0; m < 6; ++m) w[m] = col[(j + 36 * m) * kCpc + c];
+        if (elem != nullptr) {
+#pragma unroll
+          for (int m = 0; m < 6; ++m) {
+            int k = (j + 36 * m) * kN1 + c0 + c + roll;  // the position's bin before the shift
+            if (k >= kN) k -= kN;
+            w[m] = c_mul(w[m], __ldg(elem + k));
+          }
+        }
+        dft6(w);
+        if (j != 0) {
+#pragma unroll
+          for (int d = 1; d < 6; ++d) w[d] = c_mul(w[d], tw[(d - 1) * 36 + j]);
+        }
+#pragma unroll
+        for (int d = 0; d < 6; ++d) col[(j + 36 * d) * kCpc + c] = w[d];
       }
+      __syncthreads();
+      for (int item = tid; item < kCpc * 36; item += kThreads) {
+        const int c = item % kCpc;
+        const int u = item / kCpc;  // 6*g + j: group g at 36*g, butterfly j
+        const int j = u % 6;
+        float2* p = col + ((u - j) * 6 + j) * kCpc + c;
+        float2 w[6];
 #pragma unroll
-      for (int d = 0; d < 8; ++d) col[(j + 16 * d) * kCpc + c] = w[d];
-    }
-    __syncthreads();
+        for (int m = 0; m < 6; ++m) w[m] = p[6 * m * kCpc];
+        dft6(w);
+        if (j != 0) {
+#pragma unroll
+          for (int d = 1; d < 6; ++d) w[d] = c_mul(w[d], tw[5 * 36 + (d - 1) * 6 + j]);
+        }
+#pragma unroll
+        for (int d = 0; d < 6; ++d) p[6 * d * kCpc] = w[d];
+      }
+      __syncthreads();
 
-    // then the 16-point DFT of each group d in registers: outputs
-    // k2 = d + 8*k, times the N-level twiddle, into row k2 of the block that
-    // owns it
-    for (int item = tid; item < kCpc * 8; item += kThreads) {
-      const int c = item % kCpc;
-      const int d = item / kCpc;
-      float2 w[16];
+      // then the last radix-6 DFT of each butterfly g = 6*d0 + d1 in
+      // registers: outputs k2 = d0 + 6*d1 + 36*d, times the N-level
+      // twiddle, into row k2 of the block that owns it
+      for (int item = tid; item < kCpc * 36; item += kThreads) {
+        const int c = item % kCpc;
+        const int g = item / kCpc;
+        float2 w[6];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) w[j] = col[(16 * d + j) * kCpc + c];
-      dft16<1>(w);
+        for (int m = 0; m < 6; ++m) w[m] = col[(6 * g + m) * kCpc + c];
+        dft6(w);
+        const int b = g / 6 + 6 * (g % 6);  // k2 % 36
+        const float2 tb = tab[(kTwA + b) * kCpc + c];
 #pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const int k2 = d + 8 * k;
-        const float2 t = c_mul(tab[(k2 >> 4) * kCpc + c], tab[(kTwA + (k2 & 15)) * kCpc + c]);
-        float2* dst = cluster.map_shared_rank(recv, k2 / kRows);
-        dst[(k2 % kRows) * kLdr + c0 + c] = c_mul(w[k], t);
+        for (int d = 0; d < 6; ++d) {
+          const int k2 = b + 36 * d;
+          const float2 t = c_mul(tab[d * kCpc + c], tb);
+          float2* dst = cluster.map_shared_rank(recv, k2 / kRows);
+          dst[(k2 % kRows) * kLdr + c0 + c] = c_mul(w[d], t);
+        }
       }
     }
     cluster_arrive();
     cluster_wait();  // every block's rows are complete
 
-    // rows, n1 = 3 * 8 * 16 with m1 = j + 16*m + 128*alpha: the thread of
+    // rows, n1 = 3 * 8 * G with m1 = j + G*m + Q1*alpha: the thread of
     // (row, j) takes its 24 points through the radix-3 DFTs over alpha,
-    // times w_n1^((j + 16*m)*kr), and the radix-8 DFTs over m, times
-    // w_128^(j*d), into sub-row kr at j + 16*d; lanes on the rows
+    // times w_n1^((j + G*m)*kr), and the radix-8 DFTs over m, times
+    // w_Q1^(j*d), into sub-row kr at j + G*d; lanes on the rows
     for (int item = tid; item < kRows * kG; item += kThreads) {
       const int kl = item % kRows;
       const int j = item / kRows;
@@ -319,7 +490,7 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
         dft_reg<8, 1>(u[kr]);
         if (j != 0) {
 #pragma unroll
-          for (int d = 1; d < 8; ++d) u[kr][d] = c_mul(u[kr][d], tw[(d - 1) * 16 + j]);
+          for (int d = 1; d < 8; ++d) u[kr][d] = c_mul(u[kr][d], twr[(d - 1) * 16 + TS * j]);
         }
 #pragma unroll
         for (int d = 0; d < 8; ++d) p[kQ1 * kr + kG * d] = u[kr][d];
@@ -327,9 +498,9 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
     }
     __syncthreads();
 
-    // the 16-point DFT of each group (kr, d) in registers: outputs
+    // the G-point DFT of each group (kr, d) in registers: outputs
     // k1 = kr + 3*(d + 8*k); only the kept ones, in time order
-    // t - lo = k2 + 128*(k1 - k1_lo)
+    // t - lo = k2 + n2*(k1 - k1_lo)
     float2* ob = out + static_cast<long long>(tr) * out_len + r0;
     for (int item = tid; item < kRows * kR1 * 8; item += kThreads) {
       const int kl = item % kRows;
@@ -340,7 +511,8 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
       float2 w[kG];
 #pragma unroll
       for (int j = 0; j < kG; ++j) w[j] = p[j];
-      dft16<1>(w);
+      if constexpr (kG == 16) dft16<1>(w);
+      else dft_reg<8, 1>(w);
 #pragma unroll
       for (int k = 0; k < kG; ++k) {
         const int k1 = kr + kR1 * (d + 8 * k);
@@ -354,12 +526,19 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
   }
 }
 
-// The kernel's shared-memory allowance, set once per device, and how many
-// of its clusters are resident on the current card at once (both queries
-// cost tens of microseconds; a lock keeps the table whole when host threads
-// launch together).
-static cudaError_t prepare(int* clusters) {
+using InvKern = void (*)(const float2*, const float2*, float2*, const float*, const float*,
+                         const int*, const float2*, const float2*, const float2*,
+                         const float2*, const float2*, const float2*, long long, long long,
+                         long long, int, int, int, int, int, int, int, float);
+
+// The launch configuration of `kern` (shared memory `smem`) on clusters of
+// eight: its shared-memory allowance set, and how many of its clusters are
+// resident on the current card at once. Both queries cost tens of
+// microseconds, so each (kernel, device) is prepared once; a lock keeps the
+// table whole when host threads launch together.
+static cudaError_t prepare(const void* kern, size_t smem, int* clusters) {
   struct Prepared {
+    const void* kern;
     int dev, clusters;
   };
   static std::mutex mu;
@@ -370,14 +549,13 @@ static cudaError_t prepare(int* clusters) {
   if (e != cudaSuccess) return e;
   const std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < n_done; ++i) {
-    if (done[i].dev == dev) {
+    if (done[i].kern == kern && done[i].dev == dev) {
       *clusters = done[i].clusters;
       return cudaSuccess;
     }
   }
-  const void* kern = reinterpret_cast<const void*>(inversion_fused_kernel);
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kSmem));
+                           static_cast<int>(smem));
   if (e == cudaSuccess) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
@@ -386,7 +564,7 @@ static cudaError_t prepare(int* clusters) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCl * 1024);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmem;
+  cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = kCl;
@@ -394,63 +572,106 @@ static cudaError_t prepare(int* clusters) {
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  e = cudaOccupancyMaxActiveClusters(clusters, inversion_fused_kernel, &cfg);
+  e = cudaOccupancyMaxActiveClusters(clusters, kern, &cfg);
   if (e != cudaSuccess) return e;
   if (*clusters <= 0) return cudaErrorInvalidConfiguration;  // the card refuses the cluster
-  if (n_done < 16) done[n_done++] = {dev, *clusters};
+  if (n_done < 16) done[n_done++] = {kern, dev, *clusters};
   return cudaSuccess;
 }
 
-// Clusters of the kernel resident on the current card at once (the
-// persistent grid's size), or an error where the card refuses it.
-extern "C" int inversion_fused_clusters(int* clusters) { return prepare(clusters); }
+struct InvArgs {
+  const float2 *x, *elem;
+  float2* out;
+  const float *taper, *dr;
+  const int* perm;
+  const float2 *tw_l, *tw_pass, *tw_n1, *tw_a, *tw_b, *tw_row;
+  long long sp, st, sc;
+  int n_blocks, n_tr, keep, kpos, roll, k1_lo, n1_keep;
+  float scale;
+  cudaStream_t stream;
+};
+
+// Prepares the kernel of one instantiation and reports its resident
+// clusters; with arguments, checks the plan's limits and launches it on
+// that many (or fewer).
+template <class P>
+static cudaError_t inversion_entry(const InvArgs* a, int* clusters) {
+  const InvKern kern = inversion_fused_kernel<P>;
+  if (a != nullptr && (a->roll < 0 || a->roll >= P::kN || a->k1_lo < 0 || a->n1_keep <= 0 ||
+                       a->k1_lo + a->n1_keep > P::kN1)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t e = prepare(reinterpret_cast<const void*>(kern), P::kSmem, clusters);
+  if (e != cudaSuccess || a == nullptr) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCl * (a->n_tr < *clusters ? a->n_tr : *clusters));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = P::kSmem;
+  cfg.stream = a->stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCl;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, a->x, a->elem, a->out, a->taper, a->dr, a->perm, a->tw_l,
+                         a->tw_pass, a->tw_n1, a->tw_a, a->tw_b, a->tw_row, a->sp, a->st, a->sc,
+                         a->n_blocks, a->n_tr, a->keep, a->kpos, a->roll, a->k1_lo, a->n1_keep,
+                         a->scale);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// channels -> the instantiation: 256 (SKA-Low) and 216 (a LowCBF PST slab)
+// (ops/kernels/inversion_fused.py GEOMETRIES)
+static cudaError_t inversion_dispatch(int n_chan, const InvArgs* a, int* clusters) {
+  switch (n_chan) {
+    case 256: return inversion_entry<LowPlan>(a, clusters);
+    case 216: return inversion_entry<PsiPlan>(a, clusters);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Clusters of the n_chan-channel kernel resident on the current card at
+// once (the persistent grid's size), or an error where the card refuses it.
+extern "C" int inversion_fused_clusters(int n_chan, int* clusters) {
+  return inversion_dispatch(n_chan, nullptr, clusters);
+}
 
 // x: complex64 stream with element strides (sp, st, sc) over (pol, time,
 // chan), every frame b*keep + [0, L) inside it; elem: (N,) complex64,
-// pre-rolled by +roll, or null; out: (n_pol, n_blocks, n1_keep * 128)
+// pre-rolled by +roll, or null; out: (n_pol, n_blocks, n1_keep * n2)
 // complex64, the kept k1 in [k1_lo, k1_lo + n1_keep); taper: (L,) float32;
 // dr: (FN_width,) float32; perm: (n_chan,) int32; tw_l: (L,) w_L^m of the
-// forward transform; tw_pass, tw_n1, tw_a, tw_b: csrc/ifft_fused.cu's
-// tables at n1 = 384 (ops/kernels/ifft_fused.py cluster_tables); roll in
-// [0, N); scale = gain / N. Takes L = 256, 256 channels, FN_width = 192
-// (N = 49152 = 128 * 384) only.
+// forward transform; tw_pass: the column transform's per-pass table;
+// tw_n1: (n1,) w_n1^m; tw_a, tw_b: (n2 / S, n1) w_N^(S*a*m1), (S, n1)
+// w_N^(b*m1); tw_row: the 128-point per-pass table (read at 216 channels);
+// all backward (ops/kernels/inversion_fused.py kernel_tables); roll in
+// [0, N); scale = gain / N. Takes L = 256, FN_width = 192 and 256 channels
+// (N = 49152 = 128 * 384) or 216 (N = 41472 = 216 * 192) only.
 extern "C" int inversion_fused_launch(const void* x, const void* elem, void* out,
                                       const void* taper, const void* dr, const void* perm,
                                       const void* tw_l, const void* tw_pass,
                                       const void* tw_n1, const void* tw_a, const void* tw_b,
-                                      long long sp, long long st, long long sc, int n_pol,
-                                      int n_chan, int n_blocks, int L, int keep, int kpos,
-                                      int roll, int fnw, int k1_lo, int n1_keep, float scale,
-                                      void* stream) {
+                                      const void* tw_row, long long sp, long long st,
+                                      long long sc, int n_pol, int n_chan, int n_blocks, int L,
+                                      int keep, int kpos, int roll, int fnw, int k1_lo,
+                                      int n1_keep, float scale, void* stream) {
   const long long n_tr = static_cast<long long>(n_pol) * n_blocks;
-  if (L != kL || n_chan != kNChan || fnw != kFnw || n_pol <= 0 || n_blocks <= 0 ||
-      n_tr > (1LL << 30) || keep <= 0 || kpos < 0 || kpos >= kL || roll < 0 || roll >= kN ||
-      k1_lo < 0 || n1_keep <= 0 || k1_lo + n1_keep > kN1) {
+  if (L != kL || fnw != kFnw || n_pol <= 0 || n_blocks <= 0 || n_tr > (1LL << 30) ||
+      keep <= 0 || kpos < 0 || kpos >= kL) {
     return cudaErrorInvalidValue;
   }
+  const InvArgs a = {
+      static_cast<const float2*>(x),      static_cast<const float2*>(elem),
+      static_cast<float2*>(out),          static_cast<const float*>(taper),
+      static_cast<const float*>(dr),      static_cast<const int*>(perm),
+      static_cast<const float2*>(tw_l),   static_cast<const float2*>(tw_pass),
+      static_cast<const float2*>(tw_n1),  static_cast<const float2*>(tw_a),
+      static_cast<const float2*>(tw_b),   static_cast<const float2*>(tw_row),
+      sp, st, sc, n_blocks, static_cast<int>(n_tr), keep, kpos, roll, k1_lo, n1_keep, scale,
+      static_cast<cudaStream_t>(stream)};
   int clusters = 0;
-  cudaError_t e = prepare(&clusters);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCl * (n_tr < clusters ? static_cast<int>(n_tr) : clusters));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCl;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(
-      &cfg, inversion_fused_kernel, static_cast<const float2*>(x),
-      static_cast<const float2*>(elem), static_cast<float2*>(out),
-      static_cast<const float*>(taper), static_cast<const float*>(dr),
-      static_cast<const int*>(perm), static_cast<const float2*>(tw_l),
-      static_cast<const float2*>(tw_pass), static_cast<const float2*>(tw_n1),
-      static_cast<const float2*>(tw_a), static_cast<const float2*>(tw_b), sp, st, sc,
-      n_blocks, static_cast<int>(n_tr), keep, kpos, roll, k1_lo, n1_keep, scale);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return inversion_dispatch(n_chan, &a, &clusters);
 }

@@ -52,8 +52,8 @@ SIGNATURES = {
     "dada_pack_launch": [_P] * 2 + [_I] * 3 + [_L, _I, _F, _P],
     "ifft_big_inner_launch": [_P] * 4 + [_L] * 2 + [_I] * 6 + [_P],
     "ifft_big_outer_launch": [_P] * 7 + [_I] * 7 + [_F, _P],
-    "inversion_fused_launch": [_P] * 11 + [_L] * 3 + [_I] * 10 + [_F, _P],
-    "inversion_fused_clusters": [_P],
+    "inversion_fused_launch": [_P] * 12 + [_L] * 3 + [_I] * 10 + [_F, _P],
+    "inversion_fused_clusters": [_I, _P],
 }
 
 
@@ -111,8 +111,9 @@ def log_path(lib: Path) -> Path:
 
 
 def _kernel_name(mangled: str) -> str:
-    """``name<1,12>`` from an Itanium-mangled kernel name with integer
-    template arguments (the kernels' only kind)."""
+    """``name<1,12>`` from an Itanium-mangled kernel name with integer and
+    bool template arguments, also inside a class template's (the kernels'
+    only kinds; a bool reads 0 or 1), up to the void return type."""
     m = re.match(r"_Z(\d+)", mangled)
     if not m:
         return mangled
@@ -120,7 +121,7 @@ def _kernel_name(mangled: str) -> str:
     name = mangled[start:start + int(m.group(1))]
     rest = mangled[start + len(name):]
     if rest.startswith("I"):
-        args = re.findall(r"Li(-?\d+)E", rest[:rest.find("EE") + 2])
+        args = re.findall(r"L[ib](-?\d+)E", rest[:rest.find("Ev") + 1])
         name += "<" + ",".join(args) + ">"
     return name
 

@@ -1,52 +1,99 @@
-"""Fused SKA-Low Golden inversion: frontend and epilogue in one kernel.
+"""Fused Golden inversion: frontend and epilogue in one kernel.
 
-At the SKA-Low inversion geometry (L = 256, 256 channels, FN_width = 192,
-N = 49152 = 128 * 384) the CUDA kernel (``csrc/inversion_fused.cu``) runs
-:mod:`.synthesis_fused`'s frontend and :mod:`.ifft_fused`'s cluster
-epilogue together: a cluster of eight thread blocks, each the frontend of
-32 channels, stores each assembled block's bins straight into the column
-buffers of the cluster's blocks (distributed shared memory) and runs the
-epilogue there, so the assembled spectra never pass through device memory.
-Every other geometry keeps the two kernels (:func:`takes` decides). Its
-plain version is :func:`ska_pst_dsp_tpu_torch.ops.synthesis.frontend`
-followed by :func:`ska_pst_dsp_tpu_torch.ops.synthesis.epilogue`.
+At the two geometries it is instantiated for (:data:`GEOMETRIES`: L = 256,
+FN_width = 192, SKA-Low's 256 channels and a LowCBF PST slab's 216 kept
+channels) the CUDA kernel (``csrc/inversion_fused.cu``) runs
+:mod:`.synthesis_fused`'s frontend and the epilogue together: a cluster of
+eight thread blocks, each the frontend of an eighth of the channels, stores
+each assembled block's bins straight into the column buffers of the
+cluster's blocks (distributed shared memory) and runs the four-step inverse
+transform there, so the assembled spectra never pass through device memory.
+Every other geometry keeps the frontend kernel and its epilogue
+(:func:`takes` decides). Its plain version is
+:func:`ska_pst_dsp_tpu_torch.ops.synthesis.frontend` followed by
+:func:`ska_pst_dsp_tpu_torch.ops.synthesis.epilogue`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ska_pst_dsp_tpu_torch.utils.profiling import spanned
 
 from ..synthesis import epilogue, frontend
-from . import _build, require, stream_of, twiddles
-from .ifft_fused import _device_tables, plan_ifft
+from . import _build, pass_twiddles, phase_table, require, stream_of, twiddle_table, twiddles
 
-#: the geometry the kernel is instantiated for (csrc/inversion_fused.cu):
-#: (frame length L, channels, points of an assembled block), FN_width = 192
-GEOMETRY = (256, 256, 49152)
-#: the (n2, n1) split of the block the kernel runs
-SPLIT = (128, 384)
+#: (frame length L, channels, points N of an assembled block, output
+#: overlap) -> the (n2, n1) split of the block: the geometries the kernel is
+#: instantiated for (csrc/inversion_fused.cu InvPlan), FN_width = 192
+GEOMETRIES = {
+    (256, 256, 49152, 9216): (128, 384),  # SKA-Low
+    (256, 216, 41472, 7776): (216, 192),  # a LowCBF PST slab: 216 kept channels
+}
+#: n2 -> S of the N-level twiddle w_N^(m1*k2) = tw_a[k2 // S, m1] * tw_b[k2 % S, m1]
+TW_SPLIT = {128: 16, 216: 36}
+
+
+def takes(L: int, n_chan: int, n: int, lo: int) -> bool:
+    """Whether the card has the fused kernel for an inversion with frame
+    length L, n_chan channels, n-point blocks and output overlap lo: one of
+    :data:`GEOMETRIES`."""
+    return (L, n_chan, n, lo) in GEOMETRIES
+
+
+def radix6_pass_twiddles(q: int, sign: int) -> np.ndarray:
+    """The per-pass twiddle table of a q = 6^k-point transform of sign
+    ``sign`` on radix-6 passes (csrc/inversion_fused.cu, the 216-point
+    column transform): for each pass s but the last, of span h = q / 6^(s+1),
+    5 rows d = 1..5 of h entries exp(sign * 2*pi*i*j*d/(6h)), j < h.
+    complex64, each angle taken in float64 from the exact integer j*d;
+    q - 6 entries."""
+    parts, h = [], q // 6
+    while h > 1:
+        jd = np.arange(1, 6)[:, None] * np.arange(h)[None, :]
+        parts.append(np.exp(sign * 2j * np.pi * jd / (6 * h)).ravel())
+        h //= 6
+    out = np.concatenate(parts).astype(np.complex64)
+    assert out.size == q - 6
+    return out
+
+
+def kernel_tables(n: int, n2: int, n1: int) -> Dict[str, np.ndarray]:
+    """The kernel's host tables of the split n = n2 * n1, complex64, each
+    built in float64 from exact integers, all backward: ``tw_col`` (the
+    column transform's per-pass table: 128 points on radix-8 passes, 216 on
+    radix-6 passes), ``tw_n1`` (w_n1^m), ``tw_a``, ``tw_b`` ((n2 / S, n1)
+    w_N^(S*a*m1) and (S, n1) w_N^(b*m1), S = :data:`TW_SPLIT`: the N-level
+    twiddle of k2 = S*a + b is their product) and ``tw_row`` (the 128-point
+    per-pass table, whose first pass the row transform's radix-8 step
+    reads). At SKA-Low they are :func:`.ifft_fused.cluster_tables`'
+    ``tw_pass``, ``tw_n1``, ``tw_a``, ``tw_b``."""
+    s = TW_SPLIT[n2]
+    m1 = np.arange(n1, dtype=np.int64)[None, :]
+    return {
+        "tw_col": pass_twiddles(n2, 1) if n2 == 128 else radix6_pass_twiddles(n2, 1),
+        "tw_n1": twiddle_table(n1, 1),
+        "tw_a": phase_table(s * np.arange(n2 // s)[:, None] * m1, n, 1),
+        "tw_b": phase_table(np.arange(s)[:, None] * m1, n, 1),
+        "tw_row": pass_twiddles(128, 1),
+    }
 
 
 @functools.lru_cache(maxsize=None)
-def takes(L: int, n_chan: int, n: int, lo: int) -> bool:
-    """Whether the card has the fused kernel for an inversion with frame
-    length L, n_chan channels, n-point blocks and output overlap lo: the
-    SKA-Low geometry, where :func:`.ifft_fused.plan_ifft` splits the block
-    as (128, 384). Kept per geometry: a call costs a dictionary lookup."""
-    return (L, n_chan, n) == GEOMETRY and plan_ifft(n, lo) == SPLIT
+def _device_tables(n: int, n2: int, n1: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in kernel_tables(n, n2, n1).items()}
 
 
-def active_clusters() -> int:
-    """Clusters of eight blocks of the kernel resident on the current card
-    at once (the persistent grid's size)."""
+def active_clusters(n_chan: int = 256) -> int:
+    """Clusters of eight blocks of the n_chan-channel kernel resident on
+    the current card at once (the persistent grid's size)."""
     clusters = ctypes.c_int(0)
-    _build.check(_build.library().inversion_fused_clusters(ctypes.byref(clusters)),
+    _build.check(_build.library().inversion_fused_clusters(n_chan, ctypes.byref(clusters)),
                  "inversion_fused_clusters")
     return clusters.value
 
@@ -71,8 +118,8 @@ def inversion_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
         return epilogue(fn.reshape(n_pol, n_blocks, n), elem, lo, roll, gain, n_blocks)
     if not takes(L, n_chan, n, lo):
         raise ValueError(
-            "inversion_fused takes (L, channels, points) = {} split {}; got {}, "
-            "overlap {}".format(GEOMETRY, SPLIT, (L, n_chan, n), lo)
+            f"inversion_fused takes (L, channels, points, overlap) in {sorted(GEOMETRIES)}; "
+            f"got {(L, n_chan, n, lo)}"
         )
     if x_tc.device.type != "cuda":
         raise ValueError(f"inversion_fused runs on cuda or cpu, not {x_tc.device}")
@@ -93,15 +140,15 @@ def inversion_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
         elem = require(elem, "elem", torch.complex64, dev)
         if elem.shape != (n,):
             raise ValueError(f"elem must be ({n},), got {tuple(elem.shape)}")
-    n2, n1 = SPLIT
+    n2, n1 = GEOMETRIES[(L, n_chan, n, lo)]
     out = torch.empty((n_pol, n_blocks, n - 2 * lo), dtype=torch.complex64, device=dev)
-    tab = _device_tables(n, n1, roll % n, dev)
+    tab = _device_tables(n, n2, n1, dev)
     sp, st, sc = x_tc.stride()
     with torch.cuda.device(dev):
         status = _build.library().inversion_fused_launch(
             x_tc.data_ptr(), None if elem is None else elem.data_ptr(), out.data_ptr(),
             t_taper.data_ptr(), dr.data_ptr(), perm.data_ptr(), twiddles(L, -1, dev).data_ptr(),
-            *(tab[k].data_ptr() for k in ("tw_pass", "tw_n1", "tw_a", "tw_b")),
+            *(tab[k].data_ptr() for k in ("tw_col", "tw_n1", "tw_a", "tw_b", "tw_row")),
             sp, st, sc, n_pol, n_chan, n_blocks, L, keep, kpos % L, roll % n, fnw,
             lo // n2, (n - 2 * lo) // n2, gain / n, stream_of(x_tc),
         )

@@ -8,10 +8,11 @@ only the kept, derippled passband bins, already in assembled spectrum order
 (n_pol, n_blocks, n_chan, FN_width). Its plain version is
 :func:`ska_pst_dsp_tpu_torch.ops.synthesis.frontend`.
 
-At the SKA-Low geometry :func:`fused_inversion` runs neither this kernel nor
-an epilogue kernel but :mod:`.inversion_fused`, which fuses the two so that
-the assembled spectra stay in a thread-block cluster's shared memory; the
-choice is :func:`.inversion_fused.takes`, made before anything is launched.
+At SKA-Low's geometry and a LowCBF PST slab's (216 kept channels)
+:func:`fused_inversion` runs neither this kernel nor an epilogue but
+:mod:`.inversion_fused`, which fuses the two so that the assembled spectra
+stay in a thread-block cluster's shared memory; the choice is
+:func:`.inversion_fused.takes`, made before anything is launched.
 Elsewhere the epilogue follows the JAX package's dispatch
 (synthesis_fused.py:419-427):
 the fused epilogue (:mod:`.ifft_fused`) where :func:`.ifft_fused.plan_ifft`
@@ -169,8 +170,8 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
                     geom: geometry.SynthesisGeometry, *, spans_nyquist: bool,
                     valid_len: Optional[int] = None) -> torch.Tensor:
     """The fused kernel (:mod:`.inversion_fused`) where
-    :func:`.inversion_fused.takes` the geometry (SKA-Low); elsewhere the
-    frontend kernel + :func:`epilogue_dispatch`. On a (n_pol, n_dat,
+    :func:`.inversion_fused.takes` the geometry (SKA-Low, a LowCBF PST
+    slab); elsewhere the frontend kernel + :func:`epilogue_dispatch`. On a (n_pol, n_dat,
     n_chan) view; the first ``valid_len`` samples (default all) are data.
     Returns (n_pol, 1, n_blocks * output_keep) complex64. On the card a
     frame length or a split no kernel takes raises ValueError."""
@@ -197,8 +198,8 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
 
 
 #: epilogues :func:`epilogue_dispatch` ran composed because neither package
-#: has a plan for their length (36864 and 41472 points, say): the
-#: reference's own dispatch, counted so that it shows
+#: has a plan for their length (the critical cascade's 36864 points, say):
+#: the reference's own dispatch, counted so that it shows
 fused_inversion.composed_epilogues = 0
 
 

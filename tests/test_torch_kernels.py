@@ -521,10 +521,9 @@ def emu_8xg(v, tw_pass, sign=1):
     return (y * tw) @ _dft_matrix(g, sign)  # [..., d, k]
 
 
-def emu_cluster_epilogue(X, elem, n, lo, roll, gain, n_valid, cl=None):
+def emu_cluster_epilogue(X, elem, n, lo, roll, gain, n_valid):
     """ifft_cluster_kernel on each transform, the CL blocks of a cluster
-    (itf.PLANS: n1 = r1 * q1, q1 = 8*G; ``cl`` overrides the plan's CL, as
-    inversion_fused_kernel runs n1 = 384 on eight): block c's columns m1 in
+    (itf.PLANS: n1 = r1 * q1, q1 = 8*G): block c's columns m1 in
     [c*n1/CL, (c+1)*n1/CL) of all 128 rows (the bulk copies, each a whole
     number of 16 bytes from a 16-byte offset), times elem; the 128-point
     transforms over m2 (emu_8xg, sign +1); output k2 = d + 8*k of group d
@@ -538,8 +537,7 @@ def emu_cluster_epilogue(X, elem, n, lo, roll, gain, n_valid, cl=None):
     stores per sample."""
     n2 = itf.N2
     n1 = n // n2
-    r1, q1, plan_cl = itf.PLANS[n1]
-    cl = plan_cl if cl is None else cl
+    r1, q1, cl = itf.PLANS[n1]
     assert r1 * q1 == n1
     cpc, rows = n1 // cl, n2 // cl
     assert cpc * cl == n1 and (cpc * 8) % 16 == 0  # whole, aligned bulk copies
@@ -580,21 +578,102 @@ def emu_cluster_epilogue(X, elem, n, lo, roll, gain, n_valid, cl=None):
     return out, stores
 
 
+def emu_radix6_passes(v, tw_col):
+    """csrc/inversion_fused.cu's 216-point column transform of v [..., 216]
+    (sign +1): the radix-6 passes of span h = 36 and 6 in place (butterfly
+    j of group g reads point 6h*g + j + h*m, writes output d times
+    tw_col[off_h + (d - 1)*h + j] to 6h*g + j + h*d; off_36 = 0,
+    off_6 = 180), then the last radix-6 DFT of butterfly g over points
+    6*g + m. Returns [..., g, d] holding output k2 = g//6 + 6*(g%6) + 36*d."""
+    y = v.astype(np.complex64)
+    off = 0
+    for h in (36, 6):
+        x = y.reshape(*y.shape[:-1], 216 // (6 * h), 6, h)  # [g, m, j]
+        out = np.einsum("...gmj,md->...gdj", x, _dft_matrix(6, 1))
+        j, d = np.arange(h)[None, :], np.arange(6)[:, None]
+        tw = np.where((j == 0) | (d == 0), np.complex64(1),
+                      tw_col[(off + (d - 1) * h + j) % tw_col.size])
+        y = (out * tw).reshape(y.shape)
+        off += 5 * h
+    return y.reshape(*y.shape[:-1], 36, 6) @ _dft_matrix(6, 1)
+
+
+def emu_inversion_epilogue(X, elem, n, lo, n_valid):
+    """inversion_fused_kernel's epilogue on the assembled blocks X, on the
+    split (n2, n1) of inv.GEOMETRIES and the tables of inv.kernel_tables,
+    eight blocks: block c's columns m1 in [c*n1/8, (c+1)*n1/8), times elem;
+    the n2-point transforms over m2 (128: emu_8xg, output k2 = d + 8*k;
+    216: emu_radix6_passes); each output times tw_a[k2 // S, m1] *
+    tw_b[k2 % S, m1] written to row k2 % (n2/8) of block k2 // (n2/8)'s
+    receive buffer, each slot exactly once; each block's rows,
+    m1 = j + G*m + q1*alpha with n1 = 3 * q1: the radix-3 DFT over alpha
+    times w_n1^((j + G*m)*kr), then emu_8xg over (m, j) of each sub-row kr
+    on the 128-point table; the kept k1 = kr + 3*(d + 8*k) only, with no
+    phase or gain, at t - lo = k2 + n2*(k1 - k1_lo). Returns the output
+    (NaN where nothing was stored) and the count of stores per sample."""
+    (n2, n1), = {s for g, s in inv.GEOMETRIES.items() if g[2:] == (n, lo)}
+    cl, r1, q1, s = 8, 3, n1 // 3, inv.TW_SPLIT[n2]
+    cpc, rows = n1 // cl, n2 // cl
+    tab = inv.kernel_tables(n, n2, n1)
+    k1_lo, n1_keep = lo // n2, (n - 2 * lo) // n2
+    if n2 == 128:  # [d, k]: output d + 8*k
+        k2 = (np.arange(8)[:, None] + 8 * np.arange(16)[None, :]).ravel()
+    else:          # [g, d]: output g//6 + 6*(g%6) + 36*d
+        g = np.arange(36)
+        k2 = ((g // 6 + 6 * (g % 6))[:, None] + 36 * np.arange(6)[None, :]).ravel()
+    dk = np.arange(8)[:, None] + 8 * np.arange(q1 // 8)[None, :]
+    n_pol = X.shape[0]
+    out = np.full((n_pol, n_valid, n - 2 * lo), np.nan, np.complex64)
+    stores = np.zeros(out.shape, np.int64)
+    for p in range(n_pol):
+        for b in range(n_valid):
+            w = X[p, b] if elem is None else X[p, b] * elem
+            recv = np.full((cl, rows, n1), np.nan, np.complex64)
+            for c in range(cl):
+                m1 = c * cpc + np.arange(cpc)
+                col = np.ascontiguousarray(w.reshape(n2, n1)[:, m1].T)  # [c, m2]
+                y = (emu_8xg(col, tab["tw_col"]) if n2 == 128
+                     else emu_radix6_passes(col, tab["tw_col"]))
+                tw = tab["tw_a"][k2 // s][:, m1] * tab["tw_b"][k2 % s][:, m1]  # [k2, c]
+                blk, kl = k2 // rows, k2 % rows
+                assert np.isnan(recv[blk[:, None], kl[:, None], m1[None, :]]).all()
+                recv[blk[:, None], kl[:, None], m1[None, :]] = y.reshape(cpc, n2).T * tw
+            assert not np.isnan(recv).any()  # every slot of every block written
+            for blk in range(cl):
+                v = recv[blk].reshape(rows, r1, q1)  # [kl, alpha, j + G*m]
+                v = emu_radix_step(v, tab["tw_n1"], q1)  # [kl, kr, j + G*m]
+                y = emu_8xg(v, tab["tw_row"])  # [kl, kr, d, k]
+                k2r = blk * rows + np.arange(rows)
+                k1 = np.arange(r1)[:, None, None] + r1 * dk[None]  # [kr, d, k]
+                kept = (k1 >= k1_lo) & (k1 < k1_lo + n1_keep)
+                t = k2r[:, None] + n2 * (k1[kept] - k1_lo)[None, :]
+                out[p, b, t] = y[:, kept]
+                np.add.at(stores[p, b], t.ravel(), 1)
+    return out, stores
+
+
 def emu_inversion_fused(x_tc, taper, dr, perm, elem, keep, kpos, n_blocks, lo, roll, gain):
-    """inversion_fused_kernel on a (n_pol, n_dat, 256) stream, L = 256:
-    block r of the cluster is the frontend of channels [32r, 32r + 32) as
-    16 * 16 (t = j + 16*m: taper, the 16-point DFT over m, times w_L^(j*d)
-    from the exact table; then the 16-point DFT over j: bin d + 16*e); each
-    kept bin j' = (k - kpos) mod L < 192, times dr[j'] * gain/N, goes to
-    k' = (192*c + j' - roll) mod N, row k' // 384 of the column buffer of
-    block (k' % 384) // 48, each slot of each block exactly once; then the
-    cluster epilogue on eight blocks (emu_cluster_epilogue) on the gathered
-    block with elem read at the unshifted bin k' + roll and no roll phase
-    or gain left. Returns the output and the count of stores per sample."""
+    """inversion_fused_kernel on a (n_pol, n_dat, n_chan) stream at one of
+    inv.GEOMETRIES (L = 256): block r of the cluster is the frontend of
+    channels [C*r, C*r + C), C = n_chan / 8, in halves of 16 and C - 16
+    (lane c of a half < 16 channels stores nothing past its last), each
+    channel as 16 * 16 (t = j + 16*m: taper, the 16-point DFT over m, times
+    w_L^(j*d) from the exact table; then the 16-point DFT over j: bin
+    d + 16*e); each kept bin j' = (k - kpos) mod L < 192, times
+    dr[j'] * gain/N, goes to k' = (192*c + j' - roll) mod N, row k' // n1
+    of the column buffer of block (k' % n1) // (n1/8), each slot of each
+    block exactly once; then emu_inversion_epilogue on the gathered block
+    with elem read at the unshifted bin k' + roll and no roll phase or gain
+    left. Returns the output and the count of stores per sample."""
     n_pol, _, n_chan = x_tc.shape
-    n_l, fnw, cl, cpc, n1 = taper.size, dr.size, 8, 48, 384
+    n_l, fnw, cl = taper.size, dr.size, 8
     n = n_chan * fnw
-    assert (n_l, n_chan, fnw) == (256, 256, 192) and (n // n1, n1) == inv.SPLIT
+    n2, n1 = inv.GEOMETRIES[(n_l, n_chan, n, lo)]
+    cpc, per = n1 // cl, n_chan // cl
+    # the blocks' halves take every channel once
+    halves = [r * per + h * 16 + np.arange(min(16, per - 16 * h))
+              for r in range(cl) for h in range(2)]
+    assert np.array_equal(np.sort(np.concatenate(halves)), np.arange(n_chan))
     t = np.arange(n_l)
     frames = np.stack([x_tc[:, b * keep + t][:, :, perm] for b in range(n_blocks)], 1)
     v = (frames.transpose(0, 1, 3, 2) * taper).astype(np.complex64)  # [p, b, c, t]
@@ -617,7 +696,7 @@ def emu_inversion_fused(x_tc, taper, dr, perm, elem, keep, kpos, n_blocks, lo, r
     assert (stores == 1).all()  # every column slot of every block written once
     flat = cols.transpose(0, 1, 3, 2, 4).reshape(n_pol, n_blocks, n)
     e = None if elem is None else np.roll(elem, -roll)
-    return emu_cluster_epilogue(flat, e, n, lo, 0, n, n_blocks, cl=cl)
+    return emu_inversion_epilogue(flat, e, n, lo, n_blocks)
 
 
 def emu_big_inner(w, n2, n1, tables):
@@ -1093,12 +1172,24 @@ ptxas info    : Compiling entry function '_Z25synthesis_frontend_kernelILi9EEvPK
 ptxas info    : Function properties for _Z25synthesis_frontend_kernelILi9EEvPK6float2
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 118 registers, used 1 barriers, 444 bytes cmem[0]
+// source: inversion_fused.cu
+ptxas info    : Compiling entry function '_Z22inversion_fused_kernelI7InvPlanILi216ELi216ELi3ELi64ELb1EEEvPK6float2' for 'sm_90a'
+    288 bytes stack frame, 288 bytes spill stores, 296 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 288 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z22inversion_fused_kernelI7InvPlanILi256ELi128ELi3ELi128ELb0EEEvPK6float2' for 'sm_90a'
+    168 bytes stack frame, 168 bytes spill stores, 168 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 168 bytes cumulative stack size
 """
         assert _build.parse_ptxas(log) == {
             "chan_dft_fused": {"chan_dft_kernel<1,12>": {
                 "registers": 64, "spill_stores": 8, "spill_loads": 12}},
             "synthesis_fused": {"synthesis_frontend_kernel<9>": {
                 "registers": 118, "spill_stores": 0, "spill_loads": 0}},
+            "inversion_fused": {  # a class template's integers and bool
+                "inversion_fused_kernel<216,216,3,64,1>": {
+                    "registers": 128, "spill_stores": 288, "spill_loads": 296},
+                "inversion_fused_kernel<256,128,3,128,0>": {
+                    "registers": 128, "spill_stores": 168, "spill_loads": 168}},
         }
 
     def test_wrappers_refuse_lengths(self):
@@ -1566,11 +1657,12 @@ class TestDropIns:
         assert synthesis_fused.launches == before
 
 
-def _low_inversion_args(n_chan=N_CHAN, n_l=L, ov=OV, os_f=OS, elem_seed=None):
+def _low_inversion_args(n_chan=N_CHAN, n_l=L, ov=OV, os_f=OS, elem_seed=None, **kw):
     """(constants, keep, kpos, lo, roll, gain, elem) of an inversion
-    geometry, elem a random (N,) factor or None."""
+    geometry (``kw`` to synthesis_constants), elem a random (N,) factor or
+    None."""
     g = geometry.SynthesisGeometry(n_chan, n_l, ov, os_f)
-    c = tsynth.synthesis_constants(n_chan, n_l, os_f, ov, temporal_taper="tukey")
+    c = tsynth.synthesis_constants(n_chan, n_l, os_f, ov, temporal_taper="tukey", **kw)
     c["dr"] = np.linspace(0.5, 1.5, g.fn_width).astype(np.float32)
     elem = None if elem_seed is None else _noise((g.output_fft_length,), elem_seed)
     return (g, [torch.as_tensor(c[k]) for k in ("t_taper", "dr", "perm")], g.input_keep,
@@ -1578,34 +1670,47 @@ def _low_inversion_args(n_chan=N_CHAN, n_l=L, ov=OV, os_f=OS, elem_seed=None):
             os_f.de / os_f.nu, elem)
 
 
-class TestInversionFused:
-    """The fused SKA-Low inversion (ops/kernels/inversion_fused.py,
-    csrc/inversion_fused.cu) on the CPU: its plain version, its predicate,
-    the route that takes it and the kernel's index maps in numpy."""
+#: the fused inversion's two geometries: SKA-Low, and a LowCBF PST slab (the
+#: cascade's 216 kept channels a coarse channel, in monotonic order)
+FUSED_GEOMS = {"low": (N_CHAN, {}), "slab216": (216, {"monotonic": True})}
 
-    @pytest.mark.parametrize("n_chan,n_l,ov,os_f", [
-        (N_CHAN, L, OV, OS),               # SKA-Low
-        (32, 64, 8, Rational(4, 3)),       # a reduced geometry: the plain version only
+
+class TestInversionFused:
+    """The fused inversion (ops/kernels/inversion_fused.py,
+    csrc/inversion_fused.cu) on the CPU at its two geometries: its plain
+    version, its predicate and tables, the route that takes it and the
+    kernel's index maps in numpy."""
+
+    @pytest.mark.parametrize("n_chan,n_l,ov,os_f,kw", [
+        (N_CHAN, L, OV, OS, {}),                  # SKA-Low
+        (216, L, OV, OS, {"monotonic": True}),    # a LowCBF PST slab
+        (32, 64, 8, Rational(4, 3), {}),          # a reduced geometry: the plain version only
     ])
     @pytest.mark.parametrize("with_elem", [False, True])
-    def test_plain_is_frontend_then_epilogue(self, n_chan, n_l, ov, os_f, with_elem):
+    def test_plain_is_frontend_then_epilogue(self, n_chan, n_l, ov, os_f, kw, with_elem):
         g, consts, keep, kpos, lo, roll, gain, elem = _low_inversion_args(
-            n_chan, n_l, ov, os_f, 70 if with_elem else None)
+            n_chan, n_l, ov, os_f, 70 if with_elem else None, **kw)
         x = torch.as_tensor(_noise((2, n_chan, 2 * ov + 3 * keep + 5), 71))[:, :, 5:]
-        x_tc, nb = x.transpose(1, 2), 3
+        x_tc, nb, n = x.transpose(1, 2), 3, g.output_fft_length
         e = None if elem is None else torch.as_tensor(elem)
         got = inv.inversion_fused(x_tc, *consts, e, keep, kpos, nb, lo, roll, gain)
         fn = tsynth.frontend(x_tc, *consts, n_l, keep, kpos, nb)
-        want = tsynth.epilogue(fn.reshape(2, nb, g.output_fft_length), e, lo, roll, gain, nb)
+        want = tsynth.epilogue(fn.reshape(2, nb, n), e, lo, roll, gain, nb)
         assert got.shape == (2, nb, g.output_keep) and torch.equal(got, want)
-        if n_chan == N_CHAN:  # and the two wrappers it stands in for, on the CPU
+        if inv.takes(n_l, n_chan, n, lo):  # and the route it stands in for, on the CPU
             fn = synthesis_fused(x_tc, *consts, n_l, keep, kpos, nb)
-            pair = fused_big_ifft(fn.reshape(2, nb, N), e,
-                                  shape_key=(N, *inv.SPLIT, lo, roll, gain), n_valid=nb)
+            pair = tsf.epilogue_dispatch(fn.reshape(2, nb, n), e, g, spans_nyquist=True,
+                                         n_valid=nb)
             assert torch.equal(got, pair)
 
     @pytest.mark.parametrize("geom,taken", [
         ((L, N_CHAN, N, LO), True),                           # SKA-Low
+        ((256, 216, 41_472, 7_776), True),                    # a LowCBF PST slab
+        ((256, 192, 36_864, 6_912), False),                   # the critical cascade's slab
+        ((256, 216, 41_472, 7_776 + 216), False),             # its neighbours: overlap,
+        ((256, 224, 43_008, 8_064), False),                   # channels either side
+        ((256, 208, 39_936, 7_488), False),
+        ((512, 216, 82_944, 15_552), False),                  # another frame length
         ((512, 4096, 1_835_008, 458_752), False),             # SKA-Mid
         ((256, 512, 98_304, 18_432), False),                  # 512 channels at 4/3
         ((256, 128, 24_576, 4_608), False),                   # 128 channels: n1 = 192
@@ -1618,6 +1723,8 @@ class TestInversionFused:
         assert inv.takes(*geom) == taken
         if geom[2] in (57_344, 16_384, 24_576):  # the cluster kernel's other splits
             assert itf.takes(*plan_ifft(*geom[2:]))
+        if geom[1] in (216, 192):  # the cascades' slabs: no epilogue plan at all
+            assert plan_ifft(*geom[2:]) is None
 
     @pytest.mark.parametrize("name", ["low", "128ch-4/3", "256ch-8/7", "512ch-4/3",
                                       "216ch-monotonic"])
@@ -1643,27 +1750,33 @@ class TestInversionFused:
         monkeypatch.setattr(tsf, "synthesis_fused", spy("frontend", synthesis_fused))
         monkeypatch.setattr(tsf, "epilogue_route", spy("route", tsf.epilogue_route))
         x = torch.as_tensor(_noise((2, 2 * ov + 2 * g.input_keep, n_chan), 72))
+        composed = tsf.fused_inversion.composed_epilogues
         got = tsf.fused_inversion(x, *consts, None, g, spans_nyquist=True)
         taken = inv.takes(n_l, n_chan, g.output_fft_length, g.output_overlap)
-        assert taken == (name == "low")
+        assert taken == (name in ("low", "216ch-monotonic"))
         assert calls == (["fused"] if taken else ["frontend", "route"])
+        assert tsf.fused_inversion.composed_epilogues == composed
         ref = tsynth.inversion_core(x, *consts, None, g, spans_nyquist=True)
         assert torch.equal(got, ref)
 
+    @pytest.mark.parametrize("geom", sorted(FUSED_GEOMS))
     @pytest.mark.parametrize("with_elem", [False, True])
     @pytest.mark.parametrize("layout", ["time_major", "channel_major"])
-    def test_kernel_emulation(self, with_elem, layout):
-        # csrc/inversion_fused.cu's index maps: the 16 * 16 frontend, the
-        # roll folded into where each kept bin is stored, the column buffers
-        # of eight blocks each slot written once, the epilogue on them
+    def test_kernel_emulation(self, geom, with_elem, layout):
+        # csrc/inversion_fused.cu's index maps: the 16 * 16 frontend in two
+        # halves a block, the roll folded into where each kept bin is
+        # stored, the column buffers of eight blocks each slot written
+        # once, the epilogue on them
+        n_chan, kw = FUSED_GEOMS[geom]
         g, consts, keep, kpos, lo, roll, gain, elem = _low_inversion_args(
-            elem_seed=73 if with_elem else None)
+            n_chan, elem_seed=73 if with_elem else None, **kw)
+        assert (roll, gain) == (96, 0.75)
         nb = 2
         if layout == "time_major":
-            x = _noise((2, 2 * OV + nb * keep + 3, N_CHAN), 74)[:, 3:]
+            x = _noise((2, 2 * OV + nb * keep + 3, n_chan), 74)[:, 3:]
             x_tc = torch.as_tensor(x)
         else:
-            x = _noise((2, N_CHAN, 2 * OV + nb * keep + 3), 74)[:, :, 3:].transpose(0, 2, 1)
+            x = _noise((2, n_chan, 2 * OV + nb * keep + 3), 74)[:, :, 3:].transpose(0, 2, 1)
             x_tc = torch.as_tensor(np.ascontiguousarray(x.transpose(0, 2, 1))).transpose(1, 2)
         got, stores = emu_inversion_fused(x, *(t.numpy() for t in consts), elem, keep, kpos,
                                           nb, lo, roll, gain)
@@ -1672,20 +1785,79 @@ class TestInversionFused:
                                   keep, kpos, nb, lo, roll, gain).numpy()
         assert _rel_err(got, ref) < SYNTHESIS_TOL
 
-    def test_kernel_smem_two_blocks_an_sm(self):
-        # csrc/inversion_fused.cu: columns, the receive buffer (which holds
-        # the frontend's 16 rows of 257 points), the tables, the taper and
-        # deripple fit twice in an SM's 228 KB, 1 KB a block reserved
-        cols, recv, rows = 128 * 48, 16 * 385, 16 * 257
-        tables = L + 126 + 24 * 48
+    def test_frontend_lanes_on_time(self):
+        # csrc/inversion_fused.cu on a stream whose nearest axis is time (the
+        # slab's kernel on the cascade's channel-major slabs): thread tid is
+        # (c, j) = (tid // 16, tid % 16) in the first pass and (c, d) in the
+        # second, so each warp's two rows are its own through both passes
+        # and the spare threads of an 11-channel half are whole rows; the
+        # skewed position 16*j + (d + j) % 16 takes every slot of a row
+        # once, and a half-warp's 16 stores (one d) and 16 loads (one j) hit
+        # 16 banks of 8 bytes in every row of 257 points
+        tid = np.arange(256)
+        assert {(w, c) for w, c in zip(tid // 32, tid // 16)} == {
+            (w, 2 * w + i) for w in range(8) for i in (0, 1)}
+        assert set(tid[tid // 16 >= 11] // 16) == set(range(11, 16))
+        j, d = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
+        pos = 16 * j + (d + j) % 16
+        assert np.array_equal(np.sort(pos.ravel()), np.arange(256))
+        for row in range(16):
+            slots = (row * 257 + pos) % 16
+            assert all(len(set(slots[:, k])) == 16 for k in range(16))  # first pass: one d
+            assert all(len(set(slots[k, :])) == 16 for k in range(16))  # second pass: one j
+        # a warp's loads: two channels' 16 consecutive samples, 128 bytes each
+        t = tid % 16
+        for w in range(8):
+            lanes = slice(32 * w, 32 * w + 32)
+            assert sorted(set(tid[lanes] // 16)) == [2 * w, 2 * w + 1]
+            assert np.array_equal(t[lanes], np.tile(np.arange(16), 2))
+
+    def test_radix6_passes(self):
+        # the 216-point column transform on its per-pass table is the
+        # backward DFT, in the output order the exchange assumes
+        v = _noise((3, 216), 80)
+        y = emu_radix6_passes(v, inv.radix6_pass_twiddles(216, 1))  # [.., g, d]
+        g = np.arange(36)
+        k2 = (g // 6 + 6 * (g % 6))[:, None] + 36 * np.arange(6)[None, :]
+        want = np.fft.ifft(v.astype(np.complex128), axis=-1) * 216
+        assert _rel_err(y, want[:, k2]) < 2e-6
+
+    def test_tables(self):
+        # SKA-Low's instance reads the cluster epilogue's tables, value for
+        # value; the slab's split S = 36 and its radix-6 table
+        low = inv.kernel_tables(N, 128, 384)
+        ref = itf.cluster_tables(N, 384, ROLL)
+        for k, r in (("tw_col", "tw_pass"), ("tw_n1", "tw_n1"), ("tw_a", "tw_a"),
+                     ("tw_b", "tw_b"), ("tw_row", "tw_pass")):
+            assert np.array_equal(low[k], ref[r]), k
+        slab = inv.kernel_tables(41_472, 216, 192)
+        assert {k: v.shape for k, v in slab.items()} == {
+            "tw_col": (210,), "tw_n1": (192,), "tw_a": (6, 192), "tw_b": (36, 192),
+            "tw_row": (126,)}
+        m1 = np.arange(192)
+        for k2 in (0, 35, 36, 215):  # w_N^(m1*k2) = tw_a[k2 // 36] * tw_b[k2 % 36]
+            got = slab["tw_a"][k2 // 36] * slab["tw_b"][k2 % 36]
+            assert np.abs(got - np.exp(2j * np.pi * m1 * k2 / 41_472)).max() < 2e-7
+
+    @pytest.mark.parametrize("n_chan,n2,n1", [(256, 128, 384), (216, 216, 192)])
+    def test_kernel_smem_two_blocks_an_sm(self, n_chan, n2, n1):
+        # csrc/inversion_fused.cu InvPlan: columns, the receive buffer (which
+        # holds the frontend's 16 rows of 257 points), the tables, the taper
+        # and deripple fit twice in an SM's 228 KB, 1 KB a block reserved
+        cols, recv, rows = n2 * (n1 // 8), (n2 // 8) * (n1 + 1), 16 * 257
+        s = inv.TW_SPLIT[n2]
+        tables = L + (126 if n2 == 128 else 210 + 126) + (n2 // s + s) * (n1 // 8)
         smem = 8 * (cols + recv + tables) + 4 * (L + 192)
         assert rows <= recv and 2 * (smem + 1024) <= 228 * 1024 and smem <= SMEM_LIMIT
+        assert n_chan * 192 == n2 * n1 and (n_chan // 8) in (32, 27)
 
-    def test_not_taken_raises_off_the_cpu(self):
+    @pytest.mark.parametrize("n_chan,kw", [(128, {}), (192, {"spans_nyquist": False})])
+    def test_not_taken_raises_off_the_cpu(self, n_chan, kw):
         # the raw wrapper refuses another geometry from the predicate, before
-        # anything is launched (a meta tensor: no data, no card)
-        g, consts, keep, kpos, lo, roll, gain, _ = _low_inversion_args(128)
-        x = torch.empty((1, 2 * OV + keep, 128), dtype=torch.complex64, device="meta")
+        # anything is launched (a meta tensor: no data, no card); the
+        # critical cascade's 192-channel slab among them
+        g, consts, keep, kpos, lo, roll, gain, _ = _low_inversion_args(n_chan, **kw)
+        x = torch.empty((1, 2 * OV + keep, n_chan), dtype=torch.complex64, device="meta")
         consts = [t.to("meta") for t in consts]
         before = inv.inversion_fused.launches
         with pytest.raises(ValueError, match="inversion_fused takes"):
@@ -1755,6 +1927,30 @@ class TestOnCard:
         fn = tsynth.frontend(x, *consts, L, keep, kpos, nb)
         ref = tsynth.epilogue(fn.reshape(2, nb, N), e, lo, roll, gain, nb)
         assert _rel_err(got.cpu(), ref.cpu()) < 4.7e-7
+
+    @pytest.mark.parametrize("nb", [9, 18])
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_inversion_fused_full_slab(self, cuda, nb, with_elem):
+        # the cascade's inverse at full size: 512 slabs (2 pol x 256 coarse
+        # channels) of 216 monotonic channels, 9 or 18 blocks, read through
+        # the transposed view of the inverse carry's channel-major buffer
+        g, consts, keep, kpos, lo, roll, gain, elem = _low_inversion_args(
+            216, elem_seed=81 if with_elem else None, monotonic=True)
+        n_dat = 2 * OV + nb * keep
+        gen = torch.Generator(device=cuda).manual_seed(82 + nb)
+        buf = torch.randn((512, 216, n_dat + 1000), dtype=torch.complex64, device=cuda,
+                          generator=gen)
+        x = buf[:, :, :n_dat].transpose(1, 2)
+        consts = [t.to(cuda) for t in consts]
+        e = None if elem is None else torch.as_tensor(elem, device=cuda)
+        before = inv.inversion_fused.launches
+        got = inv.inversion_fused(x, *consts, e, keep, kpos, nb, lo, roll, gain)
+        assert inv.inversion_fused.launches == before + 1
+        fn = tsynth.frontend(x, *consts, L, keep, kpos, nb)
+        ref = tsynth.epilogue(fn.reshape(512, nb, g.output_fft_length), e, lo, roll, gain, nb)
+        assert got.shape == ref.shape == (512, nb, 25_920)
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        assert err < SYNTHESIS_TOL
 
     @pytest.mark.parametrize("nb", [1, 2, 3, 4])
     @pytest.mark.parametrize("layout", ["time_major", "channel_major", "offset_view"])
@@ -1979,14 +2175,18 @@ class TestCascadesOnCard:
         ref = analysis_core(x, f2d, ramp, step, 5)
         assert _rel_err(got.cpu(), ref.cpu()) < ANALYSIS_TOL
 
-    @pytest.mark.parametrize("n_chan,kw,n_slab,kernels", [
-        (216, {"monotonic": True}, 6, [1, 0, 0, 0]),                 # lowpsi slabs, composed
-        (192, {"spans_nyquist": False}, 6, [1, 0, 0, 0]),           # critical, composed
-        (3072, {"spans_nyquist": False, "combine": 16}, 2, [1, 0, 1, 1]),  # the pair
+    @pytest.mark.parametrize("n_chan,kw,n_slab,launched,composed", [
+        (216, {"monotonic": True}, 6, {"inversion_fused": 1}, 0),        # lowpsi slabs, fused
+        (192, {"spans_nyquist": False}, 6, {"synthesis_fused": 1}, 1),   # critical, composed
+        (3072, {"spans_nyquist": False, "combine": 16}, 2,               # the pair
+         {"synthesis_fused": 1, "ifft_big_inner": 1, "ifft_big_outer": 1}, 0),
     ])
-    def test_inversion(self, cuda, filt, n_chan, kw, n_slab, kernels):
-        # channel-major slabs read time-major by the frontend kernel, then
-        # the epilogue the dispatch picks
+    def test_inversion(self, cuda, filt, n_chan, kw, n_slab, launched, composed):
+        # channel-major slabs read time-major: the fused inversion where it
+        # takes the geometry, else the frontend kernel and the epilogue the
+        # dispatch picks
+        from ska_pst_dsp_tpu_torch.ops.kernels import wrappers
+
         g = geometry.SynthesisGeometry(n_chan, L, OV, OS)
         c = tsynth.synthesis_constants(n_chan, L, OS, OV, deripple_coeff=filt,
                                        temporal_taper="tukey", **kw)
@@ -1994,12 +2194,13 @@ class TestCascadesOnCard:
                             device=cuda).transpose(1, 2)
         args = [torch.as_tensor(c[k], device=cuda) for k in ("t_taper", "dr", "perm")]
         spans = kw.get("spans_nyquist", True)
-        ws = (synthesis_fused, fused_big_ifft, ifft_big_inner, ifft_big_outer)
-        before = [w.launches for w in ws]
-        composed = tsf.fused_inversion.composed_epilogues
+        ws = wrappers()
+        before = {k: w.launches for k, w in ws.items()}
+        composed0 = tsf.fused_inversion.composed_epilogues
         got = tsf.fused_inversion(x, *args, None, g, spans_nyquist=spans)
-        assert [w.launches - b for w, b in zip(ws, before)] == kernels
-        assert tsf.fused_inversion.composed_epilogues - composed == (kernels[2] == 0)
+        assert {k: w.launches - before[k] for k, w in ws.items()
+                if w.launches != before[k]} == launched
+        assert tsf.fused_inversion.composed_epilogues - composed0 == composed
         ref = tsynth.inversion_core(x, *args, None, g, spans_nyquist=spans)
         assert _rel_err(got.cpu(), ref.cpu()) < SYNTHESIS_TOL
 

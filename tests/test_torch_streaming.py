@@ -37,7 +37,7 @@ from ska_pst_dsp_tpu_torch.models import signals, streaming, testers, two_stage
 from ska_pst_dsp_tpu_torch.models.round_trip import PaddedPFBRoundTrip, PFBRoundTrip
 from ska_pst_dsp_tpu_torch.ops import synthesis as tsynth
 from ska_pst_dsp_tpu_torch.ops.analysis import polyphase_analysis, polyphase_analysis_padded
-from ska_pst_dsp_tpu_torch.ops.kernels import ifft_big, ifft_fused
+from ska_pst_dsp_tpu_torch.ops.kernels import ifft_big, ifft_fused, inversion_fused
 from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import fused_inversion
 from ska_pst_dsp_tpu_torch.ops.lowcbf import polyphase_analysis_lowcbf
 from ska_pst_dsp_tpu_torch.utils import geometry
@@ -200,16 +200,22 @@ class TestInverseFilterBank:
         _close(got, ref, STREAM_TOL)
         assert {n for n, _ in inv.named_buffers()} == {"t_taper", "dr", "perm", "elem"}
 
-    def test_lowcbf_slabs_monotonic(self):
-        # 216-channel monotonic slabs (a lowpsi stage 2): no epilogue plan
+    def test_lowcbf_slabs_monotonic(self, monkeypatch):
+        # 216-channel monotonic slabs (a lowpsi stage 2): no epilogue plan,
+        # so the fused inversion takes each chunk whole and no composed
+        # epilogue runs
         cfg = _lowcbf_cfg()
         x = _noise((2, 216, 600), 8)
+        calls, fused = [], inversion_fused.inversion_fused
+        monkeypatch.setattr(inversion_fused, "inversion_fused",
+                            lambda *a, **k: calls.append(a[0].shape) or fused(*a, **k))
         before = fused_inversion.composed_epilogues
         got = _stream_all(streaming.InverseFilterBank(cfg, monotonic=True, device="cpu"),
                           x, [250, 350])
         ref = _stream_all(jax_streaming.InverseFilterBank(cfg, monotonic=True), x, [250, 350])
         _close(got, ref, STREAM_TOL)
-        assert fused_inversion.composed_epilogues > before
+        assert calls and all(shape[2] == 216 for shape in calls)
+        assert fused_inversion.composed_epilogues == before
 
 
 class TestPipeline:
@@ -502,7 +508,7 @@ class TestDispatch:
     @pytest.mark.parametrize("n_chan,critical,combine,kernel", [
         (256, False, 1, "cluster"),   # the oversampled low cascade's slabs
         (192, True, 1, "composed"),   # critical, no combine: 36864 points
-        (216, False, 1, "composed"),  # the lowpsi slabs: 41472 points
+        (216, False, 1, "composed"),  # the lowpsi slabs' 41472 points (inversion_fused's)
         (3072, True, 16, "pair"),     # critical combine 16: 589824 points
     ])
     def test_cascade_epilogues(self, n_chan, critical, combine, kernel):

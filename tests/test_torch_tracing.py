@@ -17,17 +17,18 @@
 * A cascade (a 16-channel stage 1 into the LowCBF firmware filterbank,
   then each coarse channel's inversion, oversampled and critical) emits
   ``two_stage.filterbank`` and ``two_stage.inverse_filterbank`` around its
-  stages' spans, ``corner_turn`` in those, and ``composed_epilogue`` in
-  ``inversion`` after its ``dispatch``; ``corner_turn_bytes`` grows by the
-  bytes of the two copies a forward makes, and by nothing where every
-  reshape is a view.
+  stages' spans and ``corner_turn`` in those; in ``inversion`` the
+  oversampled slabs' ``kernel.inversion_fused``, the critical slabs'
+  ``composed_epilogue`` after their ``dispatch``; ``corner_turn_bytes``
+  grows by the bytes of the two copies a forward makes, and by nothing
+  where every reshape is a view.
 * On the card (marked ``cuda``; this module imports neither JAX nor the
   JAX package, so it runs there with ``--noconftest``): the low and mid
   main paths and the low stream emit the same spans, the out-of-core
   pair's two kernels among mid's, one ``kernel.<name>`` span for each
   launch its wrapper counts; so does SKA-Low's PST cascade (sps into
-  lowpsi), one ``composed_epilogue`` span for each composed epilogue
-  counted.
+  lowpsi), whose inversion is the fused kernel with no composed
+  epilogue.
 """
 
 import contextlib
@@ -88,8 +89,13 @@ CASCADE_NESTING = {
     "inverse_filterbank": {"two_stage.inverse_filterbank"},
     "inversion": {"inverse_filterbank"},
     "kernel.synthesis_fused": {"inversion"}, "dispatch": {"inversion"},
-    "composed_epilogue": {"inversion"},
+    "composed_epilogue": {"inversion"}, "kernel.inversion_fused": {"inversion"},
 }
+#: the inversion's spans of each cascade (by ``critical``): the oversampled
+#: slabs' 216 channels are the fused kernel's, the critical slabs' 192 run
+#: the frontend and the composed epilogue the dispatch picks
+CASCADE_INVERSION = {False: {"kernel.inversion_fused"},
+                     True: {"kernel.synthesis_fused", "dispatch", "composed_epilogue"}}
 #: the CPU cascade's stage 1: 16 channels at OS 4/3 (hop 12), 12 taps a
 #: channel; its input gives each coarse channel one inversion block (256
 #: LowCBF spectra behind the first call's pad of 1536, at hop 192)
@@ -316,18 +322,21 @@ def test_cascade_spans_nest(cascade_configs, critical):
     (y, _, z), spans = _profiled(lambda: run_cascade(cascade_configs, x, critical=critical))
     assert z.shape == (2, CASCADE_CHAN, 216 * 192 - 2 * 7776 if not critical
                        else 192 * 192 - 2 * 36 * 192)
-    assert {n for n, *_ in spans} == set(CASCADE_NESTING)
+    assert {n for n, *_ in spans} == set(CASCADE_NESTING) - CASCADE_INVERSION[not critical]
     for name, parent, _, _ in spans:
         assert parent in CASCADE_NESTING[name], (name, parent)
     counts = {n: sum(1 for s in spans if s[0] == n) for n in CASCADE_NESTING}
     # stage 1 and stage 2 of the forward; its two reshapes and the slabs
     assert counts["filterbank"] == counts["kernel.analysis_fused"] == 2
     assert counts["corner_turn"] == 3
-    assert counts["composed_epilogue"] == 1
-    assert profiling.counters()["composed_epilogues"] == before["composed_epilogues"] + 1
-    (dispatch,) = [s for s in spans if s[0] == "dispatch"]
-    (composed,) = [s for s in spans if s[0] == "composed_epilogue"]
-    assert composed[2] >= dispatch[3]
+    assert counts["composed_epilogue"] == int(critical)
+    assert counts["kernel.inversion_fused"] == int(not critical)
+    assert (profiling.counters()["composed_epilogues"]
+            == before["composed_epilogues"] + int(critical))
+    if critical:
+        (dispatch,) = [s for s in spans if s[0] == "dispatch"]
+        (composed,) = [s for s in spans if s[0] == "composed_epilogue"]
+        assert composed[2] >= dispatch[3]
 
 
 @pytest.mark.parametrize("kw", [{}, {"critical": True}, {"single": True}])
@@ -380,8 +389,8 @@ def test_card_spans_nest_and_match_the_launches(low_filt, case):
 def test_card_cascade_spans_match_the_launches():
     """SKA-Low's PST cascade (sps into lowpsi) on the card over one
     inversion block: the same spans as on the CPU, one ``kernel.<name>``
-    span for each launch, one ``composed_epilogue`` span for each composed
-    epilogue counted, and the corner turns' copies counted."""
+    span for each launch, the inversion the fused kernel with no composed
+    epilogue, and the corner turns' copies counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -395,13 +404,13 @@ def test_card_cascade_spans_match_the_launches():
     after = profiling.counters()
     spans = _program_spans(prof)
     assert z.shape == (2, 256, 216 * 192 - 2 * 7776)
-    assert {n for n, *_ in spans} == set(CASCADE_NESTING)
+    assert {n for n, *_ in spans} == set(CASCADE_NESTING) - CASCADE_INVERSION[True]
     for name, parent, _, _ in spans:
         assert parent in CASCADE_NESTING[name], (name, parent)
     launched = {k: after[k] - before[k] for k in wrappers()}
     assert launched == {k: sum(1 for s in spans if s[0] == f"kernel.{k}") for k in wrappers()}
-    assert launched["analysis_fused"] == 2 and launched["synthesis_fused"] == 1
-    assert (after["composed_epilogues"] - before["composed_epilogues"]
-            == sum(1 for s in spans if s[0] == "composed_epilogue") == 1)
+    assert {k: v for k, v in launched.items() if v} == {"analysis_fused": 2,
+                                                        "inversion_fused": 1}
+    assert after["composed_epilogues"] == before["composed_epilogues"]
     assert (after["corner_turn_bytes"] - before["corner_turn_bytes"]
             == 8 * (2 * 256 * spectra1 + y.numel()))
