@@ -478,12 +478,11 @@ def other_geometries(torch, dev):
     split neither epilogue kernel takes) run on the pair at 896 x 128."""
     from ska_pst_dsp_tpu_torch.design import fir
     from ska_pst_dsp_tpu_torch.ops import synthesis as plain_synth
-    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import plan_ifft
-    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import polyphase_synthesis_fused
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import (
+        epilogue_plan, polyphase_synthesis_fused,
+    )
     from ska_pst_dsp_tpu_torch.utils import geometry
     from ska_pst_dsp_tpu_torch.utils.rational import Rational
-
-    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import pair_split
 
     ws = wrappers()
     for n_chan, os_f, n_l, ov in ((512, "4/3", 256, 48), (128, "4/3", 256, 48),
@@ -509,10 +508,9 @@ def other_geometries(torch, dev):
         on_device = device_ms(torch, lambda: polyphase_synthesis_fused(x, n_l, os_f, **kw),
                               "ifft_")
         bnd = bound(2 * nb * (2 * n - 2 * lo) * 8, fft_flops(n, 2 * nb))
-        on = ("the pair at {} x {}".format(*pair_split(n, lo))
-              if "ifft_big_inner" in ran else "the cluster epilogue")
-        log("geometries", f"{n_chan} ch, OS {os_f}, L {n_l}, overlap {ov}: split "
-            f"{plan_ifft(n, lo)}, {on}; launched {', '.join(ran)}; max|err|/scale {err[1]:.3g} "
+        route, n2, n1 = epilogue_plan(n, lo)
+        log("geometries", f"{n_chan} ch, OS {os_f}, L {n_l}, overlap {ov}: the {route} "
+            f"epilogue at {n2} x {n1}; launched {', '.join(ran)}; max|err|/scale {err[1]:.3g} "
             f"(tol {SYNTHESIS_TOL}); epilogue of 2 x {nb} blocks on the device: "
             + (", ".join(f"{k} {v:.4f} ms" for k, v in on_device.items()) or "not measured")
             + f", bound {bnd[0]:.4f} ms ({bnd[1]})")
@@ -692,10 +690,10 @@ def main() -> int:
     )
     from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import fused_big_ifft_oc
     from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import (
-        active_clusters, fused_big_ifft, plan_ifft,
+        active_clusters, fused_big_ifft,
     )
     from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import (
-        polyphase_synthesis_fused, synthesis_fused,
+        epilogue_plan, polyphase_synthesis_fused, synthesis_fused,
     )
 
     # 1. card
@@ -770,8 +768,8 @@ def main() -> int:
 
     n, lo, roll = g.output_fft_length, g.output_overlap, g.fn_width // 2
     gain = OS_FACTOR.de / OS_FACTOR.nu
-    plan = plan_ifft(n, lo)
-    check(plan == (128, 384), f"plan_ifft({n}, {lo}) = {plan}")
+    route, *plan = epilogue_plan(n, lo)
+    check((route, *plan) == ("cluster", 128, 384), f"epilogue_plan({n}, {lo}) = {route}, {plan}")
     flat = fn.reshape(2, nb, n)
     elem = torch.as_tensor(np.roll(windows.build("tukey", n, OVERLAP), roll)
                            .astype(np.complex64), device=dev)
@@ -1024,9 +1022,9 @@ def run_mid(torch, dev, smi):
     from ska_pst_dsp_tpu_torch.ops.kernels.analysis_padded_fused import padded_fold_fused
     from ska_pst_dsp_tpu_torch.ops.kernels.chan_dft_fused import chan_dft_ramp
     from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import (
-        fused_big_ifft_oc, ifft_big_inner, ifft_big_outer, plan_big_ifft,
+        fused_big_ifft_oc, ifft_big_inner, ifft_big_outer,
     )
-    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import synthesis_fused
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import epilogue_plan, synthesis_fused
 
     model = mid_round_trip(dev)
     g = model.geom
@@ -1096,14 +1094,14 @@ def run_mid(torch, dev, smi):
 
     n, lo, roll = g.output_fft_length, g.output_overlap, g.fn_width // 2
     gain = model.os_factor.de / model.os_factor.nu
-    plan = plan_big_ifft(n, lo)
-    check(plan == (7, 512, 512), f"plan_big_ifft({n}, {lo}) = {plan}")
-    n2, n1 = plan[0] * plan[1], plan[2]
+    route, n2, n1 = epilogue_plan(n, lo)
+    check((route, n2, n1) == ("pair", 3584, 512), f"epilogue_plan({n}, {lo}) = {route}, "
+          f"{n2} x {n1}")
     flat = fn.reshape(2, nb, n)
     del fn
     elem = torch.as_tensor(np.roll(windows.build("tukey", n, ov), roll)
                            .astype(np.complex64), device=dev)
-    key = (n, *plan, lo, roll, gain)
+    key = (n, 1, n2, n1, lo, roll, gain)
     errs, times = {}, {}
     for e in (elem, None):  # the main path's epilogue has no elem: last
         a = ps.big_ifft_inner(flat, e, n2, n1).contiguous()  # the kernel's layout
@@ -1522,8 +1520,8 @@ def cascade_kernel_times(torch, dev, smi):
     from ska_pst_dsp_tpu_torch.ops.analysis import _prep_filter, analysis_core, ramp_table
     from ska_pst_dsp_tpu_torch.ops.framing import frame
     from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import analysis_fused
-    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import fused_big_ifft_oc, pair_split
-    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import synthesis_fused
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import fused_big_ifft_oc
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import epilogue_plan, synthesis_fused
     from ska_pst_dsp_tpu_torch.utils import geometry
     from ska_pst_dsp_tpu_torch.utils.config import load_config
 
@@ -1584,7 +1582,7 @@ def cascade_kernel_times(torch, dev, smi):
         flat = fn.reshape(n_slab, 4, n)
         roll = g.fn_width // 2 if kw.get("spans_nyquist", True) else 0
         if n_chan == 3072:
-            n2, n1 = pair_split(n, lo)
+            n2, n1 = epilogue_plan(n, lo)[1:]
             key = (n, 1, n2, n1, lo, roll, 0.75)
             err = measure(torch, phase, f"ifft_big pair at {n2} x {n1} ({n} points, "
                           f"{n_slab} x 4 blocks)",
@@ -2128,8 +2126,7 @@ def kernels_only(torch):
     dedisperse's whole-stream chirp: the two places no kernel takes."""
     from ska_pst_dsp_tpu_torch.ops import dedispersion as dd
     from ska_pst_dsp_tpu_torch.ops import synthesis as ps
-    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import plan_big_ifft
-    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import plan_ifft
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import epilogue_plan
 
     inside = [0]
     epilogue = ps.epilogue
@@ -2145,7 +2142,7 @@ def kernels_only(torch):
 
     def planless_epilogue(flat, elem, lo, *args):
         n = flat.shape[-1]
-        if plan_ifft(n, lo) is not None or plan_big_ifft(n, lo) is not None:
+        if epilogue_plan(n, lo)[0] != "composed":
             raise AssertionError(f"the plain epilogue ran at {n} points, which have a plan")
         return scoped(epilogue)(flat, elem, lo, *args)
 
@@ -2343,7 +2340,8 @@ def mid_group_pair(torch, dev, smi):
     """The ifft_big pair at the mid matrix's group shape (114688 points at
     896 x 128), against its plain version, its bound and torch.fft.ifft."""
     from ska_pst_dsp_tpu_torch.ops import synthesis as ps
-    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import fused_big_ifft_oc, pair_split
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_big import fused_big_ifft_oc
+    from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import epilogue_plan
     from ska_pst_dsp_tpu_torch.utils import geometry
     from ska_pst_dsp_tpu_torch.utils.config import load_config
 
@@ -2354,7 +2352,7 @@ def mid_group_pair(torch, dev, smi):
     n_spectra = (mid.os_factor.normalize(mid.input_fft_length) * mid.channels * mid.blocks * 2
                  // geometry.analysis_step(mid.channels, mid.os_factor))
     nb = g.n_blocks(n_spectra)
-    n2, n1 = pair_split(n, lo)
+    n2, n1 = epilogue_plan(n, lo)[1:]
     flat = torch.as_tensor(noise((2, nb, n), SEED + 15), device=dev)
     gain = mid.os_factor.de / mid.os_factor.nu
     key = (n, 1, n2, n1, lo, 0, gain)

@@ -26,19 +26,28 @@ on it: nothing on the card gives way to the plain version:
   shared memory (fuses two Pallas kernels' ports; replaces neither alone).
 
 The sources live in ``ska_pst_dsp_tpu_torch/csrc/``; :mod:`._build` compiles
-them on first use. This module holds the host-side helpers the wrappers
-share: the odd-factor split of a transform length, exact phase tables, and
-the plan and twiddle tables of the register passes (``csrc/fft_reg.cuh``)
-that every kernel with a DFT runs on.
+them on first use. This module holds what the wrappers share: their
+registry and one launch path (:func:`kernel`, :func:`launch`), the
+odd-factor split of a transform length, exact phase tables, the plan and
+twiddle tables of the register passes (``csrc/fft_reg.cuh``) that every
+kernel with a DFT runs on, and the N-level twiddles of the two cluster
+kernels.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Callable, Dict, Tuple
+import importlib
+import pkgutil
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ska_pst_dsp_tpu_torch.utils.profiling import spanned
+
+from . import _build
 
 #: shared memory one thread block may use on the H100 (bytes)
 SMEM_LIMIT = 232_448
@@ -49,25 +58,80 @@ SMEM_LIMIT = 232_448
 RADICES = (1, 3, 7)
 
 
+#: the kernel wrappers by key, each registered by :func:`kernel` as its
+#: module loads
+_WRAPPERS: Dict[str, Callable] = {}
+
+
 def wrappers() -> Dict[str, Callable]:
     """The eleven kernels' wrappers, every one with its ``launches``
-    counter: the seven by the name of the Pallas kernel each replaces, then
-    the ingest engine's three, then the fused SKA-Low inversion."""
-    from .analysis_fused import analysis_fused
-    from .analysis_padded_fused import padded_fold_fused
-    from .chan_dft_fused import chan_dft_ramp
-    from .dada_unpack import dada_pack, dada_unpack, lowcbf_unpack
-    from .ifft_big import ifft_big_inner, ifft_big_outer
-    from .ifft_fused import fused_big_ifft
-    from .inversion_fused import inversion_fused
-    from .synthesis_fused import synthesis_fused
+    counter: the seven by the name of the Pallas kernel each replaces, the
+    ingest engine's three and the fused SKA-Low inversion. Loads every
+    kernel module the first time, then returns the registry."""
+    _load_modules()
+    return _WRAPPERS
 
-    return {"analysis_fused": analysis_fused, "synthesis_fused": synthesis_fused,
-            "ifft_fused": fused_big_ifft, "analysis_padded_fused": padded_fold_fused,
-            "chan_dft_fused": chan_dft_ramp, "ifft_big_inner": ifft_big_inner,
-            "ifft_big_outer": ifft_big_outer, "dada_unpack": dada_unpack,
-            "lowcbf_unpack": lowcbf_unpack, "dada_pack": dada_pack,
-            "inversion_fused": inversion_fused}
+
+@functools.lru_cache(maxsize=None)
+def _load_modules() -> None:
+    for module in pkgutil.iter_modules(__path__):
+        importlib.import_module(f"{__name__}.{module.name}")
+
+
+def kernel(key: str, plain: Optional[Callable] = None):
+    """Decorator of a kernel wrapper: registers it under ``key`` in
+    :func:`wrappers`, makes its call the span ``kernel.<key>`` and starts
+    its ``launches`` counter at 0. Given ``plain``, the plain version with
+    the wrapper's own signature, a CPU tensor as the first argument runs
+    that in place of the wrapper's body; a wrapper whose CPU branch does
+    more keeps it in its body."""
+    def register(body: Callable) -> Callable:
+        fn = body
+        if plain is not None:
+            @functools.wraps(body)
+            def fn(x, *args, **kwargs):
+                return (plain if x.device.type == "cpu" else body)(x, *args, **kwargs)
+        wrapper = spanned("kernel." + key)(fn)
+        wrapper.launches = 0
+        _WRAPPERS[key] = wrapper
+        return wrapper
+    return register
+
+
+def on_card(name: str, device: torch.device) -> torch.device:
+    """``device`` where it is a card. Any other raises the one ValueError of
+    the wrappers, naming ``name``: the CPU runs the plain versions before
+    this is asked, and a wrapper asks only at its launch, after its own
+    checks, so that a geometry no kernel takes is refused first."""
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {device}")
+    return device
+
+
+def _call(name: str, entry: str, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        status = getattr(_build.library(), entry)(*args)
+    _build.check(status, name)
+
+
+def launch(wrapper: Callable, entry: str, t: torch.Tensor, *args) -> None:
+    """Launch ``wrapper``'s C entry ``entry`` of the built library on t's
+    card: ``args``, then the current stream of that card. Raises as
+    :func:`on_card` off the card and RuntimeError, naming the wrapper,
+    where the launch fails; only a launch that succeeds adds one to
+    ``wrapper.launches``."""
+    name = wrapper.__name__
+    _call(name, entry, on_card(name, t.device), *args, stream_of(t))
+    wrapper.launches += 1
+
+
+def query(entry: str, device: torch.device, *args) -> int:
+    """The int the library's C query ``entry`` writes after ``args`` on
+    ``device``'s card (the current card for ``torch.device("cuda")``): a
+    kernel's resident blocks or clusters. Not a launch; nothing counts it."""
+    out = ctypes.c_int(0)
+    _call(entry, entry, on_card(entry, device), *args, ctypes.byref(out))
+    return out.value
 
 
 def radix(n: int) -> Tuple[int, int, int]:
@@ -136,6 +200,20 @@ def device_pass_twiddles(q: int, sign: int, device: torch.device) -> torch.Tenso
 def twiddles(n: int, sign: int, device: torch.device) -> torch.Tensor:
     """:func:`twiddle_table` on ``device``, built once per (n, sign, device)."""
     return torch.as_tensor(twiddle_table(n, sign), device=device)
+
+
+def cluster_twiddles(n: int, n2: int, n1: int, split: int) -> Dict[str, np.ndarray]:
+    """The tables of an n = n2 * n1-point backward transform on a cluster
+    kernel (:mod:`.ifft_fused`, :mod:`.inversion_fused`), complex64, each
+    built in float64 from exact integers: ``tw_n1`` (w_n1^m) and ``tw_a``,
+    ``tw_b`` ((n2 / S, n1) w_N^(S*a*m1) and (S, n1) w_N^(b*m1), S =
+    ``split``: the N-level twiddle of k2 = S*a + b is their product)."""
+    m1 = np.arange(n1, dtype=np.int64)[None, :]
+    return {
+        "tw_n1": twiddle_table(n1, 1),
+        "tw_a": phase_table(split * np.arange(n2 // split)[:, None] * m1, n, 1),
+        "tw_b": phase_table(np.arange(split)[:, None] * m1, n, 1),
+    }
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

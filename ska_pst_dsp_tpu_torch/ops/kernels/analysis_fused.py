@@ -28,15 +28,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from ska_pst_dsp_tpu_torch.utils import geometry
-from ska_pst_dsp_tpu_torch.utils.profiling import spanned
 from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .. import cfft
 from ..analysis import _prep_filter, analysis_core, ramp_table, stream
-from . import (
-    SMEM_LIMIT, _build, device_pass_twiddles, radix, reg_plan, require, stream_of,
-    twiddles,
-)
+from . import SMEM_LIMIT, device_pass_twiddles, kernel, launch, radix, reg_plan, require, twiddles
 
 #: blocks (channel counts) the kernel takes on the card: r * 2^k with r in
 #: {1, 3}, 128 to 1024 (csrc/analysis_fused.cu pick_kernel)
@@ -100,7 +96,7 @@ def takes(block: int, step: int, phases: int, period: int) -> bool:
     return plan(block, step, phases, period) is not None
 
 
-@spanned("kernel.analysis_fused")
+@kernel("analysis_fused", plain=analysis_core)
 def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
                    step: int, block0: int = 0) -> torch.Tensor:
     """(n_pol, n_dat) complex64 -> time-major (n_pol, nblocks, block).
@@ -110,8 +106,6 @@ def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
     tensor runs the plain version; a CUDA tensor launches the kernel, which
     takes the geometries of :func:`takes` (the blocks in :data:`BLOCKS`
     whose span fits in shared memory) and raises ValueError for any other."""
-    if x.device.type == "cpu":
-        return analysis_core(x, f2d, ramp, step, block0)
     phases, block = f2d.shape
     if ramp.ndim != 2 or ramp.shape[1] != block:
         raise ValueError(f"ramp must be (period, {block}), got {tuple(ramp.shape)}")
@@ -122,8 +116,6 @@ def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
             f"analysis_fused takes blocks {BLOCKS} on the card whose span fits in "
             f"shared memory, got {phases} phases x {block} at step {step}"
         )
-    if x.device.type != "cuda":
-        raise ValueError(f"analysis_fused runs on cuda or cpu, not {x.device}")
     dev = x.device
     if x.dtype != torch.complex64 or x.ndim != 2:
         raise TypeError(f"x must be a (n_pol, n_dat) complex64 tensor, got {x.dtype} "
@@ -147,18 +139,11 @@ def analysis_fused(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
     out = torch.empty((n_pol, nblocks, block), dtype=torch.complex64, device=dev)
     tw_pass = device_pass_twiddles(1 << logq, -1, dev)
     tw_n = twiddles(block, -1, dev) if r > 1 else tw_pass
-    with torch.cuda.device(dev):
-        status = _build.library().analysis_fused_launch(
-            x.data_ptr(), out.data_ptr(), f2d.data_ptr(), tw_pass.data_ptr(),
-            tw_n.data_ptr(), ramp.data_ptr(), n_pol, n_dat, pol_stride, nblocks, block, r, logq,
-            step, phases, period, block0 % period, SMEM_LIMIT, stream_of(x),
-        )
-    _build.check(status, "analysis_fused")
-    analysis_fused.launches += 1
+    launch(analysis_fused, "analysis_fused_launch", x,
+           x.data_ptr(), out.data_ptr(), f2d.data_ptr(), tw_pass.data_ptr(),
+           tw_n.data_ptr(), ramp.data_ptr(), n_pol, n_dat, pol_stride, nblocks, block, r, logq,
+           step, phases, period, block0 % period, SMEM_LIMIT)
     return out
-
-
-analysis_fused.launches = 0
 
 
 def polyphase_analysis_fused(x, filt, block: int, os_factor, *,

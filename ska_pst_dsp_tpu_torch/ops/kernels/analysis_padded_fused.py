@@ -26,7 +26,6 @@ constant is :func:`..analysis.padded_chan_const` with no such factor.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import NamedTuple, Optional
@@ -35,12 +34,11 @@ import numpy as np
 import torch
 
 from ska_pst_dsp_tpu_torch.utils import geometry
-from ska_pst_dsp_tpu_torch.utils.profiling import spanned
 from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .. import cfft
 from ..analysis import _prep_filter, padded_chan_const, padded_fold, stream
-from . import SMEM_LIMIT, _build, chan_dft_fused, require, stream_of
+from . import SMEM_LIMIT, chan_dft_fused, kernel, launch, query, require
 from .chan_dft_fused import chan_dft_ramp
 
 #: consecutive spectra per tile and W-row columns per work unit
@@ -128,12 +126,7 @@ def resident_blocks(p: FoldPlan, phases: int, device: torch.device) -> int:
     """Thread blocks of the geometry's kernel resident on the card at once:
     the size of the persistent grid, asked of the library that launches it
     (once per geometry and card)."""
-    slots = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        _build.check(_build.library().padded_fold_slots(phases, p.s, p.d, SMEM_LIMIT,
-                                                        ctypes.byref(slots)),
-                     "padded_fold_slots")
-    return slots.value
+    return query("padded_fold_slots", device, phases, p.s, p.d, SMEM_LIMIT)
 
 
 def smem_bytes(block: int, step: int, phases: int, tiles: int = 1) -> int:
@@ -144,15 +137,13 @@ def smem_bytes(block: int, step: int, phases: int, tiles: int = 1) -> int:
     return HEADER + (window_pad + (tiles - 1) * slide) * C_TILE * 8
 
 
-@spanned("kernel.analysis_padded_fused")
+@kernel("analysis_padded_fused", plain=padded_fold)
 def padded_fold_fused(x: torch.Tensor, f2d_rev: torch.Tensor, step: int) -> torch.Tensor:
     """(n_pol, n_dat) complex64 -> time-major (n_pol, n_dat // step, block)
     unreversed fold rows. f2d_rev: (phases, block) float32, the reversed
     filter. A CPU tensor runs the plain version; a CUDA tensor launches the
     kernel, which takes the geometries of :func:`takes` and raises
     ValueError for any other."""
-    if x.device.type == "cpu":
-        return padded_fold(x, f2d_rev, step)
     phases, block = f2d_rev.shape
     p = plan(block, step, phases)
     if p is None:
@@ -161,8 +152,6 @@ def padded_fold_fused(x: torch.Tensor, f2d_rev: torch.Tensor, step: int) -> torc
             f"needs gcd(step, block) a multiple of {C_TILE} and "
             f"{smem_bytes(block, step, phases)} <= {SMEM_LIMIT} bytes of shared memory"
         )
-    if x.device.type != "cuda":
-        raise ValueError(f"padded_fold_fused runs on cuda or cpu, not {x.device}")
     dev = x.device
     if x.dtype != torch.complex64 or x.ndim != 2:
         raise TypeError("x must be a (n_pol, n_dat) complex64 tensor")
@@ -182,17 +171,10 @@ def padded_fold_fused(x: torch.Tensor, f2d_rev: torch.Tensor, step: int) -> torc
         raise ValueError("x's polarizations overlap in memory")
     g = torch.empty((n_pol, nblocks, block), dtype=torch.complex64, device=dev)
     tiles = seg_tiles(p, nblocks, n_pol * (p.w // C_TILE), resident_blocks(p, phases, dev))
-    with torch.cuda.device(dev):
-        status = _build.library().padded_fold_launch(
-            x.data_ptr(), g.data_ptr(), f2d_rev.data_ptr(), n_pol, n_dat, pol_stride,
-            nblocks, block, p.w, p.d, p.s, phases, tiles, SMEM_LIMIT, stream_of(x),
-        )
-    _build.check(status, "padded_fold_fused")
-    padded_fold_fused.launches += 1
+    launch(padded_fold_fused, "padded_fold_launch", x,
+           x.data_ptr(), g.data_ptr(), f2d_rev.data_ptr(), n_pol, n_dat, pol_stride,
+           nblocks, block, p.w, p.d, p.s, phases, tiles, SMEM_LIMIT)
     return g
-
-
-padded_fold_fused.launches = 0
 
 
 def polyphase_analysis_padded_fused(x, filt, block: int, os_factor, *,

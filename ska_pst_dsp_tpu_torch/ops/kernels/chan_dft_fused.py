@@ -15,10 +15,8 @@ from typing import Tuple
 
 import torch
 
-from ska_pst_dsp_tpu_torch.utils.profiling import spanned
-
 from ..analysis import chan_dft_core
-from . import _build, device_pass_twiddles, require, stream_of, twiddles
+from . import device_pass_twiddles, kernel, launch, require, twiddles
 
 #: block -> (r, log2 q), block = r * q: the lengths the kernel is
 #: instantiated for (csrc/chan_dft_fused.cu pick_kernel). Every block the
@@ -42,7 +40,7 @@ def kernel_split(block: int) -> Tuple[int, int]:
     return BLOCKS[block]
 
 
-@spanned("kernel.chan_dft_fused")
+@kernel("chan_dft_fused", plain=chan_dft_core)
 def chan_dft_ramp(g: torch.Tensor, const: torch.Tensor, block0: int = 0,
                   delay: int = 0) -> torch.Tensor:
     """(n_pol, nb, block) complex64 fold rows -> (n_pol, nb, block):
@@ -50,14 +48,10 @@ def chan_dft_ramp(g: torch.Tensor, const: torch.Tensor, block0: int = 0,
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel,
     which takes block in 512, 1024, 2048, 3072 and 4096 and raises
     ValueError for any other."""
-    if g.device.type == "cpu":
-        return chan_dft_core(g, const, block0, delay)
     if g.ndim != 3:
         raise ValueError(f"g must be (n_pol, nb, block), got {tuple(g.shape)}")
     n_pol, nb, block = g.shape
     r, logq = kernel_split(block)
-    if g.device.type != "cuda":
-        raise ValueError(f"chan_dft_ramp runs on cuda or cpu, not {g.device}")
     dev = g.device
     g = require(g, "g", torch.complex64, dev)
     const = require(const, "const", torch.complex64, dev)
@@ -69,15 +63,7 @@ def chan_dft_ramp(g: torch.Tensor, const: torch.Tensor, block0: int = 0,
     out = torch.empty_like(g)
     tw_pass = device_pass_twiddles(1 << logq, -1, dev)
     tw_n = twiddles(block, -1, dev) if r > 1 else tw_pass
-    with torch.cuda.device(dev):
-        status = _build.library().chan_dft_launch(
-            g.data_ptr(), out.data_ptr(), tw_pass.data_ptr(), tw_n.data_ptr(),
-            const.data_ptr(), n_pol, nb, block, r, logq, nu, block0 % nu, delay % nb,
-            stream_of(g),
-        )
-    _build.check(status, "chan_dft_ramp")
-    chan_dft_ramp.launches += 1
+    launch(chan_dft_ramp, "chan_dft_launch", g,
+           g.data_ptr(), out.data_ptr(), tw_pass.data_ptr(), tw_n.data_ptr(),
+           const.data_ptr(), n_pol, nb, block, r, logq, nu, block0 % nu, delay % nb)
     return out
-
-
-chan_dft_ramp.launches = 0

@@ -22,9 +22,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from ska_pst_dsp_tpu_torch.utils.profiling import spanned
-
-from . import _build, require, stream_of
+from . import kernel, launch, require
 
 #: word type of each NBIT
 WORDS: Dict[int, torch.dtype] = {8: torch.int8, 16: torch.int16, 32: torch.float32,
@@ -77,9 +75,7 @@ def _raw(raw: torch.Tensor, nbit: int, n_pairs: int, name: str) -> torch.Tensor:
     return raw
 
 
-def _on_card(t: torch.Tensor, name: str, nbit: int) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
+def _aligned(t: torch.Tensor, name: str, nbit: int) -> None:
     if t.data_ptr() % pair_bytes(nbit):
         raise ValueError(f"{name}: raw bytes at {t.data_ptr():#x} are not aligned to a "
                          f"{pair_bytes(nbit)}-byte word pair")
@@ -112,7 +108,7 @@ def dada_pack_core(x: torch.Tensor, nbit: int, scale: float = 1.0) -> torch.Tens
 
 # --- the kernels ---------------------------------------------------------------
 
-@spanned("kernel.dada_unpack")
+@kernel("dada_unpack")
 def dada_unpack(raw: torch.Tensor, nbit: int, n_pol: int, n_chan: int,
                 count: int) -> torch.Tensor:
     """The TFP words of ``count`` file samples (1-D uint8, ``count * n_pol
@@ -124,23 +120,17 @@ def dada_unpack(raw: torch.Tensor, nbit: int, n_pol: int, n_chan: int,
     raw = _raw(raw, nbit, count * n_pol * n_chan, "raw")
     if raw.device.type == "cpu":
         return dada_unpack_core(raw, nbit, n_pol, n_chan, count)
-    _on_card(raw, "dada_unpack", nbit)
+    _aligned(raw, "dada_unpack", nbit)
     out = torch.empty((n_pol, n_chan, count), dtype=torch.complex64, device=raw.device)
     if count == 0 or n_pol * n_chan == 0:
         return out
-    with torch.cuda.device(raw.device):
-        status = _build.library().dada_unpack_launch(
-            raw.data_ptr(), out.data_ptr(), nbit, n_pol, n_chan, count,
-            tile_columns(n_pol * n_chan), stream_of(raw))
-    _build.check(status, "dada_unpack")
-    dada_unpack.launches += 1
+    launch(dada_unpack, "dada_unpack_launch", raw,
+           raw.data_ptr(), out.data_ptr(), nbit, n_pol, n_chan, count,
+           tile_columns(n_pol * n_chan))
     return out
 
 
-dada_unpack.launches = 0
-
-
-@spanned("kernel.lowcbf_unpack")
+@kernel("lowcbf_unpack")
 def lowcbf_unpack(raw: torch.Tensor, nbit: int, n_pol: int, n_chan: int,
                   n_heaps: int) -> torch.Tensor:
     """``n_heaps`` LowCBF heaps (1-D uint8; each heap ``n_chan * n_pol``
@@ -152,25 +142,18 @@ def lowcbf_unpack(raw: torch.Tensor, nbit: int, n_pol: int, n_chan: int,
     raw = _raw(raw, nbit, n_heaps * HEAP * n_pol * n_chan, "raw")
     if raw.device.type == "cpu":
         return lowcbf_unpack_core(raw, nbit, n_pol, n_chan, n_heaps)
-    _on_card(raw, "lowcbf_unpack", nbit)
+    _aligned(raw, "lowcbf_unpack", nbit)
     out = torch.empty((n_pol, n_chan, n_heaps * HEAP), dtype=torch.complex64,
                       device=raw.device)
     if out.numel() == 0:
         return out
     blocks = min(-(-out.numel() // 256), LOWCBF_BLOCKS)
-    with torch.cuda.device(raw.device):
-        status = _build.library().lowcbf_unpack_launch(
-            raw.data_ptr(), out.data_ptr(), nbit, n_pol, n_chan, n_heaps, blocks,
-            stream_of(raw))
-    _build.check(status, "lowcbf_unpack")
-    lowcbf_unpack.launches += 1
+    launch(lowcbf_unpack, "lowcbf_unpack_launch", raw,
+           raw.data_ptr(), out.data_ptr(), nbit, n_pol, n_chan, n_heaps, blocks)
     return out
 
 
-lowcbf_unpack.launches = 0
-
-
-@spanned("kernel.dada_pack")
+@kernel("dada_pack")
 def dada_pack(x: torch.Tensor, nbit: int, scale: float = 1.0) -> torch.Tensor:
     """complex64 (n_pol, n_chan, count) -> the TFP words of the file (1-D
     uint8): each component times ``scale`` (a float32 product), and for
@@ -180,22 +163,14 @@ def dada_pack(x: torch.Tensor, nbit: int, scale: float = 1.0) -> torch.Tensor:
     check_nbit("dada_pack", nbit)
     if x.ndim != 3:
         raise ValueError(f"x must be (n_pol, n_chan, count), got {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return dada_pack_core(require(x, "x", torch.complex64, x.device), nbit, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"dada_pack runs on cuda or cpu, not {x.device}")
     x = require(x, "x", torch.complex64, x.device)
+    if x.device.type == "cpu":
+        return dada_pack_core(x, nbit, scale)
     n_pol, n_chan, count = x.shape
     raw = torch.empty(x.numel() * pair_bytes(nbit), dtype=torch.uint8, device=x.device)
     if x.numel() == 0:
         return raw
-    with torch.cuda.device(x.device):
-        status = _build.library().dada_pack_launch(
-            x.data_ptr(), raw.data_ptr(), nbit, n_pol, n_chan, count,
-            tile_columns(n_pol * n_chan), scale, stream_of(x))
-    _build.check(status, "dada_pack")
-    dada_pack.launches += 1
+    launch(dada_pack, "dada_pack_launch", x,
+           x.data_ptr(), raw.data_ptr(), nbit, n_pol, n_chan, count,
+           tile_columns(n_pol * n_chan), scale)
     return raw
-
-
-dada_pack.launches = 0

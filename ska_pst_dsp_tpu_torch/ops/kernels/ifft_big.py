@@ -30,11 +30,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ska_pst_dsp_tpu_torch.utils.profiling import spanned
-
 from .. import cfft
 from ..synthesis import big_ifft_inner, big_ifft_outer, epilogue
-from . import _build, phase_table, require, stream_of, twiddle_table
+from . import kernel, launch, on_card, phase_table, require, twiddle_table
 
 #: largest outer transform of the split (the JAX package's cfft.BASE)
 _BASE = 512
@@ -86,21 +84,6 @@ def takes(n2: int, n1: int) -> bool:
     an inner kernel for n2 and an outer one for n1."""
     return (n2 > 0 and n1 > 0 and _split(n2) in INNER_SPLITS
             and _split(n1) in OUTER_SPLITS)
-
-
-def pair_split(n: int, lo: int) -> Optional[Tuple[int, int]]:
-    """(n2, n1) split of an n-point epilogue that the pair has kernels for:
-    :func:`plan_big_ifft`'s own where the pair takes it, else the first
-    n1 in 512, 384, 256, 128 whose n2 = n / n1 it takes with the overlap lo
-    and the keep region whole n2 rows (589824 = 1152 * 512 points, the
-    critical inversion of 3072 channels, becomes 1536 * 384: an 1152-point
-    inner transform is 9 * 128, no split of the inner kernel); None where
-    neither applies. Any split gives the same transform."""
-    big = plan_big_ifft(n, lo)
-    splits = [] if big is None else [(big[0] * big[1], big[2])]
-    splits += [(n // n1, n1) for n1 in (512, 384, 256, 128) if n % n1 == 0]
-    return next(((n2, n1) for n2, n1 in splits if takes(n2, n1) and (n - 2 * lo) > 0
-                 and lo % n2 == 0 and (n - 2 * lo) % n2 == 0), None)
 
 
 def kernel_split(n: int, splits=INNER_SPLITS) -> Tuple[int, int]:
@@ -157,47 +140,32 @@ def _keep_rows(n: int, n2: int, lo: int) -> Tuple[int, int]:
     return lo // n2, (n - 2 * lo) // n2
 
 
-@spanned("kernel.ifft_big_inner")
+@kernel("ifft_big_inner", plain=big_ifft_inner)
 def ifft_big_inner(x: torch.Tensor, elem: Optional[torch.Tensor], n2: int,
                    n1: int) -> torch.Tensor:
     """(n_pol, B, n2*n1) complex64, bins contiguous -> A (n_pol, B, n2, n1):
     the n2-point backward DFT of each column i1 of X*elem. A CPU tensor
     runs the plain version; a CUDA tensor launches the kernel once over the
     batch."""
-    if x.device.type == "cpu":
-        return big_ifft_inner(x, elem, n2, n1)
-    if x.device.type != "cuda":
-        raise ValueError(f"ifft_big_inner runs on cuda or cpu, not {x.device}")
     n = n2 * n1
     x, elem = _check_x(x, elem, n)
     r2, logq2 = kernel_split(n2)
     n_pol, n_b, _ = x.shape
     a = torch.empty((n_pol, n_b, n2, n1), dtype=torch.complex64, device=x.device)
     tab = _device_tables(n, n2, n1, 0, x.device)
-    with torch.cuda.device(x.device):
-        status = _build.library().ifft_big_inner_launch(
-            x.data_ptr(), None if elem is None else elem.data_ptr(), a.data_ptr(),
-            tab["tw_n2"].data_ptr(), x.stride(0), x.stride(1), n_pol, n_b, n2, r2,
-            logq2, n1, stream_of(x),
-        )
-    _build.check(status, "ifft_big_inner")
-    ifft_big_inner.launches += 1
+    launch(ifft_big_inner, "ifft_big_inner_launch", x,
+           x.data_ptr(), None if elem is None else elem.data_ptr(), a.data_ptr(),
+           tab["tw_n2"].data_ptr(), x.stride(0), x.stride(1), n_pol, n_b, n2, r2,
+           logq2, n1)
     return a
 
 
-ifft_big_inner.launches = 0
-
-
-@spanned("kernel.ifft_big_outer")
+@kernel("ifft_big_outer", plain=big_ifft_outer)
 def ifft_big_outer(a: torch.Tensor, lo: int, roll: int, gain: float) -> torch.Tensor:
     """A (n_pol, B, n2, n1) -> (n_pol, B, N - 2*lo): N-level twiddle, the
     n1-point backward DFT over the kept outputs t = k2 + n2*k1 in
     [lo, N - lo), the roll phase and gain/N. A CPU tensor runs the plain
     version; a CUDA tensor launches the kernel once over the batch."""
-    if a.device.type == "cpu":
-        return big_ifft_outer(a, lo, roll, gain)
-    if a.device.type != "cuda":
-        raise ValueError(f"ifft_big_outer runs on cuda or cpu, not {a.device}")
     a = require(a, "a", torch.complex64, a.device)
     if a.ndim != 4:
         raise ValueError(f"a must be (n_pol, B, n2, n1), got {tuple(a.shape)}")
@@ -207,18 +175,11 @@ def ifft_big_outer(a: torch.Tensor, lo: int, roll: int, gain: float) -> torch.Te
     r1, logq1 = kernel_split(n1, OUTER_SPLITS)
     out = torch.empty((n_pol, n_b, n - 2 * lo), dtype=torch.complex64, device=a.device)
     tab = _device_tables(n, n2, n1, roll % n, a.device)
-    with torch.cuda.device(a.device):
-        status = _build.library().ifft_big_outer_launch(
-            a.data_ptr(), out.data_ptr(), *(tab[k].data_ptr() for k in (
-                "tw_n1", "row_hi", "row_lo", "roll_row", "roll_col")),
-            n_pol * n_b, n2, n1, r1, logq1, k1_lo, n1_keep, gain / n, stream_of(a),
-        )
-    _build.check(status, "ifft_big_outer")
-    ifft_big_outer.launches += 1
+    launch(ifft_big_outer, "ifft_big_outer_launch", a,
+           a.data_ptr(), out.data_ptr(), *(tab[k].data_ptr() for k in (
+               "tw_n1", "row_hi", "row_lo", "roll_row", "roll_col")),
+           n_pol * n_b, n2, n1, r1, logq1, k1_lo, n1_keep, gain / n)
     return out
-
-
-ifft_big_outer.launches = 0
 
 
 def fused_big_ifft_oc(flat, elem=None, *, shape_key):
@@ -226,10 +187,12 @@ def fused_big_ifft_oc(flat, elem=None, *, shape_key):
 
     flat: (n_pol, B, N) assembled spectra, complex or an (re, im) pair
     (same kind out); elem: optional (N,) factor, pre-rolled by +roll;
-    shape_key: (n, p, q, n1, lo, roll, gain) from :func:`plan_big_ifft`.
-    Returns (n_pol, B, N - 2*lo). A CPU tensor runs the plain epilogue; a
-    CUDA tensor launches :func:`ifft_big_inner` then :func:`ifft_big_outer`
-    once each over the batch."""
+    shape_key: (n, p, q, n1, lo, roll, gain), the JAX package's key with
+    :func:`plan_big_ifft`'s split, n = p*q*n1 (the inversion passes p = 1,
+    q = n2 of :func:`.synthesis_fused.epilogue_plan`'s split). Returns
+    (n_pol, B, N - 2*lo). A CPU tensor runs the plain epilogue; a CUDA
+    tensor launches :func:`ifft_big_inner` then :func:`ifft_big_outer` once
+    each over the batch."""
     n, p, q, n1, lo, roll, gain = shape_key
     x, pair = cfft.as_complex(flat)
     e = None if elem is None else cfft.as_complex(elem)[0]
@@ -237,8 +200,7 @@ def fused_big_ifft_oc(flat, elem=None, *, shape_key):
         raise ValueError(f"flat must be (n_pol, B, {n}) with n = p*q*n1")
     if x.device.type == "cpu":
         return cfft.same_kind(epilogue(x, e, lo, roll, gain, x.shape[1]), pair)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_big_ifft_oc runs on cuda or cpu, not {x.device}")
+    on_card("fused_big_ifft_oc", x.device)
     kernel_split(n1, OUTER_SPLITS)  # raise before the first launch
     _keep_rows(n, p * q, lo)
     a = ifft_big_inner(x, e, p * q, n1)

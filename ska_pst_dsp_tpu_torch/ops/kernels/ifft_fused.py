@@ -18,18 +18,15 @@ from :func:`cluster_tables`.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ska_pst_dsp_tpu_torch.utils.profiling import spanned
-
 from .. import cfft
 from ..synthesis import epilogue
-from . import _build, pass_twiddles, phase_table, require, stream_of, twiddle_table
+from . import cluster_twiddles, kernel, launch, pass_twiddles, phase_table, query, require
 
 #: the column transform length n2 the kernel takes (csrc/ifft_fused.cu kN2)
 N2 = 128
@@ -71,17 +68,13 @@ def takes(n2: int, n1: int) -> bool:
 def cluster_tables(n: int, n1: int, roll: int) -> Dict[str, np.ndarray]:
     """The kernel's host tables, complex64, each built in float64 from exact
     integers: ``tw_pass`` (the per-pass table of the 128-point backward
-    transform), ``tw_n1`` (w_n1^m); ``tw_a``, ``tw_b`` ((8, n1)
-    w_N^(16*a*m1) and (16, n1) w_N^(b*m1): the N-level twiddle of
-    k2 = 16*a + b is their product); ``roll_row``, ``roll_col``
-    (w_N^(-roll*k2), w_N^(-roll*128*k1): the roll phase w_N^(-roll*t) of
-    t = k2 + 128*k1 is their product)."""
-    m1 = np.arange(n1, dtype=np.int64)[None, :]
+    transform), :func:`..cluster_twiddles`' ``tw_n1``, ``tw_a`` and ``tw_b``
+    at S = :data:`TW_SPLIT` ((8, n1) and (16, n1)); ``roll_row``,
+    ``roll_col`` (w_N^(-roll*k2), w_N^(-roll*128*k1): the roll phase
+    w_N^(-roll*t) of t = k2 + 128*k1 is their product)."""
     return {
         "tw_pass": pass_twiddles(N2, 1),
-        "tw_n1": twiddle_table(n1, 1),
-        "tw_a": phase_table(TW_SPLIT * np.arange(N2 // TW_SPLIT)[:, None] * m1, n, 1),
-        "tw_b": phase_table(np.arange(TW_SPLIT)[:, None] * m1, n, 1),
+        **cluster_twiddles(n, N2, n1, TW_SPLIT),
         "roll_row": phase_table(roll * np.arange(N2), n, -1),
         "roll_col": phase_table(roll * N2 * np.arange(n1), n, -1),
     }
@@ -97,13 +90,10 @@ def _device_tables(n: int, n1: int, roll: int,
 def active_clusters(n1: int = 384) -> int:
     """Clusters of the n1-point kernel resident on the current card at once
     (the persistent grid's size)."""
-    clusters = ctypes.c_int(0)
-    _build.check(_build.library().ifft_fused_clusters(n1, ctypes.byref(clusters)),
-                 "ifft_fused_clusters")
-    return clusters.value
+    return query("ifft_fused_clusters", torch.device("cuda"), n1)
 
 
-@spanned("kernel.ifft_fused")
+@kernel("ifft_fused")
 def fused_big_ifft(flat, elem=None, *, shape_key, n_valid: Optional[int] = None):
     """Fused IFFT(roll(X * elem, -roll)) * gain, keeping [lo, N-lo).
 
@@ -124,8 +114,6 @@ def fused_big_ifft(flat, elem=None, *, shape_key, n_valid: Optional[int] = None)
     if not takes(n2, n1):
         raise ValueError(f"the cluster epilogue takes n2 = {N2} and n1 in {N1S}, "
                          f"got ({n2}, {n1})")
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_big_ifft runs on cuda or cpu, not {x.device}")
     dev = x.device
     if x.dtype != torch.complex64:
         raise TypeError(f"flat must be complex64, got {x.dtype}")
@@ -145,17 +133,10 @@ def fused_big_ifft(flat, elem=None, *, shape_key, n_valid: Optional[int] = None)
     n_pol = x.shape[0]
     out = torch.empty((n_pol, n_valid, n - 2 * lo), dtype=torch.complex64, device=dev)
     tab = _device_tables(n, n1, roll % n, dev)
-    with torch.cuda.device(dev):
-        status = _build.library().ifft_fused_launch(
-            x.data_ptr(), None if e is None else e.data_ptr(), out.data_ptr(),
-            *(tab[k].data_ptr() for k in ("tw_pass", "tw_n1", "tw_a", "tw_b",
-                                           "roll_row", "roll_col")),
-            x.stride(0), x.stride(1), n_pol, n_valid, n2, n1, lo // n2,
-            (n - 2 * lo) // n2, gain / n, stream_of(x),
-        )
-    _build.check(status, "fused_big_ifft")
-    fused_big_ifft.launches += 1
+    launch(fused_big_ifft, "ifft_fused_launch", x,
+           x.data_ptr(), None if e is None else e.data_ptr(), out.data_ptr(),
+           *(tab[k].data_ptr() for k in ("tw_pass", "tw_n1", "tw_a", "tw_b",
+                                          "roll_row", "roll_col")),
+           x.stride(0), x.stride(1), n_pol, n_valid, n2, n1, lo // n2,
+           (n - 2 * lo) // n2, gain / n)
     return cfft.same_kind(out, pair)
-
-
-fused_big_ifft.launches = 0

@@ -16,17 +16,14 @@ Every other geometry keeps the frontend kernel and its epilogue
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ska_pst_dsp_tpu_torch.utils.profiling import spanned
-
 from ..synthesis import epilogue, frontend
-from . import _build, pass_twiddles, phase_table, require, stream_of, twiddle_table, twiddles
+from . import cluster_twiddles, kernel, launch, pass_twiddles, query, require, twiddles
 
 #: (frame length L, channels, points N of an assembled block, output
 #: overlap) -> the (n2, n1) split of the block: the geometries the kernel is
@@ -67,19 +64,14 @@ def kernel_tables(n: int, n2: int, n1: int) -> Dict[str, np.ndarray]:
     """The kernel's host tables of the split n = n2 * n1, complex64, each
     built in float64 from exact integers, all backward: ``tw_col`` (the
     column transform's per-pass table: 128 points on radix-8 passes, 216 on
-    radix-6 passes), ``tw_n1`` (w_n1^m), ``tw_a``, ``tw_b`` ((n2 / S, n1)
-    w_N^(S*a*m1) and (S, n1) w_N^(b*m1), S = :data:`TW_SPLIT`: the N-level
-    twiddle of k2 = S*a + b is their product) and ``tw_row`` (the 128-point
-    per-pass table, whose first pass the row transform's radix-8 step
-    reads). At SKA-Low they are :func:`.ifft_fused.cluster_tables`'
-    ``tw_pass``, ``tw_n1``, ``tw_a``, ``tw_b``."""
-    s = TW_SPLIT[n2]
-    m1 = np.arange(n1, dtype=np.int64)[None, :]
+    radix-6 passes), :func:`..cluster_twiddles`' ``tw_n1``, ``tw_a`` and
+    ``tw_b`` at S = :data:`TW_SPLIT` and ``tw_row`` (the 128-point per-pass
+    table, whose first pass the row transform's radix-8 step reads). At
+    SKA-Low they are :func:`.ifft_fused.cluster_tables`' ``tw_pass``,
+    ``tw_n1``, ``tw_a``, ``tw_b``."""
     return {
         "tw_col": pass_twiddles(n2, 1) if n2 == 128 else radix6_pass_twiddles(n2, 1),
-        "tw_n1": twiddle_table(n1, 1),
-        "tw_a": phase_table(s * np.arange(n2 // s)[:, None] * m1, n, 1),
-        "tw_b": phase_table(np.arange(s)[:, None] * m1, n, 1),
+        **cluster_twiddles(n, n2, n1, TW_SPLIT[n2]),
         "tw_row": pass_twiddles(128, 1),
     }
 
@@ -92,13 +84,10 @@ def _device_tables(n: int, n2: int, n1: int, device: torch.device) -> Dict[str, 
 def active_clusters(n_chan: int = 256) -> int:
     """Clusters of eight blocks of the n_chan-channel kernel resident on
     the current card at once (the persistent grid's size)."""
-    clusters = ctypes.c_int(0)
-    _build.check(_build.library().inversion_fused_clusters(n_chan, ctypes.byref(clusters)),
-                 "inversion_fused_clusters")
-    return clusters.value
+    return query("inversion_fused_clusters", torch.device("cuda"), n_chan)
 
 
-@spanned("kernel.inversion_fused")
+@kernel("inversion_fused")
 def inversion_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
                     perm: torch.Tensor, elem: Optional[torch.Tensor], keep: int,
                     kpos: int, n_blocks: int, lo: int, roll: int,
@@ -121,8 +110,6 @@ def inversion_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
             f"inversion_fused takes (L, channels, points, overlap) in {sorted(GEOMETRIES)}; "
             f"got {(L, n_chan, n, lo)}"
         )
-    if x_tc.device.type != "cuda":
-        raise ValueError(f"inversion_fused runs on cuda or cpu, not {x_tc.device}")
     dev = x_tc.device
     if x_tc.dtype != torch.complex64:
         raise TypeError("x must be a (n_pol, n_dat, n_chan) complex64 tensor")
@@ -144,17 +131,10 @@ def inversion_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     out = torch.empty((n_pol, n_blocks, n - 2 * lo), dtype=torch.complex64, device=dev)
     tab = _device_tables(n, n2, n1, dev)
     sp, st, sc = x_tc.stride()
-    with torch.cuda.device(dev):
-        status = _build.library().inversion_fused_launch(
-            x_tc.data_ptr(), None if elem is None else elem.data_ptr(), out.data_ptr(),
-            t_taper.data_ptr(), dr.data_ptr(), perm.data_ptr(), twiddles(L, -1, dev).data_ptr(),
-            *(tab[k].data_ptr() for k in ("tw_col", "tw_n1", "tw_a", "tw_b", "tw_row")),
-            sp, st, sc, n_pol, n_chan, n_blocks, L, keep, kpos % L, roll % n, fnw,
-            lo // n2, (n - 2 * lo) // n2, gain / n, stream_of(x_tc),
-        )
-    _build.check(status, "inversion_fused")
-    inversion_fused.launches += 1
+    launch(inversion_fused, "inversion_fused_launch", x_tc,
+           x_tc.data_ptr(), None if elem is None else elem.data_ptr(), out.data_ptr(),
+           t_taper.data_ptr(), dr.data_ptr(), perm.data_ptr(), twiddles(L, -1, dev).data_ptr(),
+           *(tab[k].data_ptr() for k in ("tw_col", "tw_n1", "tw_a", "tw_b", "tw_row")),
+           sp, st, sc, n_pol, n_chan, n_blocks, L, keep, kpos % L, roll % n, fnw,
+           lo // n2, (n - 2 * lo) // n2, gain / n)
     return out
-
-
-inversion_fused.launches = 0

@@ -13,22 +13,24 @@ At SKA-Low's geometry and a LowCBF PST slab's (216 kept channels)
 :mod:`.inversion_fused`, which fuses the two so that the assembled spectra
 stay in a thread-block cluster's shared memory; the choice is
 :func:`.inversion_fused.takes`, made before anything is launched.
-Elsewhere the epilogue follows the JAX package's dispatch
-(synthesis_fused.py:419-427):
-the fused epilogue (:mod:`.ifft_fused`) where :func:`.ifft_fused.plan_ifft`
-applies (low); else the out-of-core pair (:mod:`.ifft_big`) where
+Elsewhere the frontend kernel runs, then the epilogue on the route
+:func:`epilogue_plan` chooses once per length, after the JAX package's
+dispatch (synthesis_fused.py:419-427): the fused epilogue
+(:mod:`.ifft_fused`) where :func:`.ifft_fused.plan_ifft` applies (low);
+else the out-of-core pair (:mod:`.ifft_big`) where
 :func:`.ifft_big.plan_big_ifft` applies (mid's 1.8M-point IFFT); otherwise,
 as there, the composed epilogue. On the card a :func:`plan_ifft` split the
 cluster kernel is not instantiated for goes to the out-of-core pair where
 that has kernels for it (512 channels at 4/3: 98304 = 256 * 384 points do
-not fit in a cluster's shared memory), else to the pair on
-:func:`.ifft_big.pair_split`'s split of the same length (256 channels at
-8/7 with L 512: 114688 points, (256, 448) in the plan, 896 * 128 on the
-pair), and raises ValueError where neither has one.
+not fit in a cluster's shared memory), else to the pair on a split of the
+same length it has kernels for (256 channels at 8/7 with L 512: 114688
+points, (256, 448) in the plan, 896 * 128 on the pair), and raises
+ValueError where neither has one.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -40,9 +42,7 @@ from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from .. import cfft
 from ..synthesis import epilogue, frontend, synthesis_constants
-from . import (
-    _build, device_pass_twiddles, ifft_big, ifft_fused, inversion_fused, require, stream_of,
-)
+from . import device_pass_twiddles, ifft_big, ifft_fused, inversion_fused, kernel, launch, require
 from .ifft_big import fused_big_ifft_oc, plan_big_ifft
 from .ifft_fused import fused_big_ifft, plan_ifft
 
@@ -56,7 +56,7 @@ def takes(L: int) -> bool:
     return L in LENGTHS
 
 
-@spanned("kernel.synthesis_fused")
+@kernel("synthesis_fused", plain=frontend)
 def synthesis_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
                     perm: torch.Tensor, L: int, keep: int, kpos: int,
                     n_blocks: int) -> torch.Tensor:
@@ -65,14 +65,10 @@ def synthesis_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     (int32); kept bin j is raw DFT bin (kpos + j) mod L times dr[j]. A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel, which
     takes L in 128, 256 and 512 and raises ValueError for any other."""
-    if x_tc.device.type == "cpu":
-        return frontend(x_tc, t_taper, dr, perm, L, keep, kpos, n_blocks)
     if not takes(L):
         raise ValueError(
             f"synthesis_fused takes L in {sorted(LENGTHS)} on the card, got {L}"
         )
-    if x_tc.device.type != "cuda":
-        raise ValueError(f"synthesis_fused runs on cuda or cpu, not {x_tc.device}")
     dev = x_tc.device
     if x_tc.dtype != torch.complex64 or x_tc.ndim != 3:
         raise TypeError("x must be a (n_pol, n_dat, n_chan) complex64 tensor")
@@ -92,46 +88,41 @@ def synthesis_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
                       device=dev)
     tab = device_pass_twiddles(L, -1, dev)
     sp, st, sc = x_tc.stride()
-    with torch.cuda.device(dev):
-        status = _build.library().synthesis_fused_launch(
-            x_tc.data_ptr(), out.data_ptr(), t_taper.data_ptr(), dr.data_ptr(),
-            perm.data_ptr(), tab.data_ptr(), sp, st, sc, n_pol, n_chan,
-            n_blocks, L, LENGTHS[L], keep, kpos % L, fnw, stream_of(x_tc),
-        )
-    _build.check(status, "synthesis_fused")
-    synthesis_fused.launches += 1
+    launch(synthesis_fused, "synthesis_fused_launch", x_tc,
+           x_tc.data_ptr(), out.data_ptr(), t_taper.data_ptr(), dr.data_ptr(),
+           perm.data_ptr(), tab.data_ptr(), sp, st, sc, n_pol, n_chan,
+           n_blocks, L, LENGTHS[L], keep, kpos % L, fnw)
     return out
 
 
-synthesis_fused.launches = 0
-
-
-@spanned("dispatch")
-def epilogue_route(n: int, lo: int, roll: int, gain: float
-                   ) -> Tuple[str, Optional[tuple]]:
-    """The epilogue of an n-point inversion block with overlap lo:
-    ("cluster", :func:`.ifft_fused.fused_big_ifft`'s shape_key) for
-    :func:`.ifft_fused.plan_ifft`'s split where the cluster kernel takes it
-    (or where no kernel takes it: the cluster wrapper then raises on the
-    card); ("pair", :func:`.ifft_big.fused_big_ifft_oc`'s shape_key) for the
-    plan's split where only the out-of-core pair has kernels for it, for
-    :func:`.ifft_big.pair_split`'s split where neither has kernels for the
-    plan's, and where :func:`.ifft_big.plan_big_ifft` applies (on
-    :func:`.ifft_big.pair_split`'s split); ("composed", None) where no plan
-    applies. A pure function of its integers; its call is the ``dispatch``
-    span."""
-    plan = plan_ifft(n, lo)
-    if plan is not None:
-        split = None if ifft_fused.takes(*plan) else (
-            plan if ifft_big.takes(*plan) else ifft_big.pair_split(n, lo))
-        if split is None:
-            return "cluster", (n, *plan, lo, roll, gain)
-        return "pair", (n, 1, *split, lo, roll, gain)
-    if (big := plan_big_ifft(n, lo)) is not None:
-        split = ifft_big.pair_split(n, lo)
-        key = (n, *big) if split in (None, (big[0] * big[1], big[2])) else (n, 1, *split)
-        return "pair", (*key, lo, roll, gain)
-    return "composed", None
+@functools.lru_cache(maxsize=None)
+def epilogue_plan(n: int, lo: int) -> Tuple[str, Optional[int], Optional[int]]:
+    """(route, n2, n1): the epilogue of an n-point inversion block with
+    overlap lo and its split n = n2 * n1, decided once per (n, lo).
+    ("cluster", :func:`.ifft_fused.plan_ifft`'s split) where the cluster
+    kernel takes it; ("composed", None, None) where neither that plan nor
+    :func:`.ifft_big.plan_big_ifft` applies; else ("pair", split) on the
+    first split the out-of-core pair has kernels for, with the overlap and
+    the keep region whole n2 rows: the plan_ifft split, plan_big_ifft's
+    p*q by n1, then n1 in 512, 384, 256, 128 (589824 = 1152 * 512 points,
+    the critical inversion of 3072 channels, becomes 1536 * 384: an
+    1152-point inner transform is 9 * 128, no split of the inner kernel).
+    Where the pair has none, the plan_ifft split on the cluster kernel,
+    else plan_big_ifft's on the pair: the wrapper then raises on the card.
+    Any split gives the same transform."""
+    plan, big = plan_ifft(n, lo), plan_big_ifft(n, lo)
+    if plan is not None and ifft_fused.takes(*plan):
+        return ("cluster", *plan)
+    if plan is None and big is None:
+        return "composed", None, None
+    big_split = None if big is None else (big[0] * big[1], big[2])
+    splits = [s for s in (plan, big_split) if s is not None]
+    splits += [(n // n1, n1) for n1 in (512, 384, 256, 128) if n % n1 == 0]
+    pair = next(((n2, n1) for n2, n1 in splits if ifft_big.takes(n2, n1)
+                 and lo % n2 == 0 and (n - 2 * lo) % n2 == 0), None)
+    if pair is not None:
+        return ("pair", *pair)
+    return ("cluster", *plan) if plan is not None else ("pair", *big_split)
 
 
 def epilogue_dispatch(flat: torch.Tensor, elem: Optional[torch.Tensor],
@@ -139,20 +130,22 @@ def epilogue_dispatch(flat: torch.Tensor, elem: Optional[torch.Tensor],
                       n_valid: int) -> torch.Tensor:
     """The inversion's epilogue on assembled spectra: (n_pol, B >= n_valid,
     N) -> (n_pol, n_valid, N - 2 * output_overlap), on the route
-    :func:`epilogue_route` chooses (the ``dispatch`` span), then called
-    after that span has ended; where no plan
-    applies, the composed epilogue, as in the JAX package (the
-    ``composed_epilogue`` span), counted in
-    ``fused_inversion.composed_epilogues``. On the card a split no kernel
-    takes raises ValueError."""
+    :func:`epilogue_plan` gives (its lookup is the ``dispatch`` span), then
+    called after that span has ended; where no plan applies, the composed
+    epilogue, as in the JAX package (the ``composed_epilogue`` span),
+    counted in ``fused_inversion.composed_epilogues``. On the card a split
+    no kernel takes raises ValueError."""
     n = geom.output_fft_length
     lo = geom.output_overlap
     roll, gain = _roll_gain(geom, spans_nyquist)
-    route, key = epilogue_route(n, lo, roll, gain)
+    with span("dispatch"):
+        route, n2, n1 = epilogue_plan(n, lo)
     if route == "cluster":
-        return fused_big_ifft(flat, elem, shape_key=key, n_valid=n_valid)
+        return fused_big_ifft(flat, elem, shape_key=(n, n2, n1, lo, roll, gain),
+                              n_valid=n_valid)
     if route == "pair":
-        return fused_big_ifft_oc(flat[:, :n_valid], elem, shape_key=key)
+        return fused_big_ifft_oc(flat[:, :n_valid], elem,
+                                 shape_key=(n, 1, n2, n1, lo, roll, gain))
     fused_inversion.composed_epilogues += 1
     with span("composed_epilogue"):
         return epilogue(flat, elem, lo, roll, gain, n_valid)

@@ -35,7 +35,7 @@ from ska_pst_dsp_tpu_torch.ops.analysis import (
     ramp_table,
 )
 from ska_pst_dsp_tpu_torch.ops.kernels import (
-    SMEM_LIMIT, pass_twiddles, radix, reg_plan, twiddle_table,
+    SMEM_LIMIT, pass_twiddles, radix, reg_plan, twiddle_table, wrappers,
 )
 from ska_pst_dsp_tpu_torch.ops.kernels import chan_dft_fused as cdf
 from ska_pst_dsp_tpu_torch.ops.kernels import synthesis_fused as tsf
@@ -1192,6 +1192,56 @@ ptxas info    : Used 128 registers, used 1 barriers, 168 bytes cumulative stack 
                     "registers": 128, "spill_stores": 168, "spill_loads": 168}},
         }
 
+    @pytest.mark.parametrize("case", ["fails", "succeeds", "meta"])
+    def test_launch(self, case, monkeypatch):
+        # the one launch path, on a fake library: a non-zero status raises
+        # naming the wrapper and counts nothing, a zero one counts one
+        # launch, and a tensor on neither the card nor the CPU raises the one
+        # device error before the library is asked
+        import contextlib
+        import types
+
+        from ska_pst_dsp_tpu_torch.ops import kernels
+
+        calls = []
+        status = 2 if case == "fails" else 0
+        lib = types.SimpleNamespace(fake_launch=lambda *a: calls.append(a) or status)
+        monkeypatch.setattr(kernels._build, "library", lambda: lib)
+        monkeypatch.setattr(kernels, "stream_of", lambda t: 99)
+        monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+
+        def fake():
+            pass
+
+        fake.launches = 5
+        card = types.SimpleNamespace(device=torch.device("cuda", 0))
+        if case == "meta":
+            with pytest.raises(ValueError, match="fake runs on cuda or cpu, not meta"):
+                kernels.launch(fake, "fake_launch", torch.empty(1, device="meta"), 1, 2)
+            assert calls == [] and fake.launches == 5
+        elif case == "fails":
+            with pytest.raises(RuntimeError, match="fake: CUDA launch failed, cudaError_t 2"):
+                kernels.launch(fake, "fake_launch", card, 1, 2)
+            assert calls == [(1, 2, 99)] and fake.launches == 5
+        else:
+            kernels.launch(fake, "fake_launch", card, 1, 2)
+            assert calls == [(1, 2, 99)] and fake.launches == 6
+
+    @pytest.mark.parametrize("key", [
+        "analysis_fused", "synthesis_fused", "ifft_fused", "analysis_padded_fused",
+        "chan_dft_fused", "ifft_big_inner", "ifft_big_outer", "dada_unpack",
+        "lowcbf_unpack", "dada_pack", "inversion_fused"])
+    def test_wrapper_registered(self, key):
+        # the eleven keys, each wrapper with its counter and its span (a call
+        # without operands raises inside the span)
+        ws = wrappers()
+        assert len(ws) == 11 and isinstance(ws[key].launches, int)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with pytest.raises(TypeError):
+                ws[key](torch.empty(0, device="meta"))
+        assert [e.name for e in prof.events() if e.name.startswith("pst:")] == [
+            f"pst:kernel.{key}"]
+
     def test_wrappers_refuse_lengths(self):
         # a length the kernels are not instantiated for raises before any
         # launch (meta tensors: no data, no card)
@@ -1203,6 +1253,9 @@ ptxas info    : Used 128 registers, used 1 barriers, 168 bytes cumulative stack 
         g = torch.empty((2, 5, 4096), dtype=torch.complex64, device=meta)
         with pytest.raises(ValueError, match="runs on cuda or cpu"):
             chan_dft_ramp(g, torch.empty((8, 4096), dtype=torch.complex64, device=meta))
+        flat = torch.empty((1, 2, 458_752), dtype=torch.complex64, device=meta)
+        with pytest.raises(ValueError, match="fused_big_ifft_oc runs on cuda or cpu, not meta"):
+            fused_big_ifft_oc(flat, shape_key=(458_752, 1, 896, 512, 114_688, 0, 1.0))
         x = torch.empty((2, 4000, 64), dtype=torch.complex64, device=meta)
         for n_l in (64, 384, 1024):
             with pytest.raises(ValueError, match="takes L in"):
@@ -1451,14 +1504,41 @@ class TestPlainVsPallas:
 #: geometries the JAX package's fused path computes beside the two main
 #: paths' (channels, OS, L, overlap, the split plan_ifft gives, and the
 #: epilogue kernel that split goes to on the card; the pair runs on
-#: big.pair_split's split of the same length: the plan's own where it has
-#: kernels for it, else 896 * 128 for the 114688 points of SKA-Mid's
+#: tsf.epilogue_plan's split of the same length: the plan's own where it
+#: has kernels for it, else 896 * 128 for the 114688 points of SKA-Mid's
 #: 256-channel groups, whose (256, 448) neither kernel takes)
 EXTRA = {
     "512ch-4/3": (512, Rational(4, 3), 256, 48, (256, 384), "pair"),
     "128ch-4/3": (128, Rational(4, 3), 256, 48, (128, 192), "cluster"),
     "256ch-8/7": (256, Rational(8, 7), 256, 32, (128, 448), "cluster"),
     "256ch-8/7-L512": (256, Rational(8, 7), 512, 128, (256, 448), "pair"),
+}
+
+
+#: (n, lo) of an inversion block and its epilogue's (route, n2, n1), frozen
+#: from the route the port chose before the choice was one cached plan:
+#: each configuration of config/test.config.json with an integral inversion
+#: (sps has none), EXTRA's, the cascades' slabs, SKA-Mid reduced to 1024
+#: channels, a plan_ifft split no kernel takes and an n1 = 128 split
+ROUTES = {
+    "low": ((49152, 9216), ("cluster", 128, 384)),
+    "low_alt": ((49152, 9216), ("cluster", 128, 384)),
+    "lowpsi": ((49152, 9216), ("cluster", 128, 384)),
+    "lowpsi_old": ((49152, 9216), ("cluster", 128, 384)),
+    "low_external": ((49152, 9216), ("cluster", 128, 384)),
+    "mid": ((1835008, 458752), ("pair", 3584, 512)),
+    "mid_external": ((917504, 114688), ("pair", 1792, 512)),
+    "test32": ((1536, 384), ("composed", None, None)),
+    "512ch-4/3": ((98304, 18432), ("pair", 256, 384)),
+    "128ch-4/3": ((24576, 4608), ("cluster", 128, 192)),
+    "256ch-8/7": ((57344, 7168), ("cluster", 128, 448)),
+    "256ch-8/7-L512": ((114688, 28672), ("pair", 896, 128)),
+    "216ch-slab": ((41472, 7776), ("composed", None, None)),
+    "192ch-critical": ((36864, 6912), ("composed", None, None)),
+    "3072ch-combine16": ((589824, 110592), ("pair", 1536, 384)),
+    "1024ch-8/7-L512": ((458752, 114688), ("pair", 896, 512)),
+    "256ch-4/3-L384": ((73728, 9216), ("cluster", 256, 288)),
+    "n1-128": ((16384, 512), ("cluster", 128, 128)),
 }
 
 
@@ -1506,12 +1586,31 @@ class TestDropIns:
         step = geometry.analysis_step(n_chan, os_f)
         assert af.takes(n_chan, step, 5, n_chan // math.gcd(step, n_chan)) and tsf.takes(n_l)
         assert plan_ifft(n, lo) == split and plan_big_ifft(n, lo) is None
-        assert itf.takes(*split) == (kernel == "cluster")
-        assert itf.takes(*split) or big.takes(*big.pair_split(n, lo))
+        route, n2, n1 = tsf.epilogue_plan(n, lo)
+        assert route == kernel and {"cluster": itf, "pair": big}[route].takes(n2, n1)
         if kernel == "pair":  # the raw cluster wrapper refuses it from the same predicate
             flat = torch.empty((1, 2, n), dtype=torch.complex64, device="meta")
             with pytest.raises(ValueError, match="cluster epilogue takes"):
                 fused_big_ifft(flat, shape_key=(n, *split, lo, 0, 1.0))
+
+    @pytest.mark.parametrize("name", list(ROUTES))
+    def test_epilogue_plan_frozen(self, name):
+        # the cached plan gives the frozen route and split; a configuration's
+        # row is its own geometry's
+        from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+        (n, lo), route = ROUTES[name]
+        if name in ("low", "low_alt", "lowpsi", "lowpsi_old", "low_external", "mid",
+                    "mid_external", "test32"):
+            cfg = load_config(name)
+            g = geometry.SynthesisGeometry(cfg.channels, cfg.input_fft_length,
+                                           cfg.input_overlap,
+                                           Rational(cfg.os_factor.nu, cfg.os_factor.de))
+            assert (g.output_fft_length, g.output_overlap) == (n, lo)
+        assert tsf.epilogue_plan(n, lo) == route
+        hits = tsf.epilogue_plan.cache_info().hits
+        assert tsf.epilogue_plan(n, lo) == route  # decided once: the second call is a hit
+        assert tsf.epilogue_plan.cache_info().hits == hits + 1
 
     @pytest.mark.parametrize("name", list(EXTRA))
     def test_extra_epilogue_dispatch(self, name, monkeypatch):
@@ -1532,7 +1631,8 @@ class TestDropIns:
         monkeypatch.setattr(tsf, "fused_big_ifft_oc", record("pair", fused_big_ifft_oc))
         x = _noise((1, n_chan, 2 * ov + g.input_keep), 55)
         got = polyphase_synthesis_fused(x, n_l, os_f, input_overlap=ov)
-        key = (n, *split) if kernel == "cluster" else (n, 1, *big.pair_split(n, lo))
+        n2, n1 = tsf.epilogue_plan(n, lo)[1:]
+        key = (n, *split) if kernel == "cluster" else (n, 1, n2, n1)
         assert calls == [(kernel, key)]
         ref = tsynth.polyphase_synthesis(torch.as_tensor(x), n_l, os_f, input_overlap=ov)
         assert torch.equal(got, ref)
@@ -1567,7 +1667,7 @@ class TestDropIns:
         n, lo = g.output_fft_length, g.output_overlap
         assert (n, lo) == (114688, 28672) and plan_ifft(n, lo) == (256, 448)
         assert not itf.takes(256, 448) and not big.takes(256, 448)
-        assert big.pair_split(n, lo) == (896, 128) and big.takes(896, 128)
+        assert tsf.epilogue_plan(n, lo) == ("pair", 896, 128) and big.takes(896, 128)
 
     def test_mid_group_elem_matches_jax(self, pallas):
         # the chirp as the spectral filter of a band-limited group inversion
@@ -1748,13 +1848,13 @@ class TestInversionFused:
 
         monkeypatch.setattr(inv, "inversion_fused", spy("fused", inv.inversion_fused))
         monkeypatch.setattr(tsf, "synthesis_fused", spy("frontend", synthesis_fused))
-        monkeypatch.setattr(tsf, "epilogue_route", spy("route", tsf.epilogue_route))
+        monkeypatch.setattr(tsf, "epilogue_plan", spy("plan", tsf.epilogue_plan))
         x = torch.as_tensor(_noise((2, 2 * ov + 2 * g.input_keep, n_chan), 72))
         composed = tsf.fused_inversion.composed_epilogues
         got = tsf.fused_inversion(x, *consts, None, g, spans_nyquist=True)
         taken = inv.takes(n_l, n_chan, g.output_fft_length, g.output_overlap)
         assert taken == (name in ("low", "216ch-monotonic"))
-        assert calls == (["fused"] if taken else ["frontend", "route"])
+        assert calls == (["fused"] if taken else ["frontend", "plan"])
         assert tsf.fused_inversion.composed_epilogues == composed
         ref = tsynth.inversion_core(x, *consts, None, g, spans_nyquist=True)
         assert torch.equal(got, ref)
@@ -2072,7 +2172,7 @@ class TestOnCard:
         n_chan, os_f, n_l, ov = EXTRA["256ch-8/7-L512"][:4]
         f = fir.design_pfb_fir_filter(n_chan, os_f, 4)
         g = geometry.SynthesisGeometry(n_chan, n_l, ov, os_f)
-        assert big.pair_split(g.output_fft_length, g.output_overlap) == (896, 128)
+        assert tsf.epilogue_plan(g.output_fft_length, g.output_overlap) == ("pair", 896, 128)
         h = (dedispersion.chirp_filter(n_chan * g.fn_width, 1.0, 1406.25, 2.5)
              if with_elem else None)
         x = torch.as_tensor(_noise((2, n_chan, 2 * ov + 6 * g.input_keep), 56), device=cuda)
@@ -2208,12 +2308,13 @@ class TestCascadesOnCard:
     def test_ifft_big_589824(self, cuda, with_elem):
         # the critical combine-16 inversion's 589824 points on 1536 x 384
         n, lo = 589_824, 110_592
-        n2, n1 = big.pair_split(n, lo)
+        route, n2, n1 = tsf.epilogue_plan(n, lo)
         X = torch.as_tensor(_noise((2, 2, n), 63), device=cuda)
         elem = torch.as_tensor(_noise((n,), 64), device=cuda) if with_elem else None
         got = fused_big_ifft_oc(X, elem, shape_key=(n, 1, n2, n1, lo, 0, 0.75))
         ref = tsynth.epilogue(X, elem, lo, 0, 0.75, 2)
-        assert (n2, n1) == (1536, 384) and _rel_err(got.cpu(), ref.cpu()) < BIG_IFFT_TOL
+        assert (route, n2, n1) == ("pair", 1536, 384)
+        assert _rel_err(got.cpu(), ref.cpu()) < BIG_IFFT_TOL
 
     @pytest.mark.parametrize("name,chunks", [("low", [100_001, 333_333, 250_000]),
                                              ("lowpsi", [50_001, 200_000]),

@@ -160,7 +160,8 @@ class TestReducedMidSlice:
         np.testing.assert_array_equal(model.reference(x).numpy(), port_out)
 
     def test_dispatch_takes_the_out_of_core_epilogue(self, model, stream, monkeypatch):
-        # the JAX order: small plan (none here), then the big plan
+        # the JAX order: small plan (none here), then the big plan, the pair
+        # called with its one key (n, 1, p*q, n1, ...)
         keys = []
         real = tsf.fused_big_ifft_oc
 
@@ -170,7 +171,7 @@ class TestReducedMidSlice:
 
         monkeypatch.setattr(tsf, "fused_big_ifft_oc", spy)
         model(torch.complex(*map(torch.as_tensor, stream)))
-        assert keys == [(458_752, 7, 128, 512, 114_688, 224, 7 / 8)]
+        assert keys == [(458_752, 1, 7 * 128, 512, 114_688, 224, 7 / 8)]
 
 
 class TestPaddedState:

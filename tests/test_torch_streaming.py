@@ -37,7 +37,8 @@ from ska_pst_dsp_tpu_torch.models import signals, streaming, testers, two_stage
 from ska_pst_dsp_tpu_torch.models.round_trip import PaddedPFBRoundTrip, PFBRoundTrip
 from ska_pst_dsp_tpu_torch.ops import synthesis as tsynth
 from ska_pst_dsp_tpu_torch.ops.analysis import polyphase_analysis, polyphase_analysis_padded
-from ska_pst_dsp_tpu_torch.ops.kernels import ifft_big, ifft_fused, inversion_fused
+from ska_pst_dsp_tpu_torch.ops.kernels import ifft_big, inversion_fused
+from ska_pst_dsp_tpu_torch.ops.kernels import synthesis_fused as tsf
 from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import fused_inversion
 from ska_pst_dsp_tpu_torch.ops.lowcbf import polyphase_analysis_lowcbf
 from ska_pst_dsp_tpu_torch.utils import geometry
@@ -505,34 +506,54 @@ class TestTesters:
 
 
 class TestDispatch:
-    @pytest.mark.parametrize("n_chan,critical,combine,kernel", [
-        (256, False, 1, "cluster"),   # the oversampled low cascade's slabs
-        (192, True, 1, "composed"),   # critical, no combine: 36864 points
-        (216, False, 1, "composed"),  # the lowpsi slabs' 41472 points (inversion_fused's)
-        (3072, True, 16, "pair"),     # critical combine 16: 589824 points
+    @pytest.mark.parametrize("n_chan,critical,combine,kernel,epilogue", [
+        (256, False, 1, "fused", "cluster"),    # the oversampled low cascade's slabs
+        (192, True, 1, "composed", "composed"),  # critical, no combine: 36864 points
+        (216, False, 1, "fused", "composed"),   # the lowpsi slabs' 41472 points
+        (3072, True, 16, "pair", "pair"),       # critical combine 16: 589824 points
     ])
-    def test_cascade_epilogues(self, n_chan, critical, combine, kernel):
+    def test_cascade_epilogues(self, n_chan, critical, combine, kernel, epilogue,
+                               monkeypatch):
+        # the kernel fused_inversion runs a slab's inversion on, seen at the
+        # wrappers it calls, and the epilogue plan of the slab's length (what
+        # a bare epilogue_dispatch, the sharded inversion's, runs)
         os_f = Rational(4, 3)
         g = geometry.SynthesisGeometry(n_chan, 256, 48, os_f)
         n, lo = g.output_fft_length, g.output_overlap
-        plan = ifft_fused.plan_ifft(n, lo)
-        big = ifft_big.plan_big_ifft(n, lo)
-        got = ("cluster" if plan is not None and ifft_fused.takes(*plan)
-               else "pair" if big is not None and ifft_big.pair_split(n, lo) else "composed")
-        assert got == kernel
+        ran = []
+
+        def spy(which, wrapped):
+            def fn(*a, **k):
+                ran.append(which)
+                return wrapped(*a, **k)
+            return fn
+
+        monkeypatch.setattr(inversion_fused, "inversion_fused",
+                            spy("fused", inversion_fused.inversion_fused))
+        for which, name in (("cluster", "fused_big_ifft"), ("pair", "fused_big_ifft_oc")):
+            monkeypatch.setattr(tsf, name, spy(which, getattr(tsf, name)))
+        c = tsynth.synthesis_constants(n_chan, 256, os_f, 48)
+        args = [torch.as_tensor(c[k]) for k in ("t_taper", "dr", "perm")]
+        x = torch.as_tensor(_noise((1, 96 + g.input_keep, n_chan), 12))
+        composed = fused_inversion.composed_epilogues
+        fused_inversion(x, *args, None, g, spans_nyquist=True)
+        ran += ["composed"] * (fused_inversion.composed_epilogues - composed)
+        assert ran == [kernel] and tsf.epilogue_plan(n, lo)[0] == epilogue
         if kernel == "pair":
             # the JAX split (3 * 384) * 512 needs a 1152 = 9 * 128-point inner
             # transform the kernel has no split for; 1536 * 384 it has
-            assert big == (3, 384, 512) and not ifft_big.takes(1152, 512)
-            assert ifft_big.pair_split(n, lo) == (1536, 384)
+            assert ifft_big.plan_big_ifft(n, lo) == (3, 384, 512)
+            assert not ifft_big.takes(1152, 512)
+            assert tsf.epilogue_plan(n, lo) == ("pair", 1536, 384)
 
     @pytest.mark.parametrize("name", ["mid", "mid_external"])
     def test_pair_split_keeps_the_plan(self, name):
+        # the plan's pair split at mid and mid_external is plan_big_ifft's p*q x n1
         cfg = load_config(name)
         g = geometry.SynthesisGeometry(cfg.channels, cfg.input_fft_length, cfg.input_overlap,
                                        cfg.os_factor)
         p, q, n1 = ifft_big.plan_big_ifft(g.output_fft_length, g.output_overlap)
-        assert ifft_big.pair_split(g.output_fft_length, g.output_overlap) == (p * q, n1)
+        assert tsf.epilogue_plan(g.output_fft_length, g.output_overlap) == ("pair", p * q, n1)
 
     def test_composed_counter(self):
         os_f = Rational(4, 3)

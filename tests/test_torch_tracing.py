@@ -271,9 +271,9 @@ def test_spans_nest_by_layer(cases, case):
 
 def test_mid_pair_takes_the_out_of_core_route(cases, monkeypatch):
     g = geometry.SynthesisGeometry(MID_CHAN, MID_L, MID_OV, MID_OS)
-    route, key = tsf.epilogue_route(g.output_fft_length, g.output_overlap,
-                                    g.fn_width // 2, 7 / 8)
-    assert route == "pair" and key[:4] == (g.output_fft_length, 7, 128, 512)
+    n, lo = g.output_fft_length, g.output_overlap
+    assert tsf.epilogue_plan(n, lo) == ("pair", 7 * 128, 512)
+    key = (n, 1, 7 * 128, 512, lo, g.fn_width // 2, 7 / 8)
     taken = []
     pair = tsf.fused_big_ifft_oc
     monkeypatch.setattr(tsf, "fused_big_ifft_oc",

@@ -18,8 +18,8 @@ stream's tensor map found among those the library keeps and with it encoded
 anew. Last, the program's spans (``utils/profiling.py``): a ``with
 span(...)``, a call through ``spanned`` and a ``with record_function``
 beside the bare call, each with no profiler recording and under a
-recording ``torch.profiler``, and the epilogue's choice of route (the
-``dispatch`` span's work) at the low and mid main paths' geometries.
+recording ``torch.profiler``, and the lookup of the epilogue's cached plan
+(the ``dispatch`` span's work) at the low and mid main paths' geometries.
 """
 
 from __future__ import annotations
@@ -60,9 +60,9 @@ def main() -> int:
     from ska_pst_dsp_tpu_torch.ops.kernels.chan_dft_fused import chan_dft_ramp
     from ska_pst_dsp_tpu_torch.ops.kernels import analysis_padded_fused as apf
     from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import analysis_fused
-    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import fused_big_ifft, plan_ifft
+    from ska_pst_dsp_tpu_torch.ops.kernels.ifft_fused import fused_big_ifft
     from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import (
-        LENGTHS, epilogue_route, synthesis_fused,
+        LENGTHS, epilogue_plan, synthesis_fused,
     )
     from ska_pst_dsp_tpu_torch.utils.profiling import span, spanned
 
@@ -92,7 +92,7 @@ def main() -> int:
     n, lo = lg.output_fft_length, lg.output_overlap
     lnb = lg.n_blocks(chan.shape[1])
     flat = torch.randn((2, lnb, n), dtype=torch.complex64, device=dev)
-    key = (n, *plan_ifft(n, lo), lo, lg.fn_width // 2, 0.75)
+    key = (n, *epilogue_plan(n, lo)[1:], lo, lg.fn_width // 2, 0.75)
     ptw = device_pass_twiddles(256, -1, dev)
     phases = low.f2d.shape[0]
     nblocks = chan.shape[1]
@@ -161,8 +161,7 @@ def main() -> int:
         pass
 
     def route(g):
-        return epilogue_route(g.output_fft_length, g.output_overlap, g.fn_width // 2,
-                              g.os_factor.de / g.os_factor.nu)
+        return epilogue_plan(g.output_fft_length, g.output_overlap)
 
     def in_record_function():
         with torch.profiler.record_function("x"):
@@ -172,8 +171,8 @@ def main() -> int:
              "spanned call (empty)": spanned("x")(bare),
              "with torch.profiler.record_function (empty)": in_record_function}
     steps.update({f"{k}, no profiler": fn for k, fn in spans.items()})
-    steps["epilogue_route (low, cluster)"] = lambda: route(lg)
-    steps["epilogue_route (mid, pair)"] = lambda: route(geom)
+    steps["epilogue_plan (low, cluster)"] = lambda: route(lg)
+    steps["epilogue_plan (mid, pair)"] = lambda: route(geom)
     with torch.cuda.device(dev):
         for name, fn in steps.items():
             print(f"[host] {name}: {host_us(torch, fn):.2f} us per call ({smi})", flush=True)
