@@ -101,6 +101,15 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     the kept peak is printed beside). Each call with the plain versions and
     torch.fft patched to raise, launching analysis_fused once; the card's
     ms and the oracle's s.
+11b. channel-major: the analysis's channel-major store at the
+    lowpsi.cascade cell's shapes (sps over 2 x (2^26 + a carry); LowCBF's
+    216 kept bins over 512 streams), bitwise the time-major store with
+    torch's index_select and transpose, timed beside it, beside those torch
+    copies and beside its plain version (at 1/16 of the shape); two blocks
+    of 2 x 2^26 through the cascade bitwise the same cascade over
+    time-major stages (outputs, states, the inverse's outputs), two
+    channel-major launches a block and no corner-turn bytes. Its entry
+    joins the kernels line.
 12. dedispersion: the chirp as the epilogue's ``elem`` (low: cluster
     epilogue, dm 1.5; mid: the pair, dm 50) against the plain inversion
     (1.2e-5 / 1e-4 * scale), and block-wise against whole-stream
@@ -237,6 +246,8 @@ ORACLE_TOL = 3e-6
 PADDED_TOL = 1e-5
 BIG_IFFT_TOL = 1e-4
 MID_ORACLE_MAX, MID_ORACLE_MEAN = 1e-6, 2e-7
+#: the lowpsi.cascade cell's block a polarisation, and a carry of stage 1
+CELL_BLOCK, SPS_CARRY = 2 ** 26, 7168
 PURITY_DB = -60.0
 REPS = 10
 PALLAS = "ska_pst_dsp_tpu/ops/pallas/"
@@ -912,6 +923,8 @@ def main() -> int:
     run_streaming(torch, dev, smi, {"low": low_ms, "mid": mid_ms})
     run_two_stage(torch, dev, smi)
     run_sps_lowpsi(torch, dev, smi)
+    kernels.append(run_channel_major(torch, dev, smi))
+    torch.cuda.empty_cache()
     run_dedispersion(torch, dev, smi)
 
     # 13-14. the file-level data_gen tools and the CLI drivers
@@ -1663,6 +1676,139 @@ def run_sps_lowpsi(torch, dev, smi):
                      streams[torch.as_tensor(pick, device=dev)].contiguous(), True,
                      f"sps stage-1 streams {pick.tolist()} of the first block, first call",
                      band_scale=True)
+
+
+def torch_noise(torch, shape, seed, dev):
+    """Complex64 noise made on the card (the cell's sizes, in seconds)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.complex(torch.randn(shape, generator=g, device=dev),
+                         torch.randn(shape, generator=g, device=dev))
+
+
+def time_major_cascade(torch, cfg1, cfg2, dev):
+    """The cascade over time-major stages: each stage's output a view of the
+    analysis's time-major store (LowCBF's kept bins gathered), so that the
+    cascade's corner turns copy, as they did before the channel-major
+    store."""
+    from ska_pst_dsp_tpu_torch.models import TwoStageFilterBank, streaming
+
+    fb = TwoStageFilterBank(cfg1, cfg2, device=dev)
+    fb.stage1 = streaming.FilterBank(cfg1, device=dev)
+    fb.stage2 = streaming.FilterBank(cfg2, device=dev)
+    return fb
+
+
+def run_channel_major(torch, dev, smi):
+    """Phase 11b: the analysis's channel-major store, which SKA-Low's PST
+    cascade runs. At the lowpsi.cascade cell's shapes (sps over 2 x (2^26 +
+    a carry), LowCBF over the 512 streams of its spectra on the first call):
+    bitwise the time-major store with torch's index_select and transpose,
+    timed beside the time-major kernel, beside the torch copies it replaces
+    and beside the plain version (at 1/16 of the shape). Then two blocks of
+    2 x 2^26 through the cascade and the same cascade over time-major
+    stages: outputs, states and the inverse's outputs bitwise, two
+    channel-major launches a block, no corner-turn bytes. Returns the
+    kernels-line entry."""
+    from ska_pst_dsp_tpu_torch.models import TwoStageFilterBank, TwoStageInverseFilterBank
+    from ska_pst_dsp_tpu_torch.ops import lowcbf
+    from ska_pst_dsp_tpu_torch.ops.analysis import analysis_plain
+    from ska_pst_dsp_tpu_torch.ops.kernels.analysis_fused import analysis_fused
+    from ska_pst_dsp_tpu_torch.utils import profiling
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+    phase = "channel-major"
+    sps, lowpsi = load_config("sps"), load_config("lowpsi")
+    fb = TwoStageFilterBank(sps, lowpsi, device=dev)
+    st1, st2 = fb.stage1, fb.stage2
+    check(st1.channel_major and st2.channel_major, f"{phase}: both stages channel-major")
+    t1 = (CELL_BLOCK + SPS_CARRY - st1.fl) // st1.step // 32 * 32
+    entry = {"name": "analysis_fused channel-major", "route": "cuda",
+             "source": "ska_pst_dsp_tpu_torch/csrc/analysis_fused.cu",
+             "replaces": "the time-major store + the cascade's corner turns and kept-bin "
+                         "gather (torch copies)"}
+    for name, st, shape, step in (("sps", st1, (2, st1.fl + t1 * st1.step), st1.step),
+                                  ("lowcbf", st2, (512, t1 + lowcbf.FIRST_CALL_PAD),
+                                   lowcbf.STEP)):
+        x = torch_noise(torch, shape, SEED + shape[0], dev)
+        bins = st.rows.long()
+
+        def cm(x=x, st=st, step=step):
+            return analysis_fused(x, st.f2d, st.ramp, step, 0, rows=st.rows)
+
+        def tm(x=x, st=st, step=step):
+            return analysis_fused(x, st.f2d, st.ramp, step, 0)
+
+        def library(bins=bins, tm=tm):
+            out = tm()
+            return (out if bins.numel() == out.shape[2] else out.index_select(-1, bins)
+                    ).transpose(1, 2).contiguous()
+
+        n0 = analysis_fused.launches, analysis_fused.channel_major_launches
+        got = cm()
+        check((analysis_fused.launches - n0[0], analysis_fused.channel_major_launches - n0[1])
+              == (1, 1), f"{phase} {name}: one launch, counted channel-major")
+        same = bool(torch.equal(got, library()))
+        check(same and got.is_contiguous(),
+              f"{phase} {name}: channel-major store {tuple(got.shape)} not bitwise the "
+              "time-major store's bins, transposed")
+        cut = x[: max(1, shape[0] // 16)] if shape[0] > 2 else x[:, :st.fl + t1 // 16 * step]
+        plain_ms = time_ms(torch, lambda: analysis_plain(cut, st.f2d, st.ramp, step, 0,
+                                                         rows=st.rows), reps=3)
+        n_spec, phases = shape[0] * got.shape[2], st.f2d.shape[0]
+        bnd = bound(nbytes(x, st.f2d, st.ramp, got),
+                    n_spec * 256 * (4 * phases + 6) + fft_flops(256, n_spec))
+        row = {"shape_in": list(shape), "shape_out": list(got.shape), "bitwise": same,
+               "ms": time_ms(torch, cm), "time_major_ms": time_ms(torch, tm),
+               "library_ms": time_ms(torch, library),
+               "device_ms": device_ms(torch, cm, "analysis_fused_kernel"),
+               "time_major_device_ms": device_ms(torch, tm, "analysis_fused_kernel"),
+               "library_device_ms": device_ms(torch, library, ""),
+               "plain_ms_at_1_16": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        entry[name] = row
+        log(phase, f"{name} {tuple(shape)} -> {tuple(got.shape)}: bitwise {same}; "
+            f"channel-major {row['ms']:.4f} ms (device {row['device_ms']}), time-major "
+            f"{row['time_major_ms']:.4f} ms, time-major + torch copies {row['library_ms']:.4f} "
+            f"ms (device {row['library_device_ms']}), plain at 1/16 {plain_ms:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}) ({smi})")
+        del x, got, cut
+    entry["resources"] = RESOURCES.get("analysis_fused", {})
+
+    # two blocks through the cascade and through time-major stages, in turns
+    x = torch_noise(torch, (2, 2 * CELL_BLOCK), SEED + 3, dev)
+    inv = TwoStageInverseFilterBank(sps, lowpsi, nch2=lowpsi.kept_channels, device=dev)
+    old, old_inv = (time_major_cascade(torch, sps, lowpsi, dev),
+                    TwoStageInverseFilterBank(sps, lowpsi, nch2=lowpsi.kept_channels,
+                                              device=dev))
+    states = {"new": [fb.init_state(), inv.init_state()],
+              "old": [old.init_state(), old_inv.init_state()]}
+    for b in range(2):
+        xb = x[:, b * CELL_BLOCK:(b + 1) * CELL_BLOCK]
+        outs, grew = {}, {}
+        for side, (f, i) in (("new", (fb, inv)), ("old", (old, old_inv))):
+            before = profiling.counters()
+            s = states[side]
+            s[0], y = f.execute(s[0], xb)
+            s[1], z = i.execute(s[1], y)
+            torch.cuda.synchronize()
+            after = profiling.counters()
+            grew[side] = {k: after[k] - before[k] for k in
+                          ("analysis_fused_channel_major", "corner_turn_bytes")}
+            outs[side] = (y, z)
+        (yn, zn), (yo, zo) = outs["new"], outs["old"]
+        sn, so = states["new"][0], states["old"][0]
+        same = (torch.equal(yn, yo) and torch.equal(zn, zo) and all(
+            (a.base, a.emitted) == (c.base, c.emitted) and torch.equal(a.buffer, c.buffer)
+            for a, c in ((sn.stage1, so.stage1), (sn.stage2, so.stage2))))
+        check(same, f"{phase}: block {b} of the cascade not bitwise the time-major stages'")
+        check(grew["new"] == {"analysis_fused_channel_major": 2, "corner_turn_bytes": 0},
+              f"{phase}: block {b} counted {grew['new']}")
+        check(grew["old"]["analysis_fused_channel_major"] == 0
+              and grew["old"]["corner_turn_bytes"] > 0, f"{phase}: time-major {grew['old']}")
+        log(phase, f"cascade block {b} (2 x {CELL_BLOCK}): output {tuple(yn.shape)}, inverse "
+            f"{tuple(zn.shape)}, states bitwise the time-major stages'; counters "
+            f"{grew['new']}, time-major stages {grew['old']}")
+        del outs, yn, zn, yo, zo
+    return entry
 
 
 def lowcbf_band_peaks(x64, filt, first_call):

@@ -51,7 +51,17 @@
 //     gain. Nothing is read back bit-reversed;
 //   * the ramp ((period, block), period 4 at low) is staged in shared memory
 //     once where it fits in 16 KB, and each spectrum's row offset is one
-//     32-bit % per spectrum (block0 reduced modulo period on the host).
+//     32-bit % per spectrum (block0 reduced modulo period on the host);
+//   * channel-major store (CM, instantiated for the generic 256-point fold
+//     only, which both stages of SKA-Low's PST cascade run): out[p, i, k]
+//     holds bin rows[i] of spectrum k, so the cascade's corner turns are
+//     views and LowCBF writes its 216 kept bins alone. Stored from the last
+//     pass, each lane's 8 B would land nblocks * 8 B from its neighbour's.
+//     So the last pass keeps its outputs (times ramp and gain, the same
+//     arithmetic) in registers; after a barrier they go into the span
+//     buffer, free by then, as a (bin, spectrum) tile of odd stride K + 1;
+//     after another, lanes on the K spectra store one output row at a time
+//     (256 contiguous bytes a row a tile), rows read from the table.
 // fp32 SIMT arithmetic throughout; no tensor cores (bf16 and TF32 both miss
 // the -60 dB purity floor).
 #include <cstdint>
@@ -110,13 +120,16 @@ __device__ __forceinline__ void issue_span(float2* dst, int* off, uint64_t* bar,
 
 // PH > 0: the fold of a geometry with PH phases at step SB*block/BB
 // (gcd(step, block) = block/BB); PH = 0: any geometry, folded directly.
-template <int R, int LOGQ, int PH, int SB, int BB>
+// CM: the channel-major store of the n_rows bins of `rows`; else the
+// time-major store of every bin (rows unread).
+template <int R, int LOGQ, int PH, int SB, int BB, bool CM = false>
 __global__ void __launch_bounds__(kThreads, 1)
 analysis_fused_kernel(const float2* __restrict__ x, float2* __restrict__ out,
                       const float* __restrict__ f2d, const float2* __restrict__ tw_pass,
                       const float2* __restrict__ tw_n, const float2* __restrict__ ramp,
                       Span sp, int nblocks, int phases, int period, int b0, int n_tiles,
-                      int buf_f2, int stages, int ramp_staged) {
+                      int buf_f2, int stages, int ramp_staged, const int* __restrict__ rows,
+                      int n_rows) {
   using Plan = FftRegPlan<LOGQ>;
   constexpr int Q = Plan::kQ;
   constexpr int BLOCK = R * Q;
@@ -296,26 +309,72 @@ analysis_fused_kernel(const float2* __restrict__ x, float2* __restrict__ out,
     }
 
     // last pass, lanes on butterflies rev8(tq): channels kr + R*(tq +
-    // SPAN*d), stored times the ramp row and the block gain
+    // SPAN*d), times the ramp row and the block gain
     const float gain = static_cast<float>(BLOCK);
-    for (int item = tid; item < NSR * SPAN; item += kThreads) {
-      const int sr = item / SPAN;
-      const int tq = item - sr * SPAN;
-      const int kk = sr / R;
-      const int kr = sr - kk * R;
-      if (k0 + kk >= nblocks) continue;
-      const float2* row = buf + sr * LDQ;
-      const int base = fft_reg_rev8<ND>(tq) * RL;
-      float2 w[RL];
+    if constexpr (CM) {
+      constexpr int ITL = NSR * SPAN / kThreads;
+      constexpr int LDK = K + 1;
+      static_assert(R == 1 && ITL * kThreads == NSR * SPAN, "analysis: channel-major tiling");
+      float2 res[ITL][RL];
 #pragma unroll
-      for (int m = 0; m < RL; ++m) w[m] = row[fft_reg_swizzle<LOGQ>(base + m)];
-      dft_reg<RL, -1>(w);
-      const float2* rr = rp + rowoff[kk];
-      float2* op = out + (static_cast<long long>(pol) * nblocks + k0 + kk) * BLOCK;
+      for (int it2 = 0; it2 < ITL; ++it2) {
+        const int item = tid + it2 * kThreads;
+        const int kk = item / SPAN;
+        const int tq = item - kk * SPAN;
+        const float2* row = buf + kk * LDQ;
+        const int base = fft_reg_rev8<ND>(tq) * RL;
+        float2 w[RL];
 #pragma unroll
-      for (int d = 0; d < RL; ++d) {
-        const int ch = kr + R * (tq + SPAN * d);
-        op[ch] = c_scale(c_mul(w[d], rr[ch]), gain);
+        for (int m = 0; m < RL; ++m) w[m] = row[fft_reg_swizzle<LOGQ>(base + m)];
+        dft_reg<RL, -1>(w);
+        const float2* rr = rp + rowoff[kk];
+#pragma unroll
+        for (int d = 0; d < RL; ++d) {
+          const int ch = tq + SPAN * d;
+          res[it2][d] = c_scale(c_mul(w[d], rr[ch]), gain);
+        }
+      }
+      __syncthreads();  // every row read: the buffer takes the (bin, spectrum) tile
+#pragma unroll
+      for (int it2 = 0; it2 < ITL; ++it2) {
+        const int item = tid + it2 * kThreads;
+        const int kk = item / SPAN;
+        const int tq = item - kk * SPAN;
+#pragma unroll
+        for (int d = 0; d < RL; ++d) buf[(tq + SPAN * d) * LDK + kk] = res[it2][d];
+      }
+      __syncthreads();
+      // a warp a row, lanes on spectra: row i of the output takes bin
+      // rows[i] of the tile
+      static_assert(K == 32, "analysis: channel-major rows of one warp");
+      const int lane = tid & 31;
+      if (k0 + lane < nblocks) {
+        float2* op = out + (static_cast<long long>(pol) * n_rows) * nblocks + k0 + lane;
+#pragma unroll 4
+        for (int i = tid >> 5; i < n_rows; i += kThreads / 32) {
+          op[static_cast<long long>(i) * nblocks] = buf[__ldg(rows + i) * LDK + lane];
+        }
+      }
+    } else {
+      for (int item = tid; item < NSR * SPAN; item += kThreads) {
+        const int sr = item / SPAN;
+        const int tq = item - sr * SPAN;
+        const int kk = sr / R;
+        const int kr = sr - kk * R;
+        if (k0 + kk >= nblocks) continue;
+        const float2* row = buf + sr * LDQ;
+        const int base = fft_reg_rev8<ND>(tq) * RL;
+        float2 w[RL];
+#pragma unroll
+        for (int m = 0; m < RL; ++m) w[m] = row[fft_reg_swizzle<LOGQ>(base + m)];
+        dft_reg<RL, -1>(w);
+        const float2* rr = rp + rowoff[kk];
+        float2* op = out + (static_cast<long long>(pol) * nblocks + k0 + kk) * BLOCK;
+#pragma unroll
+        for (int d = 0; d < RL; ++d) {
+          const int ch = kr + R * (tq + SPAN * d);
+          op[ch] = c_scale(c_mul(w[d], rr[ch]), gain);
+        }
       }
     }
     __syncthreads();  // the buffer is free: the span of the tile `stages` on
@@ -328,14 +387,18 @@ analysis_fused_kernel(const float2* __restrict__ x, float2* __restrict__ out,
 
 using AnalysisKern = void (*)(const float2*, float2*, const float*, const float2*,
                               const float2*, const float2*, Span, int, int, int, int, int,
-                              int, int, int);
+                              int, int, int, const int*, int);
 
 // block = r * 2^logq; the low geometry (block 256, 13 phases, step 192) has
-// its own fold.
-static AnalysisKern pick_kernel(int r, int logq, int phases, int step) {
-  if (r == 1 && logq == 8 && phases == 13 && step == 192) {
-    return analysis_fused_kernel<1, 8, 13, 3, 4>;
+// its own fold. The channel-major store (cm) exists for block 256 on the
+// generic fold alone.
+static AnalysisKern pick_kernel(int r, int logq, int phases, int step, bool cm) {
+  const bool low_fold = r == 1 && logq == 8 && phases == 13 && step == 192;
+  if (cm) {
+    return r == 1 && logq == 8 && !low_fold ? analysis_fused_kernel<1, 8, 0, 0, 0, true>
+                                            : nullptr;
   }
+  if (low_fold) return analysis_fused_kernel<1, 8, 13, 3, 4>;
   if (r == 1) {
     switch (logq) {
       case 7: return analysis_fused_kernel<1, 7, 0, 0, 0>;
@@ -352,17 +415,20 @@ static AnalysisKern pick_kernel(int r, int logq, int phases, int step) {
 
 // Shared memory of a block of `stages` span buffers (the layout of
 // analysis_fused_kernel; mirrored by ops/kernels/analysis_fused.py
-// smem_bytes): the header, the buffers (a span plus one sample, or the
-// folded sub-rows, whichever is larger, in 16-byte units), the pass
-// table, w_block (r > 1) and the ramp where staged.
+// smem_bytes): the header, the buffers (a span plus one sample, the
+// folded sub-rows or, for the channel-major store, the (bin, spectrum)
+// tile, whichever is largest, in 16-byte units), the pass table, w_block
+// (r > 1) and the ramp where staged.
 static size_t analysis_smem(int r, int logq, int step, int phases, int period, int stages,
-                            int* buf_f2, int* ramp_staged) {
+                            bool cm, int* buf_f2, int* ramp_staged) {
   const int q = 1 << logq;
   const int block = r * q;
   const int k = tile_spectra(block);
   const long long span = static_cast<long long>(k - 1) * step +
                          static_cast<long long>(phases) * block + 1;
-  const long long rows = static_cast<long long>(k) * r * (q + 1);
+  const long long sub_rows = static_cast<long long>(k) * r * (q + 1);
+  const long long tile = cm ? static_cast<long long>(block) * (k + 1) : 0;
+  const long long rows = sub_rows > tile ? sub_rows : tile;
   const long long f2 = ((span > rows ? span : rows) + 1) / 2 * 2;
   const int last = q >> (3 * ((logq + 2) / 3 - 1));
   const long long ramp_bytes = static_cast<long long>(period) * block * 8;
@@ -373,7 +439,9 @@ static size_t analysis_smem(int r, int logq, int step, int phases, int period, i
 }
 
 // x: (n_pol, n_dat) complex64, pol_stride elements between polarizations
-// (>= n_dat), samples contiguous; out: (n_pol, nblocks, block) complex64;
+// (>= n_dat), samples contiguous; out: (n_pol, nblocks, block) complex64,
+// or with rows (n_rows int32 bins, 1 <= n_rows <= block, each < block) the
+// channel-major (n_pol, n_rows, nblocks), row i bin rows[i];
 // f2d: (phases, block) float32; tw_pass: the per-pass table of the Q-point
 // forward transform (fft_reg_pass_tw); tw_n: (block,) exp(-2*pi*i*m/block),
 // read only when r > 1; ramp: (period, block) complex64; 0 <= b0 = block0
@@ -382,12 +450,14 @@ static size_t analysis_smem(int r, int logq, int step, int phases, int period, i
 // One persistent thread block per resident slot.
 extern "C" int analysis_fused_launch(const void* x, void* out, const void* f2d,
                                      const void* tw_pass, const void* tw_n, const void* ramp,
-                                     int n_pol, long long n_dat, long long pol_stride,
-                                     int nblocks, int block,
+                                     const void* rows, int n_pol, long long n_dat,
+                                     long long pol_stride, int nblocks, int block,
                                      int r, int logq, int step, int phases, int period,
-                                     int b0, int smem_limit, void* stream) {
-  const AnalysisKern kern = pick_kernel(r, logq, phases, step);
+                                     int b0, int n_rows, int smem_limit, void* stream) {
+  const bool cm = rows != nullptr;
+  const AnalysisKern kern = pick_kernel(r, logq, phases, step, cm);
   if (kern == nullptr || (r << logq) != block || n_pol <= 0 || nblocks <= 0 || step <= 0 ||
+      (cm && (n_rows <= 0 || n_rows > block)) ||
       (n_pol > 1 && pol_stride < n_dat) ||
       phases <= 0 || period <= 0 || b0 < 0 || b0 >= period ||
       static_cast<long long>(nblocks - 1) * step + static_cast<long long>(phases) * block >
@@ -395,10 +465,10 @@ extern "C" int analysis_fused_launch(const void* x, void* out, const void* f2d,
     return cudaErrorInvalidValue;
   }
   int buf_f2 = 0, ramp_staged = 0, stages = 2;
-  size_t smem = analysis_smem(r, logq, step, phases, period, 2, &buf_f2, &ramp_staged);
+  size_t smem = analysis_smem(r, logq, step, phases, period, 2, cm, &buf_f2, &ramp_staged);
   if (smem > static_cast<size_t>(smem_limit)) {
     stages = 1;
-    smem = analysis_smem(r, logq, step, phases, period, 1, &buf_f2, &ramp_staged);
+    smem = analysis_smem(r, logq, step, phases, period, 1, cm, &buf_f2, &ramp_staged);
     if (smem > static_cast<size_t>(smem_limit)) return cudaErrorInvalidValue;
   }
   const int k = tile_spectra(block);
@@ -417,6 +487,6 @@ extern "C" int analysis_fused_launch(const void* x, void* out, const void* f2d,
       static_cast<const float2*>(x), static_cast<float2*>(out),
       static_cast<const float*>(f2d), static_cast<const float2*>(tw_pass),
       static_cast<const float2*>(tw_n), static_cast<const float2*>(ramp), sp, nblocks, phases,
-      period, b0, tiles, buf_f2, stages, ramp_staged);
+      period, b0, tiles, buf_f2, stages, ramp_staged, static_cast<const int*>(rows), n_rows);
   return cudaGetLastError();
 }

@@ -36,6 +36,12 @@ inversion :func:`..ops.kernels.synthesis_fused.fused_inversion` on a
 time-major view of the chunk. ``plain=True`` runs the kernels' plain
 versions on the same device instead: the reference chain.
 
+A ``FilterBank`` hands back (n_pol, channels, n): a view of the kernel's
+time-major store, or, built with ``channel_major`` (the cascades' stages,
+``models/two_stage.py``), the analysis's channel-major store itself,
+contiguous, where the kernel has that store for the geometry (block 256
+on the generic fold; the plain versions at any).
+
 Optional input/output integer rounding with rms scaling reproduces the
 reference's quantization-study hooks (FilterBank.m:75-113, sgcht
 rndInput/rmsInput/rndOutput/rmsOutput); output is rounded per chunk of
@@ -57,9 +63,10 @@ from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from ..ops import lowcbf
 from ..ops.analysis import (
-    _prep_filter, analysis_core, chan_dft_core, padded_chan_const, padded_fold, ramp_table,
+    _prep_filter, analysis_plain, chan_dft_core, padded_chan_const, padded_fold, ramp_table,
 )
 from ..ops.kernels.analysis_fused import analysis_fused
+from ..ops.kernels.analysis_fused import takes as analysis_takes
 from ..ops.kernels.analysis_padded_fused import padded_fold_fused
 from ..ops.kernels.chan_dft_fused import chan_dft_ramp
 from ..ops.kernels.synthesis_fused import fused_inversion
@@ -69,13 +76,17 @@ PLAIN, PADDED, LOWCBF = ("polyphase_analysis", "polyphase_analysis_padded",
                          "polyphase_analysis_lowcbf")
 
 
-def _round_rms(x: torch.Tensor, rms: float) -> torch.Tensor:
+def _round_rms(x: torch.Tensor, rms: float, stats: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
     """Round to integers, optionally pre-scaling to a target rms
     (FilterBank.m:75-83), on x's device: the population variance of both
-    quadratures (``np.var``) and round half to even (``np.round``)."""
+    quadratures (``np.var``) of ``stats`` (default x: the same values,
+    in the order whose sum sets the scale) and round half to even
+    (``np.round``)."""
     scale = 1.0
     if rms > 0:
-        std = torch.sqrt(torch.var(torch.stack([x.real, x.imag]), correction=0) * 2.0)
+        s = x if stats is None else stats
+        std = torch.sqrt(torch.var(torch.stack([s.real, s.imag]), correction=0) * 2.0)
         scale = rms / std
     return torch.complex(torch.round(x.real * scale), torch.round(x.imag * scale))
 
@@ -117,7 +128,8 @@ class FilterBank(nn.Module):
     """Streaming analysis filterbank (the reference's Channelizer role)."""
 
     def __init__(self, config, *, rnd_input=False, rms_input=0.0, rnd_output=False,
-                 rms_output=0.0, chunk_spectra=None, device="cuda", plain=False):
+                 rms_output=0.0, chunk_spectra=None, device="cuda", plain=False,
+                 channel_major=False):
         super().__init__()
         self.config = config
         self.analysis_function = config.analysis_function
@@ -134,9 +146,9 @@ class FilterBank(nn.Module):
         self.chunk_spectra = chunk_spectra
         self.device = torch.device(device)
         self.plain = plain
-        self._analyse = analysis_core if plain else analysis_fused
+        self._analyse = analysis_plain if plain else analysis_fused
         name = self.analysis_function
-        kept = None
+        rows = None
         if name == PLAIN:
             f2d, ramp = _prep_filter(self.filt_coeff, self.n_chan), ramp_table(self.n_chan, self.step)
         elif name == PADDED:
@@ -145,17 +157,26 @@ class FilterBank(nn.Module):
             f2d = _prep_filter(self.filt_coeff, self.n_chan, reverse=True)
             ramp = padded_chan_const(self.n_chan, self.step)
         elif name == LOWCBF:
-            f2d, ramp, kept = lowcbf.lowcbf_filter(self.filt_coeff), lowcbf.lowcbf_ramp(), \
+            f2d, ramp, rows = lowcbf.lowcbf_filter(self.filt_coeff), lowcbf.lowcbf_ramp(), \
                 lowcbf.kept_bins()
         else:
             raise ValueError(f"unknown analysis function {name!r}")
+        #: the analysis stores channel-major (the padded analysis never):
+        #: on the card where its kernel has that store for the geometry
+        self.channel_major = channel_major and name != PADDED and (
+            plain or self.device.type == "cpu"
+            or analysis_takes(f2d.shape[1], self.step if name == PLAIN else lowcbf.STEP,
+                              f2d.shape[0], ramp.shape[0], channel_major=True))
+        if self.channel_major and rows is None:
+            rows = np.arange(self.n_chan)
         #: the fold's filter (reversed for the padded analysis), the per-bin
         #: table (the derotation ramp, the padded channel-DFT constant or
-        #: the LowCBF quarter turns) and the LowCBF kept bins
+        #: the LowCBF quarter turns) and the bins stored (LowCBF's kept
+        #: bins; every bin of a channel-major store; None: every bin)
         self.register_buffer("f2d", torch.as_tensor(f2d, device=self.device))
         self.register_buffer("ramp", torch.as_tensor(ramp, device=self.device))
-        self.register_buffer("kept", None if kept is None
-                             else torch.as_tensor(kept, device=self.device))
+        self.register_buffer("rows", None if rows is None
+                             else torch.as_tensor(rows.astype(np.int32), device=self.device))
 
     def init_state(self) -> FilterBankState:
         return FilterBankState()
@@ -169,8 +190,9 @@ class FilterBank(nn.Module):
     @spanned("filterbank")
     def execute(self, state: FilterBankState, x) -> Tuple[FilterBankState, torch.Tensor]:
         """Process one block of (n_pol, [1,] n) samples: returns (new_state,
-        (n_pol, n_chan_out, n_out)), a channel-major view of time-major
-        spectra on the module's device."""
+        (n_pol, n_chan_out, n_out)) on the module's device: the channel-major
+        store itself where the stage has one, else a view of the time-major
+        spectra."""
         x = as_tensor(x, self.device)
         if x.ndim == 3:
             x = x[:, 0, :]
@@ -193,12 +215,16 @@ class FilterBank(nn.Module):
         step_fn = {PLAIN: self._execute_plain, PADDED: self._execute_padded,
                    LOWCBF: self._execute_lowcbf}[name]
         state, out, rest = step_fn(state, x)
+        cm = self.channel_major
         if out is None:
-            out = x.new_zeros((x.shape[0], 0, self.n_chan_out))
+            n_pol, c = x.shape[0], self.n_chan_out
+            out = x.new_zeros((n_pol, c, 0) if cm else (n_pol, 0, c))
         elif self.rnd_output:
-            out = torch.cat([_round_rms(c, self.rms_output)
-                             for c in out.split(self.chunk_spectra, dim=1)], dim=1)
-        return dataclasses.replace(state, buffer=rest), out.transpose(1, 2)
+            # a channel-major chunk's scale from its spectra taken time-major
+            t = 2 if cm else 1
+            out = torch.cat([_round_rms(c, self.rms_output, c.transpose(1, 2) if cm else None)
+                             for c in out.split(self.chunk_spectra, dim=t)], dim=t)
+        return dataclasses.replace(state, buffer=rest), out if cm else out.transpose(1, 2)
 
     def _whole(self, spectra: int) -> int:
         """The spectra of the whole chunks among ``spectra``."""
@@ -210,7 +236,7 @@ class FilterBank(nn.Module):
         if n == 0:
             return state, None, x
         out = self._analyse(x[:, :self.fl + n * self.step], self.f2d, self.ramp, self.step,
-                            state.emitted)
+                            state.emitted, rows=self.rows)
         consumed = n * self.step
         return (FilterBankState(base=state.base + consumed, emitted=state.emitted + n),
                 out, x[:, consumed:])
@@ -244,7 +270,7 @@ class FilterBank(nn.Module):
         if n == 0:
             return state, None, x
         out = lowcbf.lowcbf_core(x[:, :lowcbf.NFILT + n * lowcbf.STEP - pad], self.f2d,
-                                 self.ramp, self.kept, first, self._analyse)
+                                 self.ramp, self.rows, first, self._analyse, self.channel_major)
         consumed = n * lowcbf.STEP - pad
         return (FilterBankState(base=state.base + consumed, emitted=state.emitted + n),
                 out, x[:, consumed:])

@@ -8,11 +8,17 @@ channels run through one batched stage-2 call: they ride the batch axis of
 the analysis kernel, and the inverse cascade's slabs the batch axis of the
 inversion.
 
-Stage 1 emits time-major spectra and stage 2 wants one stream per coarse
-channel, so one contiguous corner turn (n_pol, T, nch1) -> (n_pol*nch1, T)
-sits between them. The cascade's own reshapes (that corner turn, the chomp
-and the layout of the output, the inverse's slabs) are the ``corner_turn``
-span; the bytes of those that copy are counted in ``corner_turn.bytes``.
+Both stages store their spectra channel-major (``FilterBank``'s
+``channel_major``; LowCBF's 216 kept bins alone), which is what the next
+step reads: stage 1's (n_pol, nch1, T) is one stream per coarse channel
+as it stands, and stage 2's (n_pol*nch1, nch2, T2) is the output's
+(n_pol, nch1*nch2, T2), so both corner turns are views. A stage whose
+geometry has no channel-major kernel on the card stores time-major, and
+its corner turn copies. The cascade's own reshapes (those corner turns,
+the chomp and the layout of the output, the inverse's slabs) are the
+``corner_turn`` span; the bytes of those that copy (the critical chomps,
+and the corner turns of a time-major stage) are counted in
+``corner_turn.bytes``.
 """
 
 from __future__ import annotations
@@ -66,8 +72,10 @@ class TwoStageFilterBank(nn.Module):
         self.config1 = config
         self.config2 = config2 if config2 is not None else config
         self.device, self.plain = torch.device(device), plain
-        self.stage1 = FilterBank(config, device=device, plain=plain, **fb_kwargs)
-        self.stage2 = FilterBank(self.config2, device=device, plain=plain, **fb_kwargs)
+        self.stage1 = FilterBank(config, device=device, plain=plain, channel_major=True,
+                                 **fb_kwargs)
+        self.stage2 = FilterBank(self.config2, device=device, plain=plain, channel_major=True,
+                                 **fb_kwargs)
         self.critical = critical
         self.single = single
 
@@ -79,7 +87,8 @@ class TwoStageFilterBank(nn.Module):
 
     def set_stage2_config(self, config2):
         self.config2 = config2
-        self.stage2 = FilterBank(config2, device=self.device, plain=self.plain)
+        self.stage2 = FilterBank(config2, device=self.device, plain=self.plain,
+                                 channel_major=True)
 
     def init_state(self) -> TwoStageFilterBankState:
         return TwoStageFilterBankState(self.stage1.init_state(), self.stage2.init_state())

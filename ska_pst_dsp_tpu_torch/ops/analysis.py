@@ -10,8 +10,9 @@ becomes a per-bin phase ramp under the DFT, so
 ``block / gcd(step, block)`` (= nu for every integral geometry), so a table
 of that many rows, indexed by ``(k + block0) % period``, is the whole ramp.
 
-:func:`analysis_core` is also the plain version of the fused analysis
-kernel (:mod:`.kernels.analysis_fused`).
+:func:`analysis_plain` (:func:`analysis_core`, stored time-major, or
+channel-major over a table of bins) is the plain version of the fused
+analysis kernel (:mod:`.kernels.analysis_fused`).
 
 The zero-padded (SKA-Mid) variant (analysis.py:99-125, 176-205) folds the
 time-reversed filter against the ``padded_taps`` samples before each
@@ -26,7 +27,7 @@ a forward FFT times :func:`padded_chan_const`.
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -97,6 +98,16 @@ def analysis_core(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
     spec = cfft.fft(folded)
     rows = (torch.arange(nblocks, device=x.device) + block0) % ramp.shape[0]
     return spec * ramp[rows] * block
+
+
+def analysis_plain(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor, step: int,
+                   block0: int = 0, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of the fused analysis's two stores:
+    :func:`analysis_core`'s time-major spectra, or given ``rows`` (integer
+    bins) the channel-major (n_pol, len(rows), nblocks), contiguous, whose
+    row i holds bin rows[i] of every spectrum."""
+    out = analysis_core(x, f2d, ramp, step, block0)
+    return out if rows is None else out.index_select(-1, rows).transpose(1, 2).contiguous()
 
 
 def polyphase_analysis(x, filt, block: int, os_factor: Union[Rational, str],

@@ -40,7 +40,7 @@ _F = ctypes.c_float
 
 #: argtypes of each C entry point, in csrc/ order.
 SIGNATURES = {
-    "analysis_fused_launch": [_P] * 6 + [_I, _L, _L] + [_I] * 9 + [_P],
+    "analysis_fused_launch": [_P] * 7 + [_I, _L, _L] + [_I] * 10 + [_P],
     "synthesis_fused_launch": [_P] * 6 + [_L] * 3 + [_I] * 8 + [_P],
     "ifft_fused_launch": [_P] * 9 + [_L] * 2 + [_I] * 6 + [_F, _P],
     "ifft_fused_clusters": [_I, _P],

@@ -14,8 +14,10 @@ analysis_fused`) with :func:`lowcbf_ramp` in place of the derotation ramp:
 row ``s``, unshifted bin ``q`` holds the quarter turn of shifted bin
 ``(q + 128) % 256`` times the firmware's net scale, divided by the block
 gain the kernel applies. The 216 kept channels are then gathered in
-fftshifted (monotonic-frequency) order. On a CPU tensor the same call runs
-the kernel's plain version (:func:`..analysis.analysis_core`).
+fftshifted (monotonic-frequency) order, or, stored channel-major, the
+kernel writes those bins alone from the table :func:`kept_bins`. On a CPU
+tensor the same call runs the kernel's plain version
+(:func:`..analysis.analysis_plain`).
 """
 
 from __future__ import annotations
@@ -68,14 +70,19 @@ def lowcbf_filter(filt) -> np.ndarray:
 
 
 def lowcbf_core(x: torch.Tensor, f2d: torch.Tensor, ramp: torch.Tensor,
-                kept: torch.Tensor, first_call: bool, analysis=analysis_fused) -> torch.Tensor:
-    """(n_pol, n_dat) complex64 -> time-major (n_pol, n_out, 216),
-    n_out = (n_dat + pad - 3072) // 192 with pad = 1536 on the first call.
-    f2d, ramp and kept (int64) from :func:`lowcbf_filter`,
-    :func:`lowcbf_ramp` and :func:`kept_bins`, on x's device; ``analysis``
-    is the kernel's wrapper or its plain version (``analysis_core``)."""
+                kept: torch.Tensor, first_call: bool, analysis=analysis_fused,
+                channel_major: bool = False) -> torch.Tensor:
+    """(n_pol, n_dat) complex64 -> time-major (n_pol, n_out, 216), or
+    with ``channel_major`` the analysis's channel-major store of the kept
+    bins, (n_pol, 216, n_out); n_out = (n_dat + pad - 3072) // 192 with pad
+    = 1536 on the first call. f2d, ramp and kept (integer; int32 for the
+    channel-major store) from :func:`lowcbf_filter`, :func:`lowcbf_ramp`
+    and :func:`kept_bins`, on x's device; ``analysis`` is the kernel's
+    wrapper or its plain version (``analysis_plain``)."""
     if first_call:
         x = torch.cat([x.new_zeros((x.shape[0], FIRST_CALL_PAD)), x], dim=-1)
+    if channel_major:
+        return analysis(x, f2d, ramp, STEP, rows=kept)
     return analysis(x, f2d, ramp, STEP).index_select(-1, kept)
 
 

@@ -92,7 +92,9 @@ def spanned(name: str):
 
 def counters() -> Dict[str, int]:
     """Every counter of the program: each kernel wrapper's ``launches``
-    (by its key in :func:`..ops.kernels.wrappers`),
+    (by its key in :func:`..ops.kernels.wrappers`), the channel-major ones
+    among the analysis's (``analysis_fused.channel_major_launches``) as
+    ``analysis_fused_channel_major``,
     ``fused_inversion.composed_epilogues`` as ``composed_epilogues``, the
     bytes the streaming stages' carries have written
     (``models.streaming.carry.bytes``) as ``carry_bytes``, and the bytes
@@ -101,9 +103,11 @@ def counters() -> Dict[str, int]:
     counts from the process's start; take the difference of two readings."""
     from ..models import streaming, two_stage
     from ..ops.kernels import wrappers
+    from ..ops.kernels.analysis_fused import analysis_fused
     from ..ops.kernels.synthesis_fused import fused_inversion
 
     out = {k: w.launches for k, w in wrappers().items()}
+    out["analysis_fused_channel_major"] = analysis_fused.channel_major_launches
     out["composed_epilogues"] = fused_inversion.composed_epilogues
     out["carry_bytes"] = streaming.carry.bytes
     out["corner_turn_bytes"] = two_stage.corner_turn.bytes

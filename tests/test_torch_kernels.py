@@ -425,7 +425,7 @@ def span_chunk(nbytes):
     return (((nbytes + 31) >> 5) + 15) & ~15
 
 
-def emu_analysis(x, f2d, ramp, step, block0):
+def emu_analysis(x, f2d, ramp, step, block0, bins=None):
     """analysis_fused_kernel: tiles of tile_spectra(block) spectra of one
     polarization; each tile's span copied from the flat stream starting at
     the 16-byte-aligned sample at or before it (offset o), NaN past the
@@ -436,7 +436,13 @@ def emu_analysis(x, f2d, ramp, step, block0):
     at sub-row kk*R + j//Q, position fft_reg_swizzle(j % Q); the radix-R step; the
     radix-8 passes; the last pass in channel order kr + R*(tq + SPAN*d)
     times the ramp row (k + block0) % period and the block, stored for
-    k < nblocks only. Returns the output, NaN where nothing was stored."""
+    k < nblocks only. Returns the output, NaN where nothing was stored.
+
+    Given ``bins`` (r = 1), the channel-major store: the last pass's
+    products staged as a (bin, spectrum) tile of stride k_t + 1 (lane
+    (kk, tq) writes bins tq + SPAN*d of spectrum kk), then output row i of
+    the tile's spectra read from bin bins[i], lanes on spectra, stored for
+    k < nblocks only: (n_pol, len(bins), nblocks)."""
     n_pol, n_dat = x.shape
     phases, block = f2d.shape
     r, q, logq = radix(block)
@@ -451,6 +457,8 @@ def emu_analysis(x, f2d, ramp, step, block0):
     n_kt = -(-nblocks // k_t)
     fold_geom = ana_fold_geometry(block, step, phases)
     out = np.full((n_pol, nblocks, block), np.nan, np.complex64)
+    if bins is not None:
+        out = np.full((n_pol, len(bins), nblocks), np.nan, np.complex64)
     j = np.arange(block)
     for tile in range(n_pol * n_kt):
         pol, kt = divmod(tile, n_kt)
@@ -499,6 +507,19 @@ def emu_analysis(x, f2d, ramp, step, block0):
         spec = np.empty((k_t, block), np.complex64)
         spec[:, ch.ravel()] = w.reshape(k_t, r * spn * last)
         kk = np.arange(k_t)
+        if bins is not None:
+            assert r == 1
+            ldk = k_t + 1
+            prod = spec * ramp[(kt * k_t + kk + block0 % period) % period] * np.float32(block)
+            stage = np.full(block * ldk, np.nan, np.complex64)
+            kq, tq, d = np.ix_(kk, np.arange(spn), np.arange(last))
+            stage[(tq + spn * d) * ldk + kq] = prod[kq, tq + spn * d]
+            i, kq = np.ix_(np.arange(len(bins)), kk)
+            keep = np.broadcast_to(kt * k_t + kq < nblocks, (len(bins), k_t))
+            dst = np.broadcast_to(kt * k_t + kq, keep.shape)
+            out[pol, np.broadcast_to(i, keep.shape)[keep], dst[keep]] = (
+                stage[np.asarray(bins)[i] * ldk + kq][keep])
+            continue
         keep = kt * k_t + kk < nblocks
         k_abs = kt * k_t + kk[keep]
         out[pol, k_abs] = (spec[keep] * ramp[(k_abs + block0 % period) % period]
@@ -773,6 +794,48 @@ class TestDecomposition:
         ref = analysis_core(torch.as_tensor(x), torch.as_tensor(f2d),
                             torch.as_tensor(ramp), step, block0).numpy()
         assert _rel_err(got, ref) < ANALYSIS_TOL
+
+    @pytest.mark.parametrize("geom", ["sps", "lowcbf"])
+    def test_analysis_channel_major_emulation(self, geom):
+        # the channel-major store's staging and row table at both cascade
+        # geometries, over a ragged last tile: exactly the time-major store's
+        # spectra, the table's bins, transposed
+        f2d, ramp, step = CASCADE_ANALYSIS[geom](np.random.default_rng(66))
+        rows = (np.arange(256) if geom == "sps" else lowcbf.kept_bins()).astype(np.int32)
+        n_dat = f2d.shape[0] * 256 + step * (2 * 32 + 11) + 17
+        x = _noise((2, n_dat), 67)
+        got = emu_analysis(x, f2d, ramp, step, 5, rows)
+        want = emu_analysis(x, f2d, ramp, step, 5)
+        assert got.shape == (2, rows.size, want.shape[1]) and not np.isnan(got).any()
+        assert np.array_equal(got, want[:, :, rows].transpose(0, 2, 1))
+
+    @pytest.mark.parametrize("geom", ["sps", "lowcbf"])
+    def test_analysis_channel_major_contract(self, geom):
+        # row i of the channel-major store is bin rows[i] of every spectrum
+        # of the time-major store, contiguous
+        f2d, ramp, step = (torch.as_tensor(t) if not isinstance(t, int) else t
+                           for t in CASCADE_ANALYSIS[geom](np.random.default_rng(68)))
+        rows = torch.as_tensor(np.arange(256) if geom == "sps" else lowcbf.kept_bins(),
+                               dtype=torch.int32)
+        x = torch.as_tensor(_noise((2, f2d.shape[0] * 256 + step * 75 + 3), 69))
+        got = analysis_fused(x, f2d, ramp, step, 5, rows=rows)
+        want = analysis_fused(x, f2d, ramp, step, 5)
+        assert got.is_contiguous() and got.shape == (2, rows.numel(), want.shape[1])
+        assert torch.equal(got, want.index_select(-1, rows).transpose(1, 2))
+
+    def test_analysis_channel_major_plan(self):
+        # the store exists for block 256 on the generic fold alone; its
+        # (bin, spectrum) tile shares the span buffer, which at both cascade
+        # geometries is larger already, and binds only at a short filter
+        for args in ((256, 216, 25, 32), (256, 192, 12, 4)):
+            assert af.takes(*args, channel_major=True)
+            assert af.smem_bytes(*args, 2, True) == af.smem_bytes(*args, 2)
+        assert af.smem_bytes(256, 216, 25, 32) == 211_744
+        assert not af.takes(256, 192, 13, 4, channel_major=True) and af.takes(256, 192, 13, 4)
+        assert not af.takes(512, 448, 12, 8, channel_major=True) and af.takes(512, 448, 12, 8)
+        tile, sub_rows = 256 * 33, 32 * 257
+        assert (af.smem_bytes(256, 192, 2, 4, 2, True) - af.smem_bytes(256, 192, 2, 4, 2)
+                == 2 * (tile - sub_rows) * 8)
 
     def test_span_chunks_cover(self):
         # the 32 lanes' copies cover every span size, each a multiple of 16
@@ -2274,6 +2337,62 @@ class TestCascadesOnCard:
         assert analysis_fused.launches == before + 1
         ref = analysis_core(x, f2d, ramp, step, 5)
         assert _rel_err(got.cpu(), ref.cpu()) < ANALYSIS_TOL
+
+    @pytest.mark.parametrize("geom", ["sps", "lowcbf"])
+    def test_channel_major_store(self, cuda, geom):
+        # at the lowpsi.cascade cell's shapes (sps over 2 x (2^26 + a
+        # carry), LowCBF over 512 streams of its spectra on the first call):
+        # one launch, counted channel-major, bitwise the time-major store's
+        # bins transposed
+        f2d, ramp, step = (torch.as_tensor(t, device=cuda) if not isinstance(t, int) else t
+                           for t in CASCADE_ANALYSIS[geom](np.random.default_rng(70)))
+        t1 = (2 ** 26 + 7168 - 6400) // 216 // 32 * 32
+        shape = (2, 6400 + t1 * 216) if geom == "sps" else (512, t1 + lowcbf.FIRST_CALL_PAD)
+        bins = torch.as_tensor(np.arange(256) if geom == "sps" else lowcbf.kept_bins(),
+                               device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(71)
+        x = torch.complex(torch.randn(shape, generator=g, device=cuda),
+                          torch.randn(shape, generator=g, device=cuda))
+        before = analysis_fused.launches, analysis_fused.channel_major_launches
+        got = analysis_fused(x, f2d, ramp, step, 3, rows=bins.to(torch.int32))
+        assert (analysis_fused.launches - before[0],
+                analysis_fused.channel_major_launches - before[1]) == (1, 1)
+        want = analysis_fused(x, f2d, ramp, step, 3).index_select(-1, bins).transpose(1, 2)
+        assert got.is_contiguous() and torch.equal(got, want)
+
+    def test_cascade_block_equals_time_major_stages(self, cuda):
+        # one block of the cell (2 x 2^26) through SKA-Low's PST cascade and
+        # through the same cascade over time-major stages, whose corner turns
+        # copy: outputs, states and the inverse's output bitwise; two
+        # channel-major launches and no corner-turn bytes
+        from ska_pst_dsp_tpu_torch.models import streaming, two_stage
+        from ska_pst_dsp_tpu_torch.utils import profiling
+        from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+        sps, lowpsi = load_config("sps"), load_config("lowpsi")
+        g = torch.Generator(device=cuda).manual_seed(72)
+        x = torch.complex(torch.randn((2, 2 ** 26), generator=g, device=cuda),
+                          torch.randn((2, 2 ** 26), generator=g, device=cuda))
+        out = {}
+        for side in ("time_major", "channel_major"):
+            fb = two_stage.TwoStageFilterBank(sps, lowpsi, device=cuda)
+            if side == "time_major":
+                fb.stage1 = streaming.FilterBank(sps, device=cuda)
+                fb.stage2 = streaming.FilterBank(lowpsi, device=cuda)
+            inv = two_stage.TwoStageInverseFilterBank(sps, lowpsi, nch2=216, device=cuda)
+            before = profiling.counters()
+            state, y = fb.execute(fb.init_state(), x)
+            _, z = inv.execute(inv.init_state(), y)
+            after = profiling.counters()
+            out[side] = (y, z, state, {k: after[k] - before[k] for k in (
+                "analysis_fused_channel_major", "corner_turn_bytes")})
+        (y0, z0, s0, c0), (y1, z1, s1, c1) = out["time_major"], out["channel_major"]
+        assert y1.shape == (2, 256 * 216, y1.shape[2]) and y1.shape[2] > 0 and z1.shape[2] > 0
+        assert torch.equal(y1, y0) and torch.equal(z1, z0)
+        for a, b in ((s1.stage1, s0.stage1), (s1.stage2, s0.stage2)):
+            assert (a.base, a.emitted) == (b.base, b.emitted) and torch.equal(a.buffer, b.buffer)
+        assert c1 == {"analysis_fused_channel_major": 2, "corner_turn_bytes": 0}
+        assert c0["analysis_fused_channel_major"] == 0 and c0["corner_turn_bytes"] > 0
 
     @pytest.mark.parametrize("n_chan,kw,n_slab,launched,composed", [
         (216, {"monotonic": True}, 6, {"inversion_fused": 1}, 0),        # lowpsi slabs, fused

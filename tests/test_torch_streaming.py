@@ -311,6 +311,59 @@ class TestTwoStage:
                                                 device="cpu").init_state()
 
 
+class TestChannelMajorCascade:
+    """The cascades' stages store channel-major, so their corner turns are
+    views of the analyses' output. Output and state equal, bitwise, the
+    same cascade over time-major stages (the earlier composition: transposed
+    views of the analyses' spectra, LowCBF's kept bins gathered, and corner
+    turns that copy), block after block."""
+
+    @staticmethod
+    def _time_major(c1, c2, **kw):
+        fb = two_stage.TwoStageFilterBank(c1, c2, device="cpu", **kw)
+        stage_kw = {k: v for k, v in kw.items() if k not in ("critical", "single")}
+        fb.stage1 = streaming.FilterBank(c1, device="cpu", **stage_kw)
+        fb.stage2 = streaming.FilterBank(c2, device="cpu", **stage_kw)
+        return fb
+
+    @pytest.mark.parametrize("stage2,kw", [
+        ("lowcbf", {}), ("lowcbf", {"critical": True}), ("lowcbf", {"single": True}),
+        ("lowcbf", {"rnd_output": True, "rms_output": 5.0}),
+        ("plain", {}), ("plain", {"critical": True}),
+    ])
+    def test_equals_the_time_major_composition(self, stage2, kw):
+        c1 = _cfg(block=16, taps_pc=8)
+        c2 = _lowcbf_cfg() if stage2 == "lowcbf" else _cfg()
+        x = torch.as_tensor(_noise((2, 1, 90_000), 13))
+        new = two_stage.TwoStageFilterBank(c1, c2, device="cpu", **kw)
+        old = self._time_major(c1, c2, **kw)
+        assert new.stage1.channel_major and new.stage2.channel_major
+        assert not (old.stage1.channel_major or old.stage2.channel_major)
+        s_new, s_old, emitted = new.init_state(), old.init_state(), 0
+        for a, b in ((0, 40_000), (40_000, 41_000), (41_000, 90_000)):
+            s_new, y_new = new.execute(s_new, x[..., a:b])
+            s_old, y_old = old.execute(s_old, x[..., a:b])
+            assert torch.equal(y_new, y_old)
+            emitted += y_new.shape[-1]
+            for n, o in ((s_new.stage1, s_old.stage1), (s_new.stage2, s_old.stage2)):
+                assert (n.base, n.emitted) == (o.base, o.emitted)
+                assert torch.equal(n.buffer, o.buffer)
+        assert emitted > 0
+
+    def test_stage_outputs(self):
+        # the stage hands back its store: channel-major and contiguous, or a
+        # view of time-major spectra; LowCBF's holds its 216 kept bins
+        x = torch.as_tensor(_noise((2, 1, 40_000), 14))
+        for c, n_out in ((_cfg(block=16, taps_pc=8), 16), (_lowcbf_cfg(), 216)):
+            cm = streaming.FilterBank(c, device="cpu", channel_major=True)
+            tm = streaming.FilterBank(c, device="cpu")
+            (_, y_cm), (_, y_tm) = cm.execute(cm.init_state(), x), tm.execute(tm.init_state(), x)
+            assert y_cm.shape == y_tm.shape == (2, n_out, y_tm.shape[2]) and y_tm.shape[2] > 0
+            assert y_cm.is_contiguous() and not y_tm.is_contiguous()
+            assert torch.equal(y_cm, y_tm)
+            assert cm.rows.dtype == torch.int32 and cm.rows.numel() == n_out
+
+
 class TestSignals:
     @pytest.mark.parametrize("name", ["tone", "tone_far", "comb", "impulse"])
     def test_deterministic_equal_jax(self, name):

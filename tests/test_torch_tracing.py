@@ -12,23 +12,26 @@
 * Outputs are bitwise the same with the profiler on and off.
 * ``carry_bytes`` counts the bytes of every carry's ``torch.cat`` output,
   reckoned here from the sizes of the carried buffers and the blocks.
-* :func:`counters` holds every wrapper's launches, the composed epilogues,
-  the carry's bytes and the cascades' corner-turn bytes.
+* :func:`counters` holds every wrapper's launches, the analysis's
+  channel-major launches, the composed epilogues, the carry's bytes and
+  the cascades' corner-turn bytes.
 * A cascade (a 16-channel stage 1 into the LowCBF firmware filterbank,
   then each coarse channel's inversion, oversampled and critical) emits
   ``two_stage.filterbank`` and ``two_stage.inverse_filterbank`` around its
   stages' spans and ``corner_turn`` in those; in ``inversion`` the
   oversampled slabs' ``kernel.inversion_fused``, the critical slabs'
   ``composed_epilogue`` after their ``dispatch``; ``corner_turn_bytes``
-  grows by the bytes of the two copies a forward makes, and by nothing
-  where every reshape is a view.
+  grows by nothing where every reshape is a view (both stages store
+  channel-major), and by the bytes of the output where a critical
+  cascade's chomp leaves it strided.
 * On the card (marked ``cuda``; this module imports neither JAX nor the
   JAX package, so it runs there with ``--noconftest``): the low and mid
   main paths and the low stream emit the same spans, the out-of-core
   pair's two kernels among mid's, one ``kernel.<name>`` span for each
   launch its wrapper counts; so does SKA-Low's PST cascade (sps into
   lowpsi), whose inversion is the fused kernel with no composed
-  epilogue.
+  epilogue, whose two analyses are channel-major launches and whose
+  corner turns copy nothing.
 """
 
 import contextlib
@@ -305,14 +308,15 @@ def test_carry_bytes_counts_the_cat_outputs(low_filt):
 
 def test_counters_hold_every_counter(cases):
     before = profiling.counters()
-    assert set(before) == {*wrappers(), "composed_epilogues", "carry_bytes",
-                           "corner_turn_bytes"}
+    assert set(before) == {*wrappers(), "analysis_fused_channel_major", "composed_epilogues",
+                           "carry_bytes", "corner_turn_bytes"}
     assert all(isinstance(v, int) for v in before.values())
     cases["stream"]()
     after = profiling.counters()
     # the CPU runs the plain versions: no launch, the carries counted
     assert after["carry_bytes"] > before["carry_bytes"]
     assert {k: after[k] - before[k] for k in wrappers()} == dict.fromkeys(wrappers(), 0)
+    assert after["analysis_fused_channel_major"] == before["analysis_fused_channel_major"]
 
 
 @pytest.mark.parametrize("critical", [False, True])
@@ -341,16 +345,17 @@ def test_cascade_spans_nest(cascade_configs, critical):
 
 @pytest.mark.parametrize("kw", [{}, {"critical": True}, {"single": True}])
 def test_corner_turn_bytes_counts_the_cascades_copies(cascade_configs, kw):
-    """The forward copies stage 1's spectra into one stream per coarse
-    channel and stage 2's channels into the output's layout; the chomp
-    (a slice of each coarse channel's kept channels) and the inverse's
-    slabs are views. With one coarse channel every reshape is a view."""
+    """Both stages store channel-major, so stage 1's spectra are one
+    stream per coarse channel and stage 2's channels the output's layout
+    as they stand: views, as are the inverse's slabs. The critical chomp
+    (a slice of each coarse channel's 216 kept channels) leaves the output
+    strided, and its reshape copies the output once."""
     x = _noise((2, CASCADE_N), 7)
     before = two_stage.corner_turn.bytes
     y, spectra1, z = run_cascade(cascade_configs, x, **kw)
     counted = two_stage.corner_turn.bytes - before
     assert spectra1 > 0 and y.shape[-1] > 0 and z.shape[-1] > 0
-    want = 0 if kw.get("single") else 8 * (2 * CASCADE_CHAN * spectra1 + y.numel())
+    want = 8 * y.numel() if kw.get("critical") else 0
     assert counted == want
     assert profiling.counters()["corner_turn_bytes"] == two_stage.corner_turn.bytes
 
@@ -389,8 +394,9 @@ def test_card_spans_nest_and_match_the_launches(low_filt, case):
 def test_card_cascade_spans_match_the_launches():
     """SKA-Low's PST cascade (sps into lowpsi) on the card over one
     inversion block: the same spans as on the CPU, one ``kernel.<name>``
-    span for each launch, the inversion the fused kernel with no composed
-    epilogue, and the corner turns' copies counted."""
+    span for each launch, both analyses channel-major launches, the
+    inversion the fused kernel with no composed epilogue, and no corner
+    turn copying."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -412,5 +418,5 @@ def test_card_cascade_spans_match_the_launches():
     assert {k: v for k, v in launched.items() if v} == {"analysis_fused": 2,
                                                         "inversion_fused": 1}
     assert after["composed_epilogues"] == before["composed_epilogues"]
-    assert (after["corner_turn_bytes"] - before["corner_turn_bytes"]
-            == 8 * (2 * 256 * spectra1 + y.numel()))
+    assert after["analysis_fused_channel_major"] - before["analysis_fused_channel_major"] == 2
+    assert spectra1 > 0 and after["corner_turn_bytes"] == before["corner_turn_bytes"]

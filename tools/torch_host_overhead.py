@@ -141,8 +141,8 @@ def main() -> int:
         "synthesis_fused (whole wrapper)": lambda: synthesis_fused(*fargs),
         "analysis_fused_launch (ctypes, launch)": lambda: lib.analysis_fused_launch(
             x.data_ptr(), chan.data_ptr(), low.f2d.data_ptr(), ptw.data_ptr(), ptw.data_ptr(),
-            low.ramp.data_ptr(), 2, x.shape[1], x.stride(0), nblocks, 256, 1, 8, low.step,
-            phases, low.ramp.shape[0], 0, SMEM_LIMIT, stream_of(x)),
+            low.ramp.data_ptr(), None, 2, x.shape[1], x.stride(0), nblocks, 256, 1, 8,
+            low.step, phases, low.ramp.shape[0], 0, 0, SMEM_LIMIT, stream_of(x)),
         "analysis_fused (whole wrapper)": lambda: analysis_fused(x, low.f2d, low.ramp, low.step),
         "padded_fold_launch (ctypes, launch, tensor map kept)": lambda: fold_launch(xm),
         "padded_fold_launch (ctypes, launch, tensor map encoded)": lambda: fold_launch(
