@@ -926,6 +926,8 @@ def main() -> int:
     kernels.append(run_channel_major(torch, dev, smi))
     torch.cuda.empty_cache()
     run_dedispersion(torch, dev, smi)
+    torch.cuda.empty_cache()
+    run_pst_node(torch, dev, smi)
 
     # 13-14. the file-level data_gen tools and the CLI drivers
     for phase, run in (("data_gen", lambda: run_data_gen(torch, dev, smi)),
@@ -1938,6 +1940,82 @@ def run_dedispersion(torch, dev, smi):
             f"{10 * math.log10(float(diff.max() / ref.max())):.2f} dB; inversion with the "
             f"chirp {ms:.3f} ms, its constants built once ({smi})")
         del clean, x, chan, a, b, c
+
+
+def run_pst_node(torch, dev, smi):
+    """Phase 12b: an SKA-Low PST node dedispersing J0437-4715 (DM 2.64476,
+    coarse channels from 150.0 MHz, 0.78125 MHz apart): the fused inversion
+    with its (256, 41472) chirp table at the node's geometry (216 monotonic
+    channels, each frame discarding the taper's 48 and the chirp's reach,
+    64 a side, hop 128) at the request's shapes, 512 slabs of 11 and of 22
+    blocks through the transposed view, against its plain version within
+    SYNTHESIS_TOL; then one block of the node itself,
+    ``TwoStageInverseFilterBank(lowpsi, nch2=216, dedispersion=...)``: one
+    inversion_fused launch and no composed epilogue (no plain version, no
+    torch.fft), against the node's plain chain on the card."""
+    from ska_pst_dsp_tpu_torch.models.two_stage import TwoStageInverseFilterBank
+    from ska_pst_dsp_tpu_torch.ops import synthesis as ps
+    from ska_pst_dsp_tpu_torch.ops.dedispersion import Dedispersion
+    from ska_pst_dsp_tpu_torch.ops.kernels import inversion_fused as inv
+    from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+    cfg = load_config("lowpsi")
+    band = Dedispersion(2.64476, 150.0, 0.78125)
+    node = TwoStageInverseFilterBank(cfg, nch2=216, device=dev, dedispersion=band)
+    state = node.init_state()
+    g = node._geom
+    n_chan, L, os_f = 216, cfg.input_fft_length, cfg.os_factor
+    check(g.input_overlap == 64, f"pst-node: overlap {g.input_overlap}, expected 64")
+    c = ps.synthesis_constants(n_chan, L, os_f, g.input_overlap,
+                               deripple_coeff=cfg.load_fir_filter_coeff(),
+                               temporal_taper="tukey", monotonic=True,
+                               spectral_filter=band.table(g.output_fft_length, 256, centred=True),
+                               taper_overlap=cfg.input_overlap)
+    consts = [torch.as_tensor(c[k], device=dev) for k in ("t_taper", "dr", "perm", "elem")]
+    keep, kpos = g.input_keep, (L // 2 + g.discard) % L
+    n, lo, roll, gain = g.output_fft_length, g.output_overlap, g.fn_width // 2, os_f.de / os_f.nu
+    check(inv.takes(L, n_chan, n, lo), "inversion_fused does not take the node's geometry")
+    gen = torch.Generator(device=dev)
+    for nb in (11, 22):
+        n_dat = 2 * g.input_overlap + nb * keep
+        gen.manual_seed(SEED + 23 + nb)
+        x = torch.randn((512, n_chan, n_dat + 64), dtype=torch.complex64, device=dev,
+                        generator=gen)[:, :, :n_dat].transpose(1, 2)
+
+        def fused():
+            return inv.inversion_fused(x, *consts, keep, kpos, nb, lo, roll, gain)
+
+        def plain():
+            fn = ps.frontend(x, *consts[:3], L, keep, kpos, nb)
+            return ps.epilogue(fn.reshape(512, nb, n), consts[3], lo, roll, gain, nb)
+
+        err = rel_err(fused(), plain())
+        check(err[1] <= SYNTHESIS_TOL, f"pst-node: the chirp table, {nb} blocks: {err[1]:.3g}")
+        dms = device_ms(torch, fused, "inversion_fused_kernel")
+        log("pst-node", f"inversion_fused with the (256, {n}) chirp table, 512 x {nb} blocks "
+            f"(discard {lo} a side): max|err|/scale {err[1]:.3g} (tol {SYNTHESIS_TOL}); "
+            f"kernel {time_ms(torch, fused):.4f} ms, device "
+            + (", ".join(f"{k} {v:.4f} ms" for k, v in dms.items()) or "not measured")
+            + f" ({smi})")
+        del x
+        torch.cuda.empty_cache()
+    x = torch.as_tensor(noise((2, 256 * n_chan, 2 * g.input_overlap + 11 * keep), SEED + 23),
+                        device=dev)
+    ws = reset_counts()
+    with plain_versions_raise(torch):
+        out = node.execute(state, x)[1]
+    counts = read_counts(torch, ws)
+    expect_launches("pst-node", counts, ("inversion_fused",), composed=False)
+    check(tuple(node._inv.elem.shape) == (256, n), f"pst-node: elem {tuple(node._inv.elem.shape)}")
+    plain = TwoStageInverseFilterBank(cfg, nch2=216, device=dev, plain=True, dedispersion=band)
+    ref = plain.execute(plain.init_state(), x)[1]
+    err = rel_err(out, ref)
+    check(out.shape == ref.shape == (2, 256, 11 * g.output_keep), f"pst-node: {out.shape}")
+    check(err[1] <= SYNTHESIS_TOL, f"pst-node: the node against its plain chain {err[1]:.3g}")
+    log("pst-node", f"TwoStageInverseFilterBank with dedispersion, 2 x 256 x 216 x {x.shape[2]}: "
+        f"launches {counts}; against the plain chain max|err|/scale {err[1]:.3g} "
+        f"(tol {SYNTHESIS_TOL}) ({smi})")
+    del x, out, ref
 
 
 # ---------------------------------------------------------------------------

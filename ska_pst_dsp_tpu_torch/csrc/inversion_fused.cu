@@ -23,11 +23,13 @@
 //
 //   X[p, b, 192*c + j] = dr[j] * sum_t taper[t] * x[p, b*keep + t, perm[c]]
 //                               * w_L^(t * ((kpos + j) mod L))
-//   y[p, b, t - lo]    = IFFT(roll(X[p, b] * elem, -roll))[t] * gain,
+//   y[p, b, t - lo]    = IFFT(roll(X[p, b] * elem[p % rows], -roll))[t] * gain,
 //                        t in [lo, N - lo)
 //
 // as synthesis_fused followed by the epilogue computes it; the frontend's
-// DFT runs as 16 * 16.
+// DFT runs as 16 * 16. elem is a (rows, N) table (rows = 1: one factor for
+// every stream; an SKA-Low PST node's chirps, one a coarse channel, with
+// the streams laid out (pol, coarse channel): rows = the coarse channels).
 //
 // What bounds it on the H100: bytes. The two kernels it replaces at SKA-Low
 // met in device memory: the frontend wrote each (pol, block)'s assembled
@@ -296,7 +298,8 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
                        const float2* __restrict__ tw_n1, const float2* __restrict__ tw_a,
                        const float2* __restrict__ tw_b, const float2* __restrict__ tw_row,
                        long long sp, long long st, long long sc, int n_blocks, int n_tr,
-                       int keep, int kpos, int roll, int k1_lo, int n1_keep, float scale) {
+                       int rows, int keep, int kpos, int roll, int k1_lo, int n1_keep,
+                       float scale) {
   constexpr int kN = P::kN, kN1 = P::kN1, kN2 = P::kN2, kCpc = P::kCpc, kRows = P::kRows;
   constexpr int kLdr = P::kLdr, kR1 = P::kR1, kQ1 = P::kQ1, kG = P::kG, kTwA = P::kTwA;
   constexpr int TS = 16 / kG;  // w_Q1^(j*d) = w_128^(TS*j*d) = twr[(d - 1)*16 + TS*j]
@@ -350,6 +353,9 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
       frame_load<P, kHalf>(v, x, perm, sp, st, sc, n_blocks, keep, tr + n_cl, ch0);
     }
     cluster_wait();  // every block's columns are complete, every frontend row read
+    // this transform's stream p reads row p % rows of the elem table
+    const float2* el = elem;
+    if (el != nullptr) el += static_cast<long long>((tr / n_blocks) % rows) * kN;
 
     if constexpr (kN2 == 128) {
       // columns, 128 = 8 * 16: the radix-8 pass of span 16 (times elem on
@@ -360,12 +366,12 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
         float2 w[8];
 #pragma unroll
         for (int m = 0; m < 8; ++m) w[m] = col[(j + 16 * m) * kCpc + c];
-        if (elem != nullptr) {
+        if (el != nullptr) {
 #pragma unroll
           for (int m = 0; m < 8; ++m) {
             int k = (j + 16 * m) * kN1 + c0 + c + roll;  // the position's bin before the shift
             if (k >= kN) k -= kN;
-            w[m] = c_mul(w[m], __ldg(elem + k));
+            w[m] = c_mul(w[m], __ldg(el + k));
           }
         }
         dft_reg<8, 1>(w);
@@ -406,12 +412,12 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
         float2 w[6];
 #pragma unroll
         for (int m = 0; m < 6; ++m) w[m] = col[(j + 36 * m) * kCpc + c];
-        if (elem != nullptr) {
+        if (el != nullptr) {
 #pragma unroll
           for (int m = 0; m < 6; ++m) {
             int k = (j + 36 * m) * kN1 + c0 + c + roll;  // the position's bin before the shift
             if (k >= kN) k -= kN;
-            w[m] = c_mul(w[m], __ldg(elem + k));
+            w[m] = c_mul(w[m], __ldg(el + k));
           }
         }
         dft6(w);
@@ -529,7 +535,7 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
 using InvKern = void (*)(const float2*, const float2*, float2*, const float*, const float*,
                          const int*, const float2*, const float2*, const float2*,
                          const float2*, const float2*, const float2*, long long, long long,
-                         long long, int, int, int, int, int, int, int, float);
+                         long long, int, int, int, int, int, int, int, int, float);
 
 // The launch configuration of `kern` (shared memory `smem`) on clusters of
 // eight: its shared-memory allowance set, and how many of its clusters are
@@ -586,7 +592,7 @@ struct InvArgs {
   const int* perm;
   const float2 *tw_l, *tw_pass, *tw_n1, *tw_a, *tw_b, *tw_row;
   long long sp, st, sc;
-  int n_blocks, n_tr, keep, kpos, roll, k1_lo, n1_keep;
+  int n_blocks, n_tr, rows, keep, kpos, roll, k1_lo, n1_keep;
   float scale;
   cudaStream_t stream;
 };
@@ -617,8 +623,8 @@ static cudaError_t inversion_entry(const InvArgs* a, int* clusters) {
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kern, a->x, a->elem, a->out, a->taper, a->dr, a->perm, a->tw_l,
                          a->tw_pass, a->tw_n1, a->tw_a, a->tw_b, a->tw_row, a->sp, a->st, a->sc,
-                         a->n_blocks, a->n_tr, a->keep, a->kpos, a->roll, a->k1_lo, a->n1_keep,
-                         a->scale);
+                         a->n_blocks, a->n_tr, a->rows, a->keep, a->kpos, a->roll, a->k1_lo,
+                         a->n1_keep, a->scale);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -640,8 +646,9 @@ extern "C" int inversion_fused_clusters(int n_chan, int* clusters) {
 }
 
 // x: complex64 stream with element strides (sp, st, sc) over (pol, time,
-// chan), every frame b*keep + [0, L) inside it; elem: (N,) complex64,
-// pre-rolled by +roll, or null; out: (n_pol, n_blocks, n1_keep * n2)
+// chan), every frame b*keep + [0, L) inside it; elem: (rows, N) complex64,
+// each row pre-rolled by +roll, stream p reading row p % rows (n_pol a
+// multiple of rows), or null; out: (n_pol, n_blocks, n1_keep * n2)
 // complex64, the kept k1 in [k1_lo, k1_lo + n1_keep); taper: (L,) float32;
 // dr: (FN_width,) float32; perm: (n_chan,) int32; tw_l: (L,) w_L^m of the
 // forward transform; tw_pass: the column transform's per-pass table;
@@ -656,11 +663,11 @@ extern "C" int inversion_fused_launch(const void* x, const void* elem, void* out
                                       const void* tw_n1, const void* tw_a, const void* tw_b,
                                       const void* tw_row, long long sp, long long st,
                                       long long sc, int n_pol, int n_chan, int n_blocks, int L,
-                                      int keep, int kpos, int roll, int fnw, int k1_lo,
-                                      int n1_keep, float scale, void* stream) {
+                                      int rows, int keep, int kpos, int roll, int fnw,
+                                      int k1_lo, int n1_keep, float scale, void* stream) {
   const long long n_tr = static_cast<long long>(n_pol) * n_blocks;
   if (L != kL || fnw != kFnw || n_pol <= 0 || n_blocks <= 0 || n_tr > (1LL << 30) ||
-      keep <= 0 || kpos < 0 || kpos >= kL) {
+      rows <= 0 || n_pol % rows || keep <= 0 || kpos < 0 || kpos >= kL) {
     return cudaErrorInvalidValue;
   }
   const InvArgs a = {
@@ -670,7 +677,7 @@ extern "C" int inversion_fused_launch(const void* x, const void* elem, void* out
       static_cast<const float2*>(tw_l),   static_cast<const float2*>(tw_pass),
       static_cast<const float2*>(tw_n1),  static_cast<const float2*>(tw_a),
       static_cast<const float2*>(tw_b),   static_cast<const float2*>(tw_row),
-      sp, st, sc, n_blocks, static_cast<int>(n_tr), keep, kpos, roll, k1_lo, n1_keep, scale,
+      sp, st, sc, n_blocks, static_cast<int>(n_tr), rows, keep, kpos, roll, k1_lo, n1_keep, scale,
       static_cast<cudaStream_t>(stream)};
   int clusters = 0;
   return inversion_dispatch(n_chan, &a, &clusters);

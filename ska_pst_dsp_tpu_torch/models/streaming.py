@@ -289,17 +289,23 @@ class InverseFilterBank(nn.Module):
     def __init__(self, config, *, critical: bool = False, combine: int = 1,
                  sample_offset: int = 0, spectral_taper="no_window",
                  deripple: Optional[bool] = None, chunk_blocks: Optional[int] = None,
-                 monotonic: bool = False, device="cuda", plain: bool = False):
+                 monotonic: bool = False, device="cuda", plain: bool = False,
+                 overlap: Optional[int] = None):
         super().__init__()
         self.config = config
         self.filt_coeff = np.asarray(config.load_fir_filter_coeff())
         self.n_fft = config.input_fft_length
         self.n_chan = config.channels
         self.os_factor = Rational.coerce(config.os_factor)
-        self.overlap = config.input_overlap
+        #: the input overlap discarded a side (default the configuration's,
+        #: which the temporal taper spans whatever this is)
+        self.overlap = config.input_overlap if overlap is None else overlap
         self.deripple = bool(config.deripple) if deripple is None else deripple
         self.temporal_taper = config.temporal_taper
         self.spectral_taper = spectral_taper
+        #: the spectral filter on the inversion's output spectrum
+        #: (:meth:`set_spectral_filter`)
+        self.spectral_filter = None
         self.critical = critical
         self.combine = combine
         #: fine channels arrive in monotonic (fftshifted) frequency order
@@ -323,6 +329,15 @@ class InverseFilterBank(nn.Module):
         self._n_chan_built = None
         return self
 
+    def set_spectral_filter(self, spectral_filter) -> "InverseFilterBank":
+        """Install a spectral filter on the inversion's output spectrum
+        (``synthesis_constants``): (N,), or (rows, N), the row ``s % rows``
+        of stream s (a coherent-dedispersion chirp a coarse channel); None
+        removes it."""
+        self.spectral_filter = spectral_filter
+        self._n_chan_built = None
+        return self
+
     def init_state(self) -> InverseFilterBankState:
         self._offset_pending = self.sample_offset
         return InverseFilterBankState()
@@ -338,6 +353,7 @@ class InverseFilterBank(nn.Module):
             deripple_coeff=self.filt_coeff if self.deripple else None,
             temporal_taper=self.temporal_taper, spectral_taper=self.spectral_taper,
             combine=self.combine, monotonic=self.monotonic,
+            spectral_filter=self.spectral_filter, taper_overlap=self.config.input_overlap,
         )
         for name in ("t_taper", "dr", "perm", "elem"):
             setattr(self, name, None if c[name] is None

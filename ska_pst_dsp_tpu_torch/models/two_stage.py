@@ -19,19 +19,39 @@ the chomp and the layout of the output, the inverse's slabs) are the
 ``corner_turn`` span; the bytes of those that copy (the critical chomps,
 and the corner turns of a time-major stage) are counted in
 ``corner_turn.bytes``.
+
+The inverse cascade can dedisperse each coarse channel coherently inside
+its inversion, as an SKA-Low PST node does with LowCBF's PST beam
+(``dedispersion``, an :class:`..ops.dedispersion.Dedispersion`): one chirp
+a coarse channel at its own centre frequency, the inversion's ``(coarse
+channels, N)`` spectral filter, built once per channel count (the
+``chirp_table`` span). The inversion of monotonic (LowCBF) fine channels
+holds the coarse channel's centre at bin N/2 of its spectrum and its lowest
+fine channel's centre at bin 0 (its output is the coarse channel shifted by
+half its band), so the chirp rows are fftshifted to that order;
+dedispersion takes the oversampled slab only. The chirp of a kept sample
+reads the samples within its reach on either side, and those have to be
+untapered: the inversion then discards the temporal taper's overlap plus
+the band's widest reach a side (dspsr's discard of taper plus the
+response's impulse), so its hop shortens. A DM whose discard leaves
+nothing of a frame to keep is refused at ``init_state``: it needs a longer
+inversion.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+from ska_pst_dsp_tpu_torch.utils import geometry
 from ska_pst_dsp_tpu_torch.utils.profiling import span, spanned
 from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
+from ..ops.dedispersion import Dedispersion
 from .streaming import (
     LOWCBF, FilterBank, FilterBankState, InverseFilterBank, InverseFilterBankState, as_tensor,
 )
@@ -150,11 +170,13 @@ class TwoStageInverseFilterBank(nn.Module):
 
     Detects critical vs oversampled input from the per-coarse-channel count
     (:100-115) and feeds ``nch2*combine``-channel slabs through one batched
-    Golden inversion.
+    Golden inversion. ``dedispersion``: each coarse channel dedispersed
+    inside the inversion at its centre frequency (the module's docstring).
     """
 
     def __init__(self, config, config2=None, *, single=False, combine=1,
-                 nch2: Optional[int] = None, device="cuda", plain=False):
+                 nch2: Optional[int] = None, device="cuda", plain=False,
+                 dedispersion: Optional[Dedispersion] = None):
         super().__init__()
         self.config1 = config
         self.config2 = config2 if config2 is not None else config
@@ -163,9 +185,12 @@ class TwoStageInverseFilterBank(nn.Module):
         self.nch2 = nch2 if nch2 is not None else self.config2.channels
         self.spectral_taper = "no_window"
         self.device, self.plain = torch.device(device), plain
+        self.dedispersion = dedispersion
         #: the batched inversion, built by the first init_state and kept
         #: (with its constants) by the next ones
         self._inv = None
+        #: the coarse channels the inversion's chirp table was built for
+        self._chirp_rows = None
 
     def frequency_taper(self, name) -> "TwoStageInverseFilterBank":
         self.spectral_taper = name
@@ -191,14 +216,41 @@ class TwoStageInverseFilterBank(nn.Module):
                 f"invalid per-coarse channel count {self.nch2}: stage2 has "
                 f"{full_nchan} ({critical_nchan} critical)"
             )
-        self._critical = critical
+        if critical and self.dedispersion is not None:
+            raise ValueError("dedispersion takes the oversampled slab, not the critical one")
+        self._critical, self._monotonic = critical, monotonic
         if self._inv is None:
             self._inv = InverseFilterBank(
                 self.config2, critical=critical, combine=self.combine,
                 spectral_taper=self.spectral_taper, monotonic=monotonic,
                 device=self.device, plain=self.plain,
+                overlap=None if self.dedispersion is None else self.dedispersion_overlap(),
             )
+            self._chirp_rows = None
+        self._geom = geometry.SynthesisGeometry(
+            self.nch2 * self.combine, self._inv.n_fft, self._inv.overlap, self._inv.os_factor)
         return TwoStageInverseFilterBankState(self._inv.init_state())
+
+    def dedispersion_overlap(self) -> int:
+        """The input overlap the inversion discards a side when it
+        dedisperses: the configuration's, which the temporal taper spans,
+        plus the chirp's reach of the lowest coarse channel (the band's
+        widest) in whole input samples, rounded up to a multiple of nu so
+        that the output discard is whole output samples. ValueError where
+        that leaves nothing of a frame to keep."""
+        d, c = self.dedispersion, self.config2
+        os = Rational.coerce(c.os_factor)
+        taper, frame = c.input_overlap, c.input_fft_length
+        per = os.de * self.nch2 * self.combine / os.nu  # output samples an input sample
+        need = taper + math.ceil(d.reach() / per)
+        need = -(-need // os.nu) * os.nu
+        if 2 * need >= frame:
+            raise ValueError(
+                f"DM {d.dm}: the chirp of the {d.first_centre_mhz} MHz coarse channel reaches "
+                f"{d.reach():.0f} samples; beside the temporal taper's {taper * per:.0f} the "
+                f"inversion would discard an input overlap of {need} a side, which leaves "
+                f"nothing of its {frame}-sample frames: it needs a longer inversion")
+        return need
 
     @spanned("two_stage.inverse_filterbank")
     def execute(self, state: TwoStageInverseFilterBankState, x
@@ -209,6 +261,12 @@ class TwoStageInverseFilterBank(nn.Module):
         n_pol, nchan, n_dat = x.shape
         nch_in = self.nch2 * self.combine
         nch_out = 1 if self.single else nchan // nch_in
+        if self.dedispersion is not None and self._chirp_rows != nch_out:
+            with span("chirp_table"):
+                table = self.dedispersion.table(self._geom.output_fft_length, nch_out,
+                                                centred=self._monotonic)
+            self._inv.set_spectral_filter(table)
+            self._chirp_rows = nch_out
         # batch coarse channels: (n_pol*nch_out, nch_in, T)
         with span("corner_turn"):
             slabs = corner_turn(x, x[:, : nch_out * nch_in, :].reshape(n_pol * nch_out, nch_in,

@@ -12,10 +12,19 @@ package has no kernel for it either). Inside the Golden inversion the chirp
 rides the ``spectral_filter`` slot: it becomes the epilogue's ``elem``
 factor, on the cluster epilogue or the out-of-core pair
 (:func:`.kernels.synthesis_fused.polyphase_synthesis_fused`).
+
+A node that inverts many coarse channels at once dedisperses each at its
+own centre frequency: :func:`chirp_table` is one chirp a coarse channel,
+the inversion's ``elem`` as a ``(rows, N)`` table whose row ``p % rows``
+stream p reads (:class:`Dedispersion` describes the band,
+``models.two_stage.TwoStageInverseFilterBank`` builds and checks it). Each
+chirp refers its channel to its own centre: the delay between channels is
+left to the folding, as dspsr leaves it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple, Union
 
 import numpy as np
@@ -43,6 +52,58 @@ def chirp_phase(n: int, dm: float, center_freq_mhz: float, bw_mhz: float) -> np.
     return (
         2.0 * np.pi * KDM * 1e6 * dm * df**2 / (f0**2 * (f0 + df))
     )  # 1e6: k_DM in s -> phase at MHz frequencies
+
+
+def chirp_table(n: int, dm: float, centres_mhz, bw_mhz: float) -> np.ndarray:
+    """(len(centres_mhz), n) complex64: row r :func:`chirp_filter` at
+    ``centres_mhz[r]``, its phases taken in float64 (they reach ~3e3 rad
+    at 150 MHz, where float32 would be off by ~2e-4 rad)."""
+    centres = np.asarray(centres_mhz, dtype=np.float64).reshape(-1)
+    return np.stack([chirp_filter(n, dm, f0, bw_mhz) for f0 in centres])
+
+
+def reach_samples(dm: float, centre_mhz: float, bw_mhz: float) -> float:
+    """The larger one-sided extent of the chirp's response, in samples at
+    ``bw_mhz`` complex sampling: the delay of the channel's lower edge
+    behind its centre (a little over half the smear across the channel).
+    The inversion's output discard on each side has to hold it beside the
+    temporal taper."""
+    return dispersion_delay(dm, centre_mhz - bw_mhz / 2, centre_mhz) * bw_mhz * 1e6
+
+
+@dataclasses.dataclass(frozen=True)
+class Dedispersion:
+    """Coherent dedispersion at ``dm`` of a band of coarse channels, in
+    their output order: the first centred at ``first_centre_mhz``, each
+    next ``coarse_bw_mhz`` higher, each ``coarse_bw_mhz`` wide (the
+    inversion's output rate)."""
+
+    dm: float
+    first_centre_mhz: float
+    coarse_bw_mhz: float
+
+    def __post_init__(self):
+        if self.coarse_bw_mhz <= 0 or self.first_centre_mhz <= self.coarse_bw_mhz / 2:
+            raise ValueError(f"a band needs coarse_bw_mhz > 0 and every channel above 0 MHz: "
+                             f"{self}")
+
+    def centres(self, channels: int) -> np.ndarray:
+        """The centres of the first ``channels`` coarse channels, MHz."""
+        return self.first_centre_mhz + self.coarse_bw_mhz * np.arange(channels)
+
+    def reach(self) -> float:
+        """:func:`reach_samples` of the lowest channel, the first: the
+        largest of the band's (its size, for a dispersing, negative DM
+        too)."""
+        return abs(reach_samples(self.dm, self.first_centre_mhz, self.coarse_bw_mhz))
+
+    def table(self, n: int, channels: int, centred: bool = False) -> np.ndarray:
+        """:func:`chirp_table` of the first ``channels`` coarse channels at
+        n points; ``centred``: each row fftshifted, bin k at offset
+        (k - n/2)/n * bw, for a spectrum that holds the channel's centre at
+        bin n/2 (the inversion of monotonic fine channels)."""
+        table = chirp_table(n, self.dm, self.centres(channels), self.coarse_bw_mhz)
+        return np.fft.fftshift(table, axes=-1) if centred else table
 
 
 def chirp_filter(n: int, dm: float, center_freq_mhz: float, bw_mhz: float,

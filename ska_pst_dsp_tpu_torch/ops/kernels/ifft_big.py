@@ -186,7 +186,8 @@ def fused_big_ifft_oc(flat, elem=None, *, shape_key):
     """Out-of-core IFFT(roll(X * elem, -roll)) * gain, keeping [lo, N-lo).
 
     flat: (n_pol, B, N) assembled spectra, complex or an (re, im) pair
-    (same kind out); elem: optional (N,) factor, pre-rolled by +roll;
+    (same kind out); elem: optional (N,) factor, pre-rolled by +roll
+    (ValueError for a (rows, N) table: no row of it is applied to every stream);
     shape_key: (n, p, q, n1, lo, roll, gain), the JAX package's key with
     :func:`plan_big_ifft`'s split, n = p*q*n1 (the inversion passes p = 1,
     q = n2 of :func:`.synthesis_fused.epilogue_plan`'s split). Returns
@@ -196,6 +197,10 @@ def fused_big_ifft_oc(flat, elem=None, *, shape_key):
     n, p, q, n1, lo, roll, gain = shape_key
     x, pair = cfft.as_complex(flat)
     e = None if elem is None else cfft.as_complex(elem)[0]
+    if e is not None and e.ndim != 1:
+        raise ValueError(f"fused_big_ifft_oc applies one (N,) elem to every stream, got "
+                         f"{tuple(e.shape)}: a (rows, N) table runs on inversion_fused or "
+                         f"the composed epilogue")
     if n != p * q * n1 or x.shape[-1] != n:
         raise ValueError(f"flat must be (n_pol, B, {n}) with n = p*q*n1")
     if x.device.type == "cpu":

@@ -98,7 +98,8 @@ def fused_big_ifft(flat, elem=None, *, shape_key, n_valid: Optional[int] = None)
     """Fused IFFT(roll(X * elem, -roll)) * gain, keeping [lo, N-lo).
 
     flat: (n_pol, B, N) assembled spectra, complex or an (re, im) pair
-    (same kind out); elem: optional (N,) factor, pre-rolled by +roll;
+    (same kind out); elem: optional (N,) factor, pre-rolled by +roll
+    (ValueError for a (rows, N) table: no row of it is applied to every stream);
     shape_key: (n, n2, n1, lo, roll, gain) with n == n2 * n1. Returns
     (n_pol, n_valid, N - 2*lo); blocks past ``n_valid`` (default all) are
     never computed. A CPU tensor runs the plain version; a CUDA tensor
@@ -107,6 +108,10 @@ def fused_big_ifft(flat, elem=None, *, shape_key, n_valid: Optional[int] = None)
     n, n2, n1, lo, roll, gain = shape_key
     x, pair = cfft.as_complex(flat)
     e = None if elem is None else cfft.as_complex(elem)[0]
+    if e is not None and e.ndim != 1:
+        raise ValueError(f"fused_big_ifft applies one (N,) elem to every stream, got "
+                         f"{tuple(e.shape)}: a (rows, N) table runs on inversion_fused or "
+                         f"the composed epilogue")
     if n_valid is None:
         n_valid = x.shape[1]
     if x.device.type == "cpu":

@@ -2,12 +2,14 @@
 
 At the two geometries it is instantiated for (:data:`GEOMETRIES`: L = 256,
 FN_width = 192, SKA-Low's 256 channels and a LowCBF PST slab's 216 kept
-channels) the CUDA kernel (``csrc/inversion_fused.cu``) runs
-:mod:`.synthesis_fused`'s frontend and the epilogue together: a cluster of
-eight thread blocks, each the frontend of an eighth of the channels, stores
-each assembled block's bins straight into the column buffers of the
-cluster's blocks (distributed shared memory) and runs the four-step inverse
-transform there, so the assembled spectra never pass through device memory.
+channels; any output overlap of whole rows of the split, such as the wider
+discard a coherently dedispersing PST node takes) the CUDA kernel
+(``csrc/inversion_fused.cu``) runs :mod:`.synthesis_fused`'s frontend and
+the epilogue together: a cluster of eight thread blocks, each the frontend
+of an eighth of the channels, stores each assembled block's bins straight
+into the column buffers of the cluster's blocks (distributed shared
+memory) and runs the four-step inverse transform there, so the assembled
+spectra never pass through device memory.
 Every other geometry keeps the frontend kernel and its epilogue
 (:func:`takes` decides). Its plain version is
 :func:`ska_pst_dsp_tpu_torch.ops.synthesis.frontend` followed by
@@ -25,12 +27,12 @@ import torch
 from ..synthesis import epilogue, frontend
 from . import cluster_twiddles, kernel, launch, pass_twiddles, query, require, twiddles
 
-#: (frame length L, channels, points N of an assembled block, output
-#: overlap) -> the (n2, n1) split of the block: the geometries the kernel is
-#: instantiated for (csrc/inversion_fused.cu InvPlan), FN_width = 192
+#: (frame length L, channels, points N of an assembled block) -> the
+#: (n2, n1) split of the block: the geometries the kernel is instantiated
+#: for (csrc/inversion_fused.cu InvPlan), FN_width = 192
 GEOMETRIES = {
-    (256, 256, 49152, 9216): (128, 384),  # SKA-Low
-    (256, 216, 41472, 7776): (216, 192),  # a LowCBF PST slab: 216 kept channels
+    (256, 256, 49152): (128, 384),  # SKA-Low
+    (256, 216, 41472): (216, 192),  # a LowCBF PST slab: 216 kept channels
 }
 #: n2 -> S of the N-level twiddle w_N^(m1*k2) = tw_a[k2 // S, m1] * tw_b[k2 % S, m1]
 TW_SPLIT = {128: 16, 216: 36}
@@ -39,8 +41,10 @@ TW_SPLIT = {128: 16, 216: 36}
 def takes(L: int, n_chan: int, n: int, lo: int) -> bool:
     """Whether the card has the fused kernel for an inversion with frame
     length L, n_chan channels, n-point blocks and output overlap lo: one of
-    :data:`GEOMETRIES`."""
-    return (L, n_chan, n, lo) in GEOMETRIES
+    :data:`GEOMETRIES`, discarding whole rows of its split (lo a multiple
+    of n2) and keeping some."""
+    split = GEOMETRIES.get((L, n_chan, n))
+    return split is not None and lo % split[0] == 0 and 0 <= 2 * lo < n
 
 
 def radix6_pass_twiddles(q: int, sign: int) -> np.ndarray:
@@ -96,9 +100,10 @@ def inversion_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     N - 2*lo): the frontend (output channel c reads input channel perm[c];
     kept bin j is raw DFT bin (kpos + j) mod L times dr[j]) then
     IFFT(roll(X * elem, -roll))[lo:N-lo] * gain of each assembled block, with
-    elem (N,) pre-rolled by +roll or None. A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel, which takes the geometry of
-    :func:`takes` only and raises ValueError for any other."""
+    elem pre-rolled by +roll or None: (N,), or a (rows, N) table whose row
+    ``p % rows`` stream p reads (n_pol a multiple of rows). A CPU tensor
+    runs the plain version; a CUDA tensor launches the kernel, which takes
+    the geometry of :func:`takes` only and raises ValueError for any other."""
     n_pol, n_dat, n_chan = x_tc.shape
     L, fnw = t_taper.shape[0], dr.shape[0]
     n = n_chan * fnw
@@ -107,8 +112,8 @@ def inversion_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
         return epilogue(fn.reshape(n_pol, n_blocks, n), elem, lo, roll, gain, n_blocks)
     if not takes(L, n_chan, n, lo):
         raise ValueError(
-            f"inversion_fused takes (L, channels, points, overlap) in {sorted(GEOMETRIES)}; "
-            f"got {(L, n_chan, n, lo)}"
+            f"inversion_fused takes (L, channels, points) in {sorted(GEOMETRIES)} with an "
+            f"output overlap of whole rows (n2) that keeps some; got {(L, n_chan, n, lo)}"
         )
     dev = x_tc.device
     if x_tc.dtype != torch.complex64:
@@ -123,11 +128,14 @@ def inversion_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
             f"{n_blocks} overlap-save blocks of {L} at hop {keep} do not fit "
             f"in {n_dat} samples"
         )
+    rows = 1
     if elem is not None:
         elem = require(elem, "elem", torch.complex64, dev)
-        if elem.shape != (n,):
-            raise ValueError(f"elem must be ({n},), got {tuple(elem.shape)}")
-    n2, n1 = GEOMETRIES[(L, n_chan, n, lo)]
+        rows = elem.shape[0] if elem.ndim == 2 else 1
+        if elem.ndim not in (1, 2) or elem.shape[-1] != n or rows == 0 or n_pol % rows:
+            raise ValueError(f"elem must be ({n},) or (rows, {n}) with {n_pol} streams a "
+                             f"multiple of rows, got {tuple(elem.shape)}")
+    n2, n1 = GEOMETRIES[(L, n_chan, n)]
     out = torch.empty((n_pol, n_blocks, n - 2 * lo), dtype=torch.complex64, device=dev)
     tab = _device_tables(n, n2, n1, dev)
     sp, st, sc = x_tc.stride()
@@ -135,6 +143,6 @@ def inversion_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
            x_tc.data_ptr(), None if elem is None else elem.data_ptr(), out.data_ptr(),
            t_taper.data_ptr(), dr.data_ptr(), perm.data_ptr(), twiddles(L, -1, dev).data_ptr(),
            *(tab[k].data_ptr() for k in ("tw_col", "tw_n1", "tw_a", "tw_b", "tw_row")),
-           sp, st, sc, n_pol, n_chan, n_blocks, L, keep, kpos % L, roll % n, fnw,
+           sp, st, sc, n_pol, n_chan, n_blocks, L, rows, keep, kpos % L, roll % n, fnw,
            lo // n2, (n - 2 * lo) // n2, gain / n)
     return out

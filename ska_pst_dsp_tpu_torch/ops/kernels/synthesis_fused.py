@@ -133,8 +133,10 @@ def epilogue_dispatch(flat: torch.Tensor, elem: Optional[torch.Tensor],
     :func:`epilogue_plan` gives (its lookup is the ``dispatch`` span), then
     called after that span has ended; where no plan applies, the composed
     epilogue, as in the JAX package (the ``composed_epilogue`` span),
-    counted in ``fused_inversion.composed_epilogues``. On the card a split
-    no kernel takes raises ValueError."""
+    counted in ``fused_inversion.composed_epilogues``. ``elem`` as in
+    :func:`fused_inversion`: the composed epilogue takes a (rows, N) table,
+    the two kernel routes one (N,) factor. On the card a split no kernel
+    takes raises ValueError."""
     n = geom.output_fft_length
     lo = geom.output_overlap
     roll, gain = _roll_gain(geom, spans_nyquist)
@@ -166,8 +168,11 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     :func:`.inversion_fused.takes` the geometry (SKA-Low, a LowCBF PST
     slab); elsewhere the frontend kernel + :func:`epilogue_dispatch`. On a (n_pol, n_dat,
     n_chan) view; the first ``valid_len`` samples (default all) are data.
-    Returns (n_pol, 1, n_blocks * output_keep) complex64. On the card a
-    frame length or a split no kernel takes raises ValueError."""
+    ``elem``: (N,), a (rows, N) table whose row ``p % rows`` stream p reads,
+    or None. Returns (n_pol, 1, n_blocks * output_keep) complex64. On the
+    card a frame length or a split no kernel takes raises ValueError; so
+    does a (rows, N) table on the cluster epilogue or the out-of-core
+    pair."""
     n_pol, n_dat, n_chan = x_tc.shape
     L = geom.input_fft_length
     if n_dat < L:

@@ -73,18 +73,25 @@ def synthesis_constants(
     combine: int = 1,
     monotonic: bool = False,
     spectral_filter=None,
+    taper_overlap: Optional[int] = None,
 ) -> Dict[str, Optional[np.ndarray]]:
     """Host constants of the inversion, under the JAX package's names:
     ``t_taper`` (L,) float32, ``dr`` (FN_width,) float32 deripple (ones
     when disabled), ``perm`` (n_chan,) int32, and ``elem`` — the spectral
     taper times the spectral filter, pre-rolled by +roll, complex64, or
-    None when both are identity."""
+    None when both are identity. A ``(rows, N)`` spectral filter (one row
+    a stream, stream s reading row ``s % rows``: a chirp a coarse channel,
+    :func:`.dedispersion.chirp_table`) gives a ``(rows, N)`` ``elem``,
+    each row rolled. The tapers' edges span ``taper_overlap`` (default
+    ``input_overlap``): a discard wider than the taper leaves the chirp's
+    reach of each kept edge untapered."""
     os_factor = Rational.coerce(os_factor)
     L = input_fft_length
     geom = geometry.SynthesisGeometry(n_chan, L, input_overlap, os_factor)
     fnw = geom.fn_width
-    t_vec = _window(temporal_taper, L, input_overlap)
-    s_vec = _window(spectral_taper, n_chan * fnw, input_overlap)
+    taper = input_overlap if taper_overlap is None else taper_overlap
+    t_vec = _window(temporal_taper, L, taper)
+    s_vec = _window(spectral_taper, n_chan * fnw, taper)
 
     if deripple_coeff is not None:
         from ska_pst_dsp_tpu_torch.design.fir import deripple_response
@@ -100,6 +107,7 @@ def synthesis_constants(
 
     elem = None
     if spectral_filter is not None or not np.all(s_vec == 1.0):
+        n = n_chan * fnw
         e = np.asarray(s_vec, dtype=np.float64).astype(np.complex128)
         if spectral_filter is not None:
             if isinstance(spectral_filter, tuple):
@@ -109,14 +117,15 @@ def synthesis_constants(
                 sf_r, sf_i = sf.real, sf.imag
             sf_r = np.asarray(sf_r, dtype=np.float32)
             sf_i = np.asarray(sf_i, dtype=np.float32)
-            if sf_r.shape != (n_chan * fnw,) or sf_i.shape != (n_chan * fnw,):
+            if (sf_r.shape != sf_i.shape or sf_r.ndim not in (1, 2) or sf_r.shape[-1] != n
+                    or sf_r.shape[0] == 0):
                 raise ValueError(
-                    f"spectral_filter must have shape ({n_chan * fnw},), "
+                    f"spectral_filter must have shape ({n},) or (rows, {n}), "
                     f"got re {sf_r.shape} / im {sf_i.shape}"
                 )
             e = e * (sf_r.astype(np.float64) + 1j * sf_i.astype(np.float64))
         roll = fnw // 2 if spans_nyquist else 0
-        elem = np.roll(e, roll).astype(np.complex64)
+        elem = np.roll(e, roll, axis=-1).astype(np.complex64)
     return {"t_taper": t_vec, "dr": dr, "perm": perm, "elem": elem}
 
 
@@ -136,10 +145,13 @@ def frontend(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
 def epilogue(flat: torch.Tensor, elem: Optional[torch.Tensor], lo: int,
              roll: int, gain: float, n_valid: int) -> torch.Tensor:
     """(n_pol, B >= n_valid, N) assembled spectra -> (n_pol, n_valid,
-    N - 2*lo): IFFT(roll(X * elem, -roll))[lo:N-lo] * gain."""
+    N - 2*lo): IFFT(roll(X * elem, -roll))[lo:N-lo] * gain; a (rows, N)
+    elem applies row ``s % rows`` to stream s (n_pol a multiple of rows)."""
     n = flat.shape[-1]
     z = flat[:, :n_valid]
-    if elem is not None:
+    if elem is not None and elem.ndim == 2:
+        z = (z.reshape(-1, elem.shape[0], *z.shape[1:]) * elem[:, None]).reshape(z.shape)
+    elif elem is not None:
         z = z * elem
     z = torch.roll(z, -roll, dims=-1)
     return cfft.ifft(z)[..., lo:n - lo] * gain

@@ -30,7 +30,9 @@ The spans, by layer (each nests in the one above it on the host thread):
   cascades' ``execute``, around their stages' spans) and ``corner_turn``
   (in those, around the cascade's own reshapes: stage 1's spectra into
   one stream per coarse channel, the chomp and the output's layout, the
-  inverse's slabs);
+  inverse's slabs) and ``chirp_table`` (in ``two_stage.inverse_filterbank``:
+  building the coherent-dedispersion chirps of its coarse channels, once
+  per channel count);
 * wrappers: ``kernel.<name>`` (each of the eleven kernel wrappers, under its
   key in :func:`..ops.kernels.wrappers`), ``inversion``
   (``fused_inversion``), ``dispatch`` (the epilogue's choice of route,

@@ -28,6 +28,7 @@ import torch
 from ska_pst_dsp_tpu.design import fir
 from ska_pst_dsp_tpu.utils import geometry
 from ska_pst_dsp_tpu.utils.rational import Rational
+from ska_pst_dsp_tpu_torch.ops import dedispersion
 from ska_pst_dsp_tpu_torch.ops import synthesis as tsynth
 from ska_pst_dsp_tpu_torch.ops import lowcbf
 from ska_pst_dsp_tpu_torch.ops.analysis import (
@@ -632,7 +633,7 @@ def emu_inversion_epilogue(X, elem, n, lo, n_valid):
     on the 128-point table; the kept k1 = kr + 3*(d + 8*k) only, with no
     phase or gain, at t - lo = k2 + n2*(k1 - k1_lo). Returns the output
     (NaN where nothing was stored) and the count of stores per sample."""
-    (n2, n1), = {s for g, s in inv.GEOMETRIES.items() if g[2:] == (n, lo)}
+    (n2, n1), = {s for g, s in inv.GEOMETRIES.items() if g[2] == n}
     cl, r1, q1, s = 8, 3, n1 // 3, inv.TW_SPLIT[n2]
     cpc, rows = n1 // cl, n2 // cl
     tab = inv.kernel_tables(n, n2, n1)
@@ -689,7 +690,7 @@ def emu_inversion_fused(x_tc, taper, dr, perm, elem, keep, kpos, n_blocks, lo, r
     n_pol, _, n_chan = x_tc.shape
     n_l, fnw, cl = taper.size, dr.size, 8
     n = n_chan * fnw
-    n2, n1 = inv.GEOMETRIES[(n_l, n_chan, n, lo)]
+    n2, n1 = inv.GEOMETRIES[(n_l, n_chan, n)]
     cpc, per = n1 // cl, n_chan // cl
     # the blocks' halves take every channel once
     halves = [r * per + h * 16 + np.arange(min(16, per - 16 * h))
@@ -1834,8 +1835,52 @@ def _low_inversion_args(n_chan=N_CHAN, n_l=L, ov=OV, os_f=OS, elem_seed=None, **
 
 
 #: the fused inversion's two geometries: SKA-Low, and a LowCBF PST slab (the
-#: cascade's 216 kept channels a coarse channel, in monotonic order)
-FUSED_GEOMS = {"low": (N_CHAN, {}), "slab216": (216, {"monotonic": True})}
+#: cascade's 216 kept channels a coarse channel, in monotonic order); and the
+#: slab of a PST node that dedisperses, whose discard is the taper's 48 and
+#: the chirp's reach, 64 a side
+FUSED_GEOMS = {"low": (N_CHAN, {}), "slab216": (216, {"monotonic": True}),
+               "node216": (216, {"monotonic": True, "ov": 64, "taper_overlap": OV})}
+
+
+def _fused_digest(n_chan: int, with_elem: bool, device, as_row: bool = False) -> str:
+    """sha256 of inversion_fused's output bytes at SKA-Low (2 pol x 8
+    blocks, time-major) or a slab (8 streams x 3 blocks, channel-major) of
+    seeded noise, with a seeded (N,) elem (``as_row``: as a (1, N) table) or
+    none: the case the kernel's output is held to bitwise across versions
+    of the kernel."""
+    import hashlib
+
+    g = geometry.SynthesisGeometry(n_chan, L, OV, OS)
+    c = tsynth.synthesis_constants(n_chan, L, OS, OV, temporal_taper="tukey",
+                                   monotonic=n_chan == 216)
+    consts = [torch.as_tensor(c["t_taper"], device=device),
+              torch.as_tensor(np.linspace(0.5, 1.5, g.fn_width).astype(np.float32),
+                              device=device),
+              torch.as_tensor(c["perm"], device=device)]
+    n_pol, nb = (2, 8) if n_chan == N_CHAN else (8, 3)
+    n_dat = 2 * OV + nb * g.input_keep
+    if n_chan == N_CHAN:
+        x = torch.as_tensor(_noise((n_pol, n_dat, n_chan), 91), device=device)
+    else:
+        x = torch.as_tensor(_noise((n_pol, n_chan, n_dat), 92), device=device).transpose(1, 2)
+    e = (torch.as_tensor(_noise((g.output_fft_length,), 93), device=device) if with_elem
+         else None)
+    if as_row:
+        e = e[None]
+    y = inv.inversion_fused(x, *consts, e, g.input_keep, (L // 2 + g.discard) % L, nb,
+                            g.output_overlap, g.fn_width // 2, OS.de / OS.nu)
+    return hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
+
+
+#: :func:`_fused_digest` on an H100 80GB HBM3 by the kernel as it was before
+#: it took a (rows, N) elem table: with no elem or an (N,) one it gives the
+#: same bits
+FUSED_DIGESTS = {
+    (256, False): "b4c3dbcafd877d51eeb261f19e8830ffbbb1037aaea4853fb8f9e1eeb2602e9e",
+    (256, True): "c8d8a1bf9cc39697018541e73ae8ddc76764cd452de51bacebd5a3dc2c414f97",
+    (216, False): "63e8d9a6383f298cd8b01b2c0a9eaf90bdbe91130e8484eabf74686ba631f90b",
+    (216, True): "6c412447904b4c7386e4525ec863fb7157c2e8eefdca11291ecca244e6460720",
+}
 
 
 class TestInversionFused:
@@ -1870,7 +1915,9 @@ class TestInversionFused:
         ((L, N_CHAN, N, LO), True),                           # SKA-Low
         ((256, 216, 41_472, 7_776), True),                    # a LowCBF PST slab
         ((256, 192, 36_864, 6_912), False),                   # the critical cascade's slab
-        ((256, 216, 41_472, 7_776 + 216), False),             # its neighbours: overlap,
+        ((256, 216, 41_472, 7_776 + 216), True),              # a wider discard of whole rows
+        ((256, 216, 41_472, 10_368), True),                   # a dedispersing PST node's
+        ((256, 216, 41_472, 7_776 + 108), False),             # its neighbours: overlap,
         ((256, 224, 43_008, 8_064), False),                   # channels either side
         ((256, 208, 39_936, 7_488), False),
         ((512, 216, 82_944, 15_552), False),                  # another frame length
@@ -1880,6 +1927,7 @@ class TestInversionFused:
         ((256, 256, 57_344, 7_168), False),                   # 256 channels at 8/7: n1 = 448
         ((256, 128, 16_384, 512), False),                     # an n1 = 128 split
         ((L, N_CHAN, N, LO + 64), False),                     # no plan: overlap not whole rows
+        ((256, 216, 41_472, 20_736), False),                  # a discard that keeps nothing
         ((128, N_CHAN, N, LO), False),                        # another frame length
     ])
     def test_takes(self, geom, taken):
@@ -1934,12 +1982,12 @@ class TestInversionFused:
         g, consts, keep, kpos, lo, roll, gain, elem = _low_inversion_args(
             n_chan, elem_seed=73 if with_elem else None, **kw)
         assert (roll, gain) == (96, 0.75)
-        nb = 2
+        nb, ov = 2, g.input_overlap
         if layout == "time_major":
-            x = _noise((2, 2 * OV + nb * keep + 3, n_chan), 74)[:, 3:]
+            x = _noise((2, 2 * ov + nb * keep + 3, n_chan), 74)[:, 3:]
             x_tc = torch.as_tensor(x)
         else:
-            x = _noise((2, n_chan, 2 * OV + nb * keep + 3), 74)[:, :, 3:].transpose(0, 2, 1)
+            x = _noise((2, n_chan, 2 * ov + nb * keep + 3), 74)[:, :, 3:].transpose(0, 2, 1)
             x_tc = torch.as_tensor(np.ascontiguousarray(x.transpose(0, 2, 1))).transpose(1, 2)
         got, stores = emu_inversion_fused(x, *(t.numpy() for t in consts), elem, keep, kpos,
                                           nb, lo, roll, gain)
@@ -2114,6 +2162,46 @@ class TestOnCard:
         assert got.shape == ref.shape == (512, nb, 25_920)
         err = ((got - ref).abs().max() / ref.abs().max()).item()
         assert err < SYNTHESIS_TOL
+
+    @pytest.mark.parametrize("nb", [11, 22])
+    def test_inversion_fused_chirp_table_slab(self, cuda, nb):
+        # an SKA-Low PST node's request: 512 slabs (2 pol x 256 coarse
+        # channels) of 216 monotonic channels at the node's discard (64 a
+        # side: the taper's 48 and the chirp's reach), stream p reading row
+        # p % 256 of a (256, 41472) table of chirps, through the transposed
+        # view
+        g, consts, keep, kpos, lo, roll, gain, _ = _low_inversion_args(
+            216, ov=64, monotonic=True, taper_overlap=OV)
+        n_dat = 2 * g.input_overlap + nb * keep
+        gen = torch.Generator(device=cuda).manual_seed(84 + nb)
+        buf = torch.randn((512, 216, n_dat + 1000), dtype=torch.complex64, device=cuda,
+                          generator=gen)
+        x = buf[:, :, :n_dat].transpose(1, 2)
+        consts = [t.to(cuda) for t in consts]
+        table = torch.as_tensor(dedispersion.Dedispersion(2.64476, 150.0, 0.78125).table(
+            g.output_fft_length, 256, centred=True), device=cuda)
+        before = inv.inversion_fused.launches
+        got = inv.inversion_fused(x, *consts, table, keep, kpos, nb, lo, roll, gain)
+        assert inv.inversion_fused.launches == before + 1
+        fn = tsynth.frontend(x, *consts, L, keep, kpos, nb)
+        ref = tsynth.epilogue(fn.reshape(512, nb, g.output_fft_length), table, lo, roll, gain,
+                              nb)
+        assert got.shape == ref.shape == (512, nb, 20_736)
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        assert err < SYNTHESIS_TOL
+        # and each row is the one its stream reads: the table's rows rotated
+        # by one give another answer on every stream
+        off = inv.inversion_fused(x, *consts, table.roll(1, 0), keep, kpos, nb, lo, roll, gain)
+        assert ((off - got).abs().amax(dim=(1, 2)) > 1e-3 * ref.abs().max()).all()
+
+    @pytest.mark.parametrize("n_chan", [N_CHAN, 216])
+    @pytest.mark.parametrize("with_elem", [False, True])
+    def test_inversion_fused_bits_without_a_table(self, cuda, n_chan, with_elem):
+        # no elem, or one (N,) factor: the bits of the kernel before it took
+        # a table; and (1, N) the same bits as (N,)
+        assert _fused_digest(n_chan, with_elem, cuda) == FUSED_DIGESTS[(n_chan, with_elem)]
+        if with_elem:
+            assert _fused_digest(n_chan, True, cuda, as_row=True) == FUSED_DIGESTS[(n_chan, True)]
 
     @pytest.mark.parametrize("nb", [1, 2, 3, 4])
     @pytest.mark.parametrize("layout", ["time_major", "channel_major", "offset_view"])
@@ -2359,6 +2447,30 @@ class TestCascadesOnCard:
                 analysis_fused.channel_major_launches - before[1]) == (1, 1)
         want = analysis_fused(x, f2d, ramp, step, 3).index_select(-1, bins).transpose(1, 2)
         assert got.is_contiguous() and torch.equal(got, want)
+
+    def test_pst_node_reads_its_chirps_on_the_fused_inversion(self, cuda):
+        # an SKA-Low PST node (2 pol x 256 coarse channels x 216, dedispersed
+        # at J0437-4715's DM, discarding 64 a side): one inversion_fused
+        # launch over a (256, 41472) chirp table, no composed epilogue, the
+        # plain versions' answer
+        from ska_pst_dsp_tpu_torch.models.two_stage import TwoStageInverseFilterBank
+        from ska_pst_dsp_tpu_torch.utils import profiling
+        from ska_pst_dsp_tpu_torch.utils.config import load_config
+
+        lowpsi = load_config("lowpsi")
+        band = dedispersion.Dedispersion(2.64476, 150.0, 0.78125)
+        x = torch.as_tensor(_noise((2, 256 * 216, 2 * 64 + 2 * 128), 72))
+        got, want = (TwoStageInverseFilterBank(lowpsi, nch2=216, device=dev, dedispersion=band)
+                     for dev in (cuda, "cpu"))
+        before = profiling.counters()
+        out = got.execute(got.init_state(), x.to(cuda))[1]
+        after = profiling.counters()
+        assert got._inv.elem.shape == (256, 216 * 192)
+        assert after["inversion_fused"] - before["inversion_fused"] == 1
+        assert after["composed_epilogues"] == before["composed_epilogues"]
+        ref = want.execute(want.init_state(), x)[1]
+        assert out.shape == ref.shape == (2, 256, 2 * 20_736)
+        assert _rel_err(out.cpu(), ref) < SYNTHESIS_TOL
 
     def test_cascade_block_equals_time_major_stages(self, cuda):
         # one block of the cell (2 x 2^26) through SKA-Low's PST cascade and
