@@ -114,6 +114,11 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     epilogue, dm 1.5; mid: the pair, dm 50) against the plain inversion
     (1.2e-5 / 1e-4 * scale), and block-wise against whole-stream
     dedispersion in dB.
+12b. pst-node: the SKA-Low PST node's fused inversion with its chirp table
+    at the lowpst.dedisp cell's shapes, on one input and on the held
+    samples and the new block as two inputs (bitwise the one-input launch,
+    timed beside it); the node over the cell's cycle of requests, its state
+    carried, against its plain chain (``run_pst_node``).
 13. data_gen: the file-level tools on the card, in a temporary directory,
     with the plain versions and torch.fft patched to raise: at low a
     complex sinusoid of 2 pol x 2^23 through generate_test_vector ->
@@ -607,8 +612,8 @@ def slab_inversion(torch, dev, smi):
     """The fused inversion at a LowCBF PST slab's geometry (216 monotonic
     channels, 41472 points) at the SKA-Low PST cascade's shapes: 512 slabs
     (2 pol x 256 coarse channels) of 9 and of 18 blocks, read through the
-    transposed view of a channel-major buffer as the inverse carry hands it
-    over; against its plain version (the frontend then the epilogue; with
+    transposed view of a channel-major buffer as the cascade's inverse hands
+    a slab over; against its plain version (the frontend then the epilogue; with
     and without ``elem``) and beside the route it replaces, the frontend
     kernel then the composed epilogue (the library chain: cuFFT, roll,
     scale, the strided keep); ms for one call, the kernel's on the device,
@@ -1949,14 +1954,25 @@ def run_pst_node(torch, dev, smi):
     channels, each frame discarding the taper's 48 and the chirp's reach,
     64 a side, hop 128) at the request's shapes, 512 slabs of 11 and of 22
     blocks through the transposed view, against its plain version within
-    SYNTHESIS_TOL; then one block of the node itself,
-    ``TwoStageInverseFilterBank(lowpsi, nch2=216, dedispersion=...)``: one
-    inversion_fused launch and no composed epilogue (no plain version, no
-    torch.fft), against the node's plain chain on the card."""
+    SYNTHESIS_TOL; the same launch on the stream's held samples and its new
+    block as two inputs (``held``), with the seam inside a frame (the
+    node's: 192 and 1344 held) and on a hop, bitwise the one-input launch
+    and within SYNTHESIS_TOL of plain, timed beside the one-input launch
+    and beside the launch on the two joined with ``torch.cat`` (the copy
+    included, as the stage ran it before it read two inputs); then the node
+    itself, ``TwoStageInverseFilterBank(lowpsi, nch2=216,
+    dedispersion=...)``, over the benchmark cell's cycle of requests of
+    1,600 samples, its state carried (seven of 11 blocks, holding 0 to
+    1,152 samples, then one of 22 holding 1,344): one inversion_fused
+    launch a request and no composed epilogue (no plain version, no
+    torch.fft), a launch on two inputs a request after the first, nothing
+    joined, each request's output against the node's plain chain carried
+    over the same requests on the card."""
     from ska_pst_dsp_tpu_torch.models.two_stage import TwoStageInverseFilterBank
     from ska_pst_dsp_tpu_torch.ops import synthesis as ps
     from ska_pst_dsp_tpu_torch.ops.dedispersion import Dedispersion
     from ska_pst_dsp_tpu_torch.ops.kernels import inversion_fused as inv
+    from ska_pst_dsp_tpu_torch.utils import profiling
     from ska_pst_dsp_tpu_torch.utils.config import load_config
 
     cfg = load_config("lowpsi")
@@ -1976,46 +1992,97 @@ def run_pst_node(torch, dev, smi):
     n, lo, roll, gain = g.output_fft_length, g.output_overlap, g.fn_width // 2, os_f.de / os_f.nu
     check(inv.takes(L, n_chan, n, lo), "inversion_fused does not take the node's geometry")
     gen = torch.Generator(device=dev)
-    for nb in (11, 22):
+    for nb, node_h in ((11, 192), (22, 1344)):
         n_dat = 2 * g.input_overlap + nb * keep
         gen.manual_seed(SEED + 23 + nb)
         x = torch.randn((512, n_chan, n_dat + 64), dtype=torch.complex64, device=dev,
                         generator=gen)[:, :, :n_dat].transpose(1, 2)
 
-        def fused():
-            return inv.inversion_fused(x, *consts, keep, kpos, nb, lo, roll, gain)
+        def fused(x=x, held=None):
+            return inv.inversion_fused(x, *consts, keep, kpos, nb, lo, roll, gain, held=held)
 
         def plain():
             fn = ps.frontend(x, *consts[:3], L, keep, kpos, nb)
             return ps.epilogue(fn.reshape(512, nb, n), consts[3], lo, roll, gain, nb)
 
-        err = rel_err(fused(), plain())
+        want, ref = fused(), plain()
+        err = rel_err(want, ref)
         check(err[1] <= SYNTHESIS_TOL, f"pst-node: the chirp table, {nb} blocks: {err[1]:.3g}")
         dms = device_ms(torch, fused, "inversion_fused_kernel")
+        one_ms = time_ms(torch, fused)
         log("pst-node", f"inversion_fused with the (256, {n}) chirp table, 512 x {nb} blocks "
             f"(discard {lo} a side): max|err|/scale {err[1]:.3g} (tol {SYNTHESIS_TOL}); "
-            f"kernel {time_ms(torch, fused):.4f} ms, device "
+            f"kernel {one_ms:.4f} ms, device "
             + (", ".join(f"{k} {v:.4f} ms" for k, v in dms.items()) or "not measured")
             + f" ({smi})")
-        del x
+        for where, h in (("inside a frame", node_h), ("on a hop", 5 * keep)):
+            held, tail = x[:, :h], x[:, h:]
+            count = inv.inversion_fused.split_launches
+            got = fused(tail, held)
+            check(inv.inversion_fused.split_launches == count + 1,
+                  "pst-node: a launch on two inputs not counted")
+            check(torch.equal(got, want),
+                  f"pst-node: two inputs, seam {h} ({where}), {nb} blocks: not the one-input bits")
+            serr = rel_err(got, ref)
+            check(serr[1] <= SYNTHESIS_TOL,
+                  f"pst-node: two inputs, seam {h}, {nb} blocks: {serr[1]:.3g}")
+            held_cm, tail_cm = held.transpose(1, 2), tail.transpose(1, 2)
+
+            def joined():
+                return fused(torch.cat([held_cm, tail_cm], dim=2).transpose(1, 2))
+
+            times = {k: time_ms(torch, f) for k, f in (
+                ("one input", fused), ("two inputs", lambda: fused(tail, held)),
+                ("joined", joined), ("one input again", fused))}
+            log("pst-node", f"two inputs, seam {h} ({where}), 512 x {nb} blocks: bitwise the "
+                f"one-input launch, max|err|/scale {serr[1]:.3g} against plain; ms "
+                + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+                + f" (joined: torch.cat then the launch) ({smi})")
+        del x, want, ref
         torch.cuda.empty_cache()
-    x = torch.as_tensor(noise((2, 256 * n_chan, 2 * g.input_overlap + 11 * keep), SEED + 23),
-                        device=dev)
+
+    # the node over the cell's cycle of requests, its state carried
+    block, cycle = 1600, 8
+    gen.manual_seed(SEED + 24)
+    stream = torch.randn((2, 256 * n_chan, cycle * block), dtype=torch.complex64, device=dev,
+                         generator=gen)
+    plain_node = TwoStageInverseFilterBank(cfg, nch2=216, device=dev, plain=True,
+                                           dedispersion=band)
+    pstate = plain_node.init_state()
     ws = reset_counts()
-    with plain_versions_raise(torch):
-        out = node.execute(state, x)[1]
-    counts = read_counts(torch, ws)
-    expect_launches("pst-node", counts, ("inversion_fused",), composed=False)
+    inv.inversion_fused.split_launches = 0
+    seen, worst = [], 0.0
+    for i in range(cycle):
+        blk = stream[:, :, i * block:(i + 1) * block]
+        h = 0 if state.stage2.buffer is None else state.stage2.buffer.shape[-1]
+        before = profiling.counters()
+        with plain_versions_raise(torch):
+            state, out = node.execute(state, blk)
+        counts = read_counts(torch, ws)
+        after = profiling.counters()
+        expect_launches(f"pst-node request {i}", counts, ("inversion_fused",), composed=False)
+        got = {k: after[k] - before[k]
+               for k in ("inversion_fused", "inversion_fused_split", "carry_bytes")}
+        check(got == {"inversion_fused": 1, "inversion_fused_split": int(i > 0),
+                      "carry_bytes": 0}, f"pst-node request {i} (held {h}): counted {got}")
+        pstate, ref = plain_node.execute(pstate, blk)
+        err = rel_err(out, ref)
+        check(out.shape == ref.shape and out.shape[:2] == (2, 256),
+              f"pst-node request {i}: {tuple(out.shape)} against {tuple(ref.shape)}")
+        check(err[1] <= SYNTHESIS_TOL, f"pst-node request {i} (held {h}): {err[1]:.3g}")
+        seen.append((h, out.shape[-1] // g.output_keep))
+        worst = max(worst, err[1])
+        del out, ref
+    check(seen == [(192 * i, 11) for i in range(cycle - 1)] + [(1344, 22)],
+          f"pst-node: (held, blocks) a request {seen}, not the cell's cycle")
     check(tuple(node._inv.elem.shape) == (256, n), f"pst-node: elem {tuple(node._inv.elem.shape)}")
-    plain = TwoStageInverseFilterBank(cfg, nch2=216, device=dev, plain=True, dedispersion=band)
-    ref = plain.execute(plain.init_state(), x)[1]
-    err = rel_err(out, ref)
-    check(out.shape == ref.shape == (2, 256, 11 * g.output_keep), f"pst-node: {out.shape}")
-    check(err[1] <= SYNTHESIS_TOL, f"pst-node: the node against its plain chain {err[1]:.3g}")
-    log("pst-node", f"TwoStageInverseFilterBank with dedispersion, 2 x 256 x 216 x {x.shape[2]}: "
-        f"launches {counts}; against the plain chain max|err|/scale {err[1]:.3g} "
+    log("pst-node", f"TwoStageInverseFilterBank with dedispersion over {cycle} requests of "
+        f"2 x 256 x 216 x {block}, its state carried: (held, blocks) a request {seen}; "
+        f"inversion_fused {ws['inversion_fused'].launches} launches, "
+        f"{inv.inversion_fused.split_launches} of them on two inputs, nothing joined; "
+        f"against the plain chain carried alike max|err|/scale {worst:.3g} "
         f"(tol {SYNTHESIS_TOL}) ({smi})")
-    del x, out, ref
+    del stream
 
 
 # ---------------------------------------------------------------------------

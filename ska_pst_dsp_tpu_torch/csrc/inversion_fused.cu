@@ -52,7 +52,9 @@
 //     short half's spare threads load and store nothing). The thread of (channel c,
 //     j) loads its 16 frame samples t = j + 16*m from device memory into
 //     registers (strides are arguments: a channel-major stream or a
-//     sample_offset view needs no copy), tapers them there, runs the
+//     sample_offset view needs no copy; a stream's carried samples and its
+//     new block are two inputs with a seam between them, Src, so the
+//     streaming inversion joins nothing), tapers them there, runs the
 //     16-point DFT over m and the twiddle w_L^(j*d) and stores them in a row
 //     of 257 points (odd: 16 channels at one offset hit 16 banks); the
 //     thread of (c, d) then runs the 16-point DFT over j of bins
@@ -183,13 +185,28 @@ __device__ __forceinline__ int lane_chan() {
   return CM ? threadIdx.x >> 4 : threadIdx.x & 15;
 }
 
+// A launch's input as the frontend reads it: the stream of the held samples
+// followed by the new block, sample t (counted from the stream's start)
+// from held[pol, t, chan] where t < h and from x[pol, t - h, chan] after
+// that, each with its own element strides over (pol, time, chan). A
+// streaming inversion hands the samples it carried and the caller's block
+// over as they lie, so nothing is joined. With h = 0 every frame lies in x
+// and held is never read.
+struct Src {
+  const float2* x;
+  const float2* held;
+  long long sp, st, sc;  // x's strides
+  long long hp, ht, hc;  // held's strides
+  long long h;           // the seam
+};
+
 // The first-pass samples of thread (c, j), channel ch0 + c, for transform
-// tr: v[m] = x[pol, b*keep + j + 16*m, perm[ch0 + c]]. In a half of NC < 16
-// channels the spare threads (c >= NC) load nothing: their rows are never
-// read.
+// tr: v[m] = stream[pol, b*keep + j + 16*m, perm[ch0 + c]]. A frame wholly
+// on one side of the seam picks its input and stride once, and only a frame
+// across it picks each sample's side. In a half of NC < 16 channels the
+// spare threads (c >= NC) load nothing: their rows are never read.
 template <class P, int NC>
-__device__ __forceinline__ void frame_load(float2 (&v)[kR], const float2* x, const int* perm,
-                                           long long sp, long long st, long long sc,
+__device__ __forceinline__ void frame_load(float2 (&v)[kR], const Src& s, const int* perm,
                                            int n_blocks, int keep, int tr, int ch0) {
   constexpr bool CM = P::kCm;
   const int pol = tr / n_blocks;
@@ -197,10 +214,25 @@ __device__ __forceinline__ void frame_load(float2 (&v)[kR], const float2* x, con
   const int c = lane_chan<CM>();
   if (NC < kHalf && c >= NC) return;
   const int j = CM ? threadIdx.x & 15 : threadIdx.x >> 4;
-  const float2* xb = x + pol * sp + (static_cast<long long>(b) * keep + j) * st +
-                     static_cast<long long>(__ldg(perm + ch0 + c)) * sc;
+  const long long ch = __ldg(perm + ch0 + c);
+  const long long t0 = static_cast<long long>(b) * keep + j;  // the thread's first sample
+  const long long f0 = t0 - j;                                 // the frame's
+  const bool in_held = f0 + kL <= s.h;
+  if (in_held || f0 >= s.h) {
+    const long long st = in_held ? s.ht : s.st;
+    const float2* xb = in_held ? s.held + pol * s.hp + t0 * s.ht + ch * s.hc
+                               : s.x + pol * s.sp + (t0 - s.h) * s.st + ch * s.sc;
 #pragma unroll
-  for (int m = 0; m < kR; ++m) v[m] = xb[static_cast<long long>(kR * m) * st];
+    for (int m = 0; m < kR; ++m) v[m] = xb[static_cast<long long>(kR * m) * st];
+  } else {
+    const float2* hb = s.held + pol * s.hp + ch * s.hc;
+    const float2* xb = s.x + pol * s.sp + ch * s.sc;
+#pragma unroll
+    for (int m = 0; m < kR; ++m) {
+      const long long t = t0 + kR * m;
+      v[m] = t < s.h ? hb[t * s.ht] : xb[(t - s.h) * s.st];
+    }
+  }
 }
 
 // One half of the frontend: the L-point DFTs of NC channels from ch0,
@@ -221,8 +253,7 @@ template <class P, int NC, int NN>
 __device__ __forceinline__ void frontend_half(float2 (&v)[kR], float2* buf, float2* col,
                                               const float2* twf, const float* tap,
                                               const float* drs, int ch0, int kpos, int roll,
-                                              const float2* x, const int* perm, long long sp,
-                                              long long st, long long sc, int n_blocks,
+                                              const Src& src, const int* perm, int n_blocks,
                                               int keep, int tr_next, int ch_next,
                                               cg::cluster_group& cluster) {
   constexpr bool CM = P::kCm;
@@ -240,7 +271,7 @@ __device__ __forceinline__ void frontend_half(float2 (&v)[kR], float2* buf, floa
       row[CM ? (d + j) & 15 : d] = j == 0 ? v[d] : c_mul(v[d], twf[j * d]);
     }
   }
-  if (tr_next >= 0) frame_load<P, NN>(v, x, perm, sp, st, sc, n_blocks, keep, tr_next, ch_next);
+  if (tr_next >= 0) frame_load<P, NN>(v, src, perm, n_blocks, keep, tr_next, ch_next);
   if constexpr (CM) __syncwarp();
   else __syncthreads();
 
@@ -291,15 +322,16 @@ __device__ __forceinline__ void dft6(float2 (&v)[6]) {
 
 template <class P>
 __global__ void __launch_bounds__(kThreads, 2)
-inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ elem,
+inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ held,
+                       const float2* __restrict__ elem,
                        float2* __restrict__ out, const float* __restrict__ taper,
                        const float* __restrict__ dr, const int* __restrict__ perm,
                        const float2* __restrict__ tw_l, const float2* __restrict__ tw_pass,
                        const float2* __restrict__ tw_n1, const float2* __restrict__ tw_a,
                        const float2* __restrict__ tw_b, const float2* __restrict__ tw_row,
-                       long long sp, long long st, long long sc, int n_blocks, int n_tr,
-                       int rows, int keep, int kpos, int roll, int k1_lo, int n1_keep,
-                       float scale) {
+                       long long sp, long long st, long long sc, long long hp, long long ht,
+                       long long hc, long long h, int n_blocks, int n_tr, int rows, int keep,
+                       int kpos, int roll, int k1_lo, int n1_keep, float scale) {
   constexpr int kN = P::kN, kN1 = P::kN1, kN2 = P::kN2, kCpc = P::kCpc, kRows = P::kRows;
   constexpr int kLdr = P::kLdr, kR1 = P::kR1, kQ1 = P::kQ1, kG = P::kG, kTwA = P::kTwA;
   constexpr int TS = 16 / kG;  // w_Q1^(j*d) = w_128^(TS*j*d) = twr[(d - 1)*16 + TS*j]
@@ -321,10 +353,11 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
   const int r0 = rank * kRows;      // this block's rows
   const int n_cl = gridDim.x / kCl;
   const long long out_len = static_cast<long long>(n1_keep) * kN2;
+  const Src src = {x, held, sp, st, sc, hp, ht, hc, h};
 
   int tr = blockIdx.x / kCl;
   float2 v[kR];
-  if (tr < n_tr) frame_load<P, kHalf>(v, x, perm, sp, st, sc, n_blocks, keep, tr, ch0);
+  if (tr < n_tr) frame_load<P, kHalf>(v, src, perm, n_blocks, keep, tr, ch0);
   for (int i = tid; i < kL; i += kThreads) twf[i] = tw_l[i];
   for (int i = tid; i < P::kTwC; i += kThreads) tw[i] = tw_pass[i];
   for (int i = tid; i < P::kTwR; i += kThreads) twr[i] = tw_row[i];
@@ -343,14 +376,14 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
   for (; tr < n_tr; tr += n_cl) {
     // the frontend of this block's channels, two halves; the second half's
     // samples are loaded during the first
-    frontend_half<P, kHalf, P::kHalf1>(v, buf, col, twf, tap, drs, ch0, kpos, roll, x, perm,
-                                       sp, st, sc, n_blocks, keep, tr, ch0 + kHalf, cluster);
+    frontend_half<P, kHalf, P::kHalf1>(v, buf, col, twf, tap, drs, ch0, kpos, roll, src, perm,
+                                       n_blocks, keep, tr, ch0 + kHalf, cluster);
     frontend_half<P, P::kHalf1, kHalf>(v, buf, col, twf, tap, drs, ch0 + kHalf, kpos, roll,
-                                       x, perm, sp, st, sc, n_blocks, keep, -1, 0, cluster);
+                                       src, perm, n_blocks, keep, -1, 0, cluster);
     cluster_arrive();  // this block's part of the assembled block is stored
     // the next transform's first half, in flight through the epilogue
     if (tr + n_cl < n_tr) {
-      frame_load<P, kHalf>(v, x, perm, sp, st, sc, n_blocks, keep, tr + n_cl, ch0);
+      frame_load<P, kHalf>(v, src, perm, n_blocks, keep, tr + n_cl, ch0);
     }
     cluster_wait();  // every block's columns are complete, every frontend row read
     // this transform's stream p reads row p % rows of the elem table
@@ -532,10 +565,11 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
   }
 }
 
-using InvKern = void (*)(const float2*, const float2*, float2*, const float*, const float*,
-                         const int*, const float2*, const float2*, const float2*,
-                         const float2*, const float2*, const float2*, long long, long long,
-                         long long, int, int, int, int, int, int, int, int, float);
+using InvKern = void (*)(const float2*, const float2*, const float2*, float2*, const float*,
+                         const float*, const int*, const float2*, const float2*,
+                         const float2*, const float2*, const float2*, const float2*, long long,
+                         long long, long long, long long, long long, long long, long long, int,
+                         int, int, int, int, int, int, int, float);
 
 // The launch configuration of `kern` (shared memory `smem`) on clusters of
 // eight: its shared-memory allowance set, and how many of its clusters are
@@ -586,12 +620,12 @@ static cudaError_t prepare(const void* kern, size_t smem, int* clusters) {
 }
 
 struct InvArgs {
-  const float2 *x, *elem;
+  const float2 *x, *held, *elem;
   float2* out;
   const float *taper, *dr;
   const int* perm;
   const float2 *tw_l, *tw_pass, *tw_n1, *tw_a, *tw_b, *tw_row;
-  long long sp, st, sc;
+  long long sp, st, sc, hp, ht, hc, h;
   int n_blocks, n_tr, rows, keep, kpos, roll, k1_lo, n1_keep;
   float scale;
   cudaStream_t stream;
@@ -621,10 +655,10 @@ static cudaError_t inversion_entry(const InvArgs* a, int* clusters) {
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, a->x, a->elem, a->out, a->taper, a->dr, a->perm, a->tw_l,
-                         a->tw_pass, a->tw_n1, a->tw_a, a->tw_b, a->tw_row, a->sp, a->st, a->sc,
-                         a->n_blocks, a->n_tr, a->rows, a->keep, a->kpos, a->roll, a->k1_lo,
-                         a->n1_keep, a->scale);
+  e = cudaLaunchKernelEx(&cfg, kern, a->x, a->held, a->elem, a->out, a->taper, a->dr, a->perm,
+                         a->tw_l, a->tw_pass, a->tw_n1, a->tw_a, a->tw_b, a->tw_row, a->sp, a->st,
+                         a->sc, a->hp, a->ht, a->hc, a->h, a->n_blocks, a->n_tr, a->rows, a->keep,
+                         a->kpos, a->roll, a->k1_lo, a->n1_keep, a->scale);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -646,7 +680,9 @@ extern "C" int inversion_fused_clusters(int n_chan, int* clusters) {
 }
 
 // x: complex64 stream with element strides (sp, st, sc) over (pol, time,
-// chan), every frame b*keep + [0, L) inside it; elem: (rows, N) complex64,
+// chan); held: null (h = 0), or the h samples that come before x, with
+// strides (hp, ht, hc): every frame b*keep + [0, L) inside the h samples
+// of held and those of x that follow them; elem: (rows, N) complex64,
 // each row pre-rolled by +roll, stream p reading row p % rows (n_pol a
 // multiple of rows), or null; out: (n_pol, n_blocks, n1_keep * n2)
 // complex64, the kept k1 in [k1_lo, k1_lo + n1_keep); taper: (L,) float32;
@@ -657,28 +693,31 @@ extern "C" int inversion_fused_clusters(int n_chan, int* clusters) {
 // all backward (ops/kernels/inversion_fused.py kernel_tables); roll in
 // [0, N); scale = gain / N. Takes L = 256, FN_width = 192 and 256 channels
 // (N = 49152 = 128 * 384) or 216 (N = 41472 = 216 * 192) only.
-extern "C" int inversion_fused_launch(const void* x, const void* elem, void* out,
-                                      const void* taper, const void* dr, const void* perm,
-                                      const void* tw_l, const void* tw_pass,
+extern "C" int inversion_fused_launch(const void* x, const void* held, const void* elem,
+                                      void* out, const void* taper, const void* dr,
+                                      const void* perm, const void* tw_l, const void* tw_pass,
                                       const void* tw_n1, const void* tw_a, const void* tw_b,
                                       const void* tw_row, long long sp, long long st,
-                                      long long sc, int n_pol, int n_chan, int n_blocks, int L,
+                                      long long sc, long long hp, long long ht, long long hc,
+                                      long long h, int n_pol, int n_chan, int n_blocks, int L,
                                       int rows, int keep, int kpos, int roll, int fnw,
                                       int k1_lo, int n1_keep, float scale, void* stream) {
   const long long n_tr = static_cast<long long>(n_pol) * n_blocks;
   if (L != kL || fnw != kFnw || n_pol <= 0 || n_blocks <= 0 || n_tr > (1LL << 30) ||
-      rows <= 0 || n_pol % rows || keep <= 0 || kpos < 0 || kpos >= kL) {
+      rows <= 0 || n_pol % rows || keep <= 0 || kpos < 0 || kpos >= kL || h < 0 ||
+      (h > 0 && held == nullptr)) {
     return cudaErrorInvalidValue;
   }
   const InvArgs a = {
-      static_cast<const float2*>(x),      static_cast<const float2*>(elem),
-      static_cast<float2*>(out),          static_cast<const float*>(taper),
-      static_cast<const float*>(dr),      static_cast<const int*>(perm),
+      static_cast<const float2*>(x),      static_cast<const float2*>(held),
+      static_cast<const float2*>(elem),   static_cast<float2*>(out),
+      static_cast<const float*>(taper),   static_cast<const float*>(dr),
+      static_cast<const int*>(perm),
       static_cast<const float2*>(tw_l),   static_cast<const float2*>(tw_pass),
       static_cast<const float2*>(tw_n1),  static_cast<const float2*>(tw_a),
       static_cast<const float2*>(tw_b),   static_cast<const float2*>(tw_row),
-      sp, st, sc, n_blocks, static_cast<int>(n_tr), rows, keep, kpos, roll, k1_lo, n1_keep, scale,
-      static_cast<cudaStream_t>(stream)};
+      sp, st, sc, hp, ht, hc, h, n_blocks, static_cast<int>(n_tr), rows, keep, kpos, roll, k1_lo,
+      n1_keep, scale, static_cast<cudaStream_t>(stream)};
   int clusters = 0;
   return inversion_dispatch(n_chan, &a, &clusters);
 }

@@ -24,8 +24,12 @@ The carry is the JAX module's (streaming.py:14-29):
 
 How the port runs it: each stage is an ``nn.Module`` whose filter, ramp and
 inversion constants are buffers on its device (default the card), built
-once per geometry; the carried buffer and the chunks are tensors there,
-joined with ``torch.cat``. A call runs all the whole chunks its input holds
+once per geometry; the carried buffer and the chunks are tensors there.
+The analyses join the carried samples and the new block with ``torch.cat``
+(:func:`carry`); the inversion hands both to its kernel as they lie where
+the kernel reads two inputs (the fused inversion's geometries, and the
+plain versions), and joins only where it consumes less than it holds. A
+call runs all the whole chunks its input holds
 in one launch of each kernel (the JAX classes launch once per chunk): every
 spectrum and every inversion block is computed on its own, so the output
 and the carried state are the same. The analysis runs the fused kernels
@@ -69,6 +73,7 @@ from ..ops.kernels.analysis_fused import analysis_fused
 from ..ops.kernels.analysis_fused import takes as analysis_takes
 from ..ops.kernels.analysis_padded_fused import padded_fold_fused
 from ..ops.kernels.chan_dft_fused import chan_dft_ramp
+from ..ops.kernels.inversion_fused import takes as inversion_takes
 from ..ops.kernels.synthesis_fused import fused_inversion
 from ..ops.synthesis import inversion_core, synthesis_constants
 
@@ -362,15 +367,34 @@ class InverseFilterBank(nn.Module):
                                                self.os_factor)
         self._n_chan_built = n_chan
 
+    def _reads_split(self, n_chan: int) -> bool:
+        """Whether the inversion reads the held samples and the new block
+        where they lie, as two inputs: the plain versions (which join them
+        themselves) and the fused kernel (:func:`..ops.kernels.inversion_fused.takes`
+        the geometry); the frontend kernel and its epilogue read one."""
+        g = self.geom
+        return self.plain or inversion_takes(g.input_fft_length, n_chan,
+                                             g.output_fft_length, g.output_overlap)
+
     @spanned("inverse_filterbank")
     def execute(self, state: InverseFilterBankState, x
                 ) -> Tuple[InverseFilterBankState, torch.Tensor]:
         """Invert one block of (n_pol, n_chan, n) fine channels: returns
-        (new_state, (n_pol, 1, n_out)) on the module's device."""
+        (new_state, (n_pol, 1, n_out)) on the module's device.
+
+        The stage's stream is the held samples followed by x. Where the
+        inversion reads two inputs (:meth:`_reads_split`) it gets both as
+        they lie, and the samples held for the next call are a view of x
+        where the consumed ones cover the held ones (x must then stay as it
+        is until that call, as after a first call), else the unconsumed held
+        samples joined with x by :func:`carry`; the other route joins the
+        held samples and x by :func:`carry` first. A call that consumes no
+        whole chunk holds them all, joined by :func:`carry`."""
         x = as_tensor(x, self.device)
-        if state.buffer is not None and state.buffer.shape[-1] > 0:
-            x = carry(state.buffer, x, 2)
-        n_pol, n_chan, n_dat = x.shape
+        held = state.buffer
+        h = 0 if held is None else held.shape[-1]
+        n_pol, n_chan, n_new = x.shape
+        n_dat = h + n_new
         offset = self._offset_pending
         keep = self.n_fft - 2 * self.overlap
         if self.chunk_blocks is None:
@@ -378,17 +402,24 @@ class InverseFilterBank(nn.Module):
         B = self.chunk_blocks
         n_blocks = max(0, (n_dat - offset - 2 * self.overlap) // keep) // B * B
         if n_blocks == 0:
-            return (InverseFilterBankState(buffer=x, consumed=state.consumed),
+            return (InverseFilterBankState(buffer=carry(held, x, 2) if h else x,
+                                           consumed=state.consumed),
                     x.new_zeros((n_pol, 1, 0)))
         self._constants(n_chan)
-        chunk = x[:, :, offset:offset + 2 * self.overlap + n_blocks * keep].transpose(1, 2)
-        invert = inversion_core if self.plain else fused_inversion
-        out = invert(chunk, self.t_taper, self.dr, self.perm, self.elem, self.geom,
-                     spans_nyquist=not self.critical)
+        if h and not self._reads_split(n_chan):
+            x, h = carry(held, x, 2), 0
         consumed = offset + n_blocks * keep
+        end = consumed + 2 * self.overlap
+        # the stream's samples [offset, end): those of held, then those of x
+        lead = held[:, :, offset:end] if offset < h else None
+        chunk = x[:, :, max(offset - h, 0):max(end - h, 0)]
+        invert = inversion_core if self.plain else fused_inversion
+        out = invert(chunk.transpose(1, 2), self.t_taper, self.dr, self.perm, self.elem,
+                     self.geom, spans_nyquist=not self.critical,
+                     held=None if lead is None else lead.transpose(1, 2))
         self._offset_pending = 0
-        return (InverseFilterBankState(buffer=x[:, :, consumed:],
-                                       consumed=state.consumed + consumed), out)
+        rest = x[:, :, consumed - h:] if consumed >= h else carry(held[:, :, consumed:], x, 2)
+        return (InverseFilterBankState(buffer=rest, consumed=state.consumed + consumed), out)
 
 
 class StatefulPipeline:

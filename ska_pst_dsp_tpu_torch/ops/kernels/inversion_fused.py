@@ -9,7 +9,9 @@ the epilogue together: a cluster of eight thread blocks, each the frontend
 of an eighth of the channels, stores each assembled block's bins straight
 into the column buffers of the cluster's blocks (distributed shared
 memory) and runs the four-step inverse transform there, so the assembled
-spectra never pass through device memory.
+spectra never pass through device memory. Its input may lie in two
+tensors, a stream's held samples and its new block (``held``), read across
+the seam where they lie, so that a streaming inversion joins nothing.
 Every other geometry keeps the frontend kernel and its epilogue
 (:func:`takes` decides). Its plain version is
 :func:`ska_pst_dsp_tpu_torch.ops.synthesis.frontend` followed by
@@ -95,19 +97,26 @@ def active_clusters(n_chan: int = 256) -> int:
 def inversion_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
                     perm: torch.Tensor, elem: Optional[torch.Tensor], keep: int,
                     kpos: int, n_blocks: int, lo: int, roll: int,
-                    gain: float) -> torch.Tensor:
+                    gain: float, held: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(n_pol, n_dat, n_chan) complex64, any strides -> (n_pol, n_blocks,
     N - 2*lo): the frontend (output channel c reads input channel perm[c];
     kept bin j is raw DFT bin (kpos + j) mod L times dr[j]) then
     IFFT(roll(X * elem, -roll))[lo:N-lo] * gain of each assembled block, with
     elem pre-rolled by +roll or None: (N,), or a (rows, N) table whose row
-    ``p % rows`` stream p reads (n_pol a multiple of rows). A CPU tensor
-    runs the plain version; a CUDA tensor launches the kernel, which takes
-    the geometry of :func:`takes` only and raises ValueError for any other."""
+    ``p % rows`` stream p reads (n_pol a multiple of rows). ``held``: None,
+    or a (n_pol, h, n_chan) complex64 view, any strides, of the samples
+    that come before x_tc's: the input is then held's h samples followed by
+    x_tc's, which the kernel reads where they lie, across the seam (each such
+    launch with h > 0 also counts in ``inversion_fused.split_launches``). A CPU tensor
+    runs the plain version (on the two joined); a CUDA tensor launches the
+    kernel, which takes the geometry of :func:`takes` only and raises
+    ValueError for any other."""
     n_pol, n_dat, n_chan = x_tc.shape
     L, fnw = t_taper.shape[0], dr.shape[0]
     n = n_chan * fnw
     if x_tc.device.type == "cpu":
+        if held is not None:
+            x_tc = torch.cat([held, x_tc], dim=1)
         fn = frontend(x_tc, t_taper, dr, perm, L, keep, kpos, n_blocks)
         return epilogue(fn.reshape(n_pol, n_blocks, n), elem, lo, roll, gain, n_blocks)
     if not takes(L, n_chan, n, lo):
@@ -118,15 +127,22 @@ def inversion_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     dev = x_tc.device
     if x_tc.dtype != torch.complex64:
         raise TypeError("x must be a (n_pol, n_dat, n_chan) complex64 tensor")
+    h = 0
+    if held is not None:
+        if held.dtype != torch.complex64 or held.device != dev:
+            raise TypeError(f"held must be complex64 on {dev}")
+        if held.ndim != 3 or held.shape[0] != n_pol or held.shape[2] != n_chan:
+            raise ValueError(f"held must be ({n_pol}, h, {n_chan}), got {tuple(held.shape)}")
+        h = held.shape[1]
     t_taper = require(t_taper, "t_taper", torch.float32, dev)
     dr = require(dr, "dr", torch.float32, dev)
     perm = require(perm, "perm", torch.int32, dev)
     if perm.shape != (n_chan,):
         raise ValueError("perm must be (n_chan,)")
-    if n_blocks <= 0 or (n_blocks - 1) * keep + L > n_dat:
+    if n_blocks <= 0 or (n_blocks - 1) * keep + L > h + n_dat:
         raise ValueError(
             f"{n_blocks} overlap-save blocks of {L} at hop {keep} do not fit "
-            f"in {n_dat} samples"
+            f"in {h + n_dat} samples"
         )
     rows = 1
     if elem is not None:
@@ -138,11 +154,18 @@ def inversion_fused(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     n2, n1 = GEOMETRIES[(L, n_chan, n)]
     out = torch.empty((n_pol, n_blocks, n - 2 * lo), dtype=torch.complex64, device=dev)
     tab = _device_tables(n, n2, n1, dev)
-    sp, st, sc = x_tc.stride()
     launch(inversion_fused, "inversion_fused_launch", x_tc,
-           x_tc.data_ptr(), None if elem is None else elem.data_ptr(), out.data_ptr(),
+           x_tc.data_ptr(), None if held is None else held.data_ptr(),
+           None if elem is None else elem.data_ptr(), out.data_ptr(),
            t_taper.data_ptr(), dr.data_ptr(), perm.data_ptr(), twiddles(L, -1, dev).data_ptr(),
            *(tab[k].data_ptr() for k in ("tw_col", "tw_n1", "tw_a", "tw_b", "tw_row")),
-           sp, st, sc, n_pol, n_chan, n_blocks, L, rows, keep, kpos % L, roll % n, fnw,
+           *x_tc.stride(), *(held.stride() if held is not None else (0, 0, 0)), h,
+           n_pol, n_chan, n_blocks, L, rows, keep, kpos % L, roll % n, fnw,
            lo // n2, (n - 2 * lo) // n2, gain / n)
+    inversion_fused.split_launches += h > 0
     return out
+
+
+#: launches whose input lay in two tensors, held samples and a new block
+#: (each also counts in ``launches``)
+inversion_fused.split_launches = 0

@@ -163,11 +163,16 @@ def _roll_gain(geom: geometry.SynthesisGeometry, spans_nyquist: bool) -> Tuple[i
 def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
                     perm: torch.Tensor, elem: Optional[torch.Tensor],
                     geom: geometry.SynthesisGeometry, *, spans_nyquist: bool,
-                    valid_len: Optional[int] = None) -> torch.Tensor:
+                    valid_len: Optional[int] = None,
+                    held: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The fused kernel (:mod:`.inversion_fused`) where
     :func:`.inversion_fused.takes` the geometry (SKA-Low, a LowCBF PST
     slab); elsewhere the frontend kernel + :func:`epilogue_dispatch`. On a (n_pol, n_dat,
     n_chan) view; the first ``valid_len`` samples (default all) are data.
+    ``held``: None, or a (n_pol, h, n_chan) view of samples that come
+    before x_tc's, which the fused kernel reads where they lie (the input
+    is held's samples then x_tc's; ``valid_len`` counts from held's first);
+    the other route takes no ``held`` and raises ValueError for one.
     ``elem``: (N,), a (rows, N) table whose row ``p % rows`` stream p reads,
     or None. Returns (n_pol, 1, n_blocks * output_keep) complex64. On the
     card a frame length or a split no kernel takes raises ValueError; so
@@ -175,6 +180,7 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     pair."""
     n_pol, n_dat, n_chan = x_tc.shape
     L = geom.input_fft_length
+    n_dat += 0 if held is None else held.shape[1]
     if n_dat < L:
         raise ValueError(
             f"fused synthesis needs at least one frame: n_dat={n_dat} < L={L}"
@@ -185,9 +191,12 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     if inversion_fused.takes(L, n_chan, n, lo):
         out = inversion_fused.inversion_fused(
             x_tc, t_taper, dr, perm, elem, geom.input_keep, kpos, n_blocks, lo,
-            *_roll_gain(geom, spans_nyquist),
+            *_roll_gain(geom, spans_nyquist), held=held,
         )
         return out.reshape(n_pol, 1, -1)
+    if held is not None:
+        raise ValueError(f"only the fused inversion reads held samples; {n_chan} channels "
+                         f"of {n} points take the frontend kernel and an epilogue")
     fn = synthesis_fused(x_tc, t_taper, dr, perm, L, geom.input_keep, kpos, n_blocks)
     flat = fn.reshape(n_pol, n_blocks, n)
     out = epilogue_dispatch(flat, elem, geom, spans_nyquist=spans_nyquist,

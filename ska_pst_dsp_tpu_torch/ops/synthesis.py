@@ -159,11 +159,15 @@ def epilogue(flat: torch.Tensor, elem: Optional[torch.Tensor], lo: int,
 
 def inversion_core(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
                    perm: torch.Tensor, elem: Optional[torch.Tensor],
-                   geom: geometry.SynthesisGeometry, *, spans_nyquist: bool) -> torch.Tensor:
+                   geom: geometry.SynthesisGeometry, *, spans_nyquist: bool,
+                   held: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`frontend` then :func:`epilogue` on a (n_pol, n_dat, n_chan)
-    view: the plain version of the fused inversion
-    (:func:`.kernels.synthesis_fused.fused_inversion`). Returns
-    (n_pol, 1, n_blocks * output_keep)."""
+    view, after ``held`` (a (n_pol, h, n_chan) view of the samples that
+    come before it, joined to it here) where given: the plain version of
+    the fused inversion (:func:`.kernels.synthesis_fused.fused_inversion`).
+    Returns (n_pol, 1, n_blocks * output_keep)."""
+    if held is not None:
+        x_tc = torch.cat([held, x_tc], dim=1)
     n_pol, n_dat, _ = x_tc.shape
     L = geom.input_fft_length
     n_blocks = geom.n_blocks(n_dat)

@@ -96,7 +96,9 @@ def counters() -> Dict[str, int]:
     """Every counter of the program: each kernel wrapper's ``launches``
     (by its key in :func:`..ops.kernels.wrappers`), the channel-major ones
     among the analysis's (``analysis_fused.channel_major_launches``) as
-    ``analysis_fused_channel_major``,
+    ``analysis_fused_channel_major``, the fused inversion's launches whose
+    input lay in two tensors (``inversion_fused.split_launches``) as
+    ``inversion_fused_split``,
     ``fused_inversion.composed_epilogues`` as ``composed_epilogues``, the
     bytes the streaming stages' carries have written
     (``models.streaming.carry.bytes``) as ``carry_bytes``, and the bytes
@@ -106,10 +108,12 @@ def counters() -> Dict[str, int]:
     from ..models import streaming, two_stage
     from ..ops.kernels import wrappers
     from ..ops.kernels.analysis_fused import analysis_fused
+    from ..ops.kernels.inversion_fused import inversion_fused
     from ..ops.kernels.synthesis_fused import fused_inversion
 
     out = {k: w.launches for k, w in wrappers().items()}
     out["analysis_fused_channel_major"] = analysis_fused.channel_major_launches
+    out["inversion_fused_split"] = inversion_fused.split_launches
     out["composed_epilogues"] = fused_inversion.composed_epilogues
     out["carry_bytes"] = streaming.carry.bytes
     out["corner_turn_bytes"] = two_stage.corner_turn.bytes

@@ -674,8 +674,41 @@ def emu_inversion_epilogue(X, elem, n, lo, n_valid):
     return out, stores
 
 
-def emu_inversion_fused(x_tc, taper, dr, perm, elem, keep, kpos, n_blocks, lo, roll, gain):
-    """inversion_fused_kernel on a (n_pol, n_dat, n_chan) stream at one of
+def emu_frame_load(x, held, perm, keep, n_blocks, n_l):
+    """inversion_fused.cu frame_load: each input a (flat buffer, (n_pol, n,
+    n_chan), element strides (sp, st, sc)), ``held`` None (h = 0) or the h
+    samples that come before x. Frame b of stream p, channel c: the samples
+    t = b*keep + [0, L) of the stream of held's h samples then x's; a frame
+    wholly before the seam reads held at p*hp + t*ht + perm[c]*hc, one
+    wholly after it x at p*sp + (t - h)*st + perm[c]*sc (every frame at
+    h = 0), one across it each sample from its own side. Returns the frames
+    [p, b, t, c] and each frame's side (0 held, 1 x, 2 across)."""
+    flat_x, (n_pol, n_dat, n_chan), (sp, st, sc) = x
+    flat_h, h, (hp, ht, hc) = (None, 0, (0, 0, 0)) if held is None else (
+        held[0], held[1][1], held[2])
+    assert held is None or (held[1][0], held[1][2]) == (n_pol, n_chan)
+    assert (n_blocks - 1) * keep + n_l <= h + n_dat
+    p = np.arange(n_pol)[:, None, None]
+    ch = perm.astype(np.int64)[None, None, :]
+    frames, sides = np.empty((n_pol, n_blocks, n_l, n_chan), np.complex64), []
+    for b in range(n_blocks):
+        t = (b * keep + np.arange(n_l))[None, :, None]
+        if b * keep + n_l <= h:
+            frames[:, b], side = flat_h[p * hp + t * ht + ch * hc], 0
+        elif b * keep >= h:
+            frames[:, b], side = flat_x[p * sp + (t - h) * st + ch * sc], 1
+        else:
+            from_h = flat_h[p * hp + np.minimum(t, h - 1) * ht + ch * hc]
+            from_x = flat_x[p * sp + np.maximum(t - h, 0) * st + ch * sc]
+            frames[:, b], side = np.where(t < h, from_h, from_x), 2
+        sides.append(side)
+    return frames, sides
+
+
+def emu_inversion_fused(x, taper, dr, perm, elem, keep, kpos, n_blocks, lo, roll, gain,
+                        held=None):
+    """inversion_fused_kernel on a (n_pol, n_dat, n_chan) stream, read by
+    :func:`emu_frame_load` (``x`` and ``held`` as there), at one of
     inv.GEOMETRIES (L = 256): block r of the cluster is the frontend of
     channels [C*r, C*r + C), C = n_chan / 8, in halves of 16 and C - 16
     (lane c of a half < 16 channels stores nothing past its last), each
@@ -687,7 +720,7 @@ def emu_inversion_fused(x_tc, taper, dr, perm, elem, keep, kpos, n_blocks, lo, r
     block exactly once; then emu_inversion_epilogue on the gathered block
     with elem read at the unshifted bin k' + roll and no roll phase or gain
     left. Returns the output and the count of stores per sample."""
-    n_pol, _, n_chan = x_tc.shape
+    n_pol, _, n_chan = x[1]
     n_l, fnw, cl = taper.size, dr.size, 8
     n = n_chan * fnw
     n2, n1 = inv.GEOMETRIES[(n_l, n_chan, n)]
@@ -697,7 +730,7 @@ def emu_inversion_fused(x_tc, taper, dr, perm, elem, keep, kpos, n_blocks, lo, r
               for r in range(cl) for h in range(2)]
     assert np.array_equal(np.sort(np.concatenate(halves)), np.arange(n_chan))
     t = np.arange(n_l)
-    frames = np.stack([x_tc[:, b * keep + t][:, :, perm] for b in range(n_blocks)], 1)
+    frames, _ = emu_frame_load(x, held, perm, keep, n_blocks, n_l)
     v = (frames.transpose(0, 1, 3, 2) * taper).astype(np.complex64)  # [p, b, c, t]
     v = v.reshape(n_pol, n_blocks, n_chan, 16, 16)  # [.., m, j]
     a = np.einsum("...mj,md->...jd", v, _dft_matrix(16, -1))
@@ -1842,6 +1875,26 @@ FUSED_GEOMS = {"low": (N_CHAN, {}), "slab216": (216, {"monotonic": True}),
                "node216": (216, {"monotonic": True, "ov": 64, "taper_overlap": OV})}
 
 
+#: the seams test_kernel_emulation_seam puts between a stream's held samples
+#: and its new block (h by the hop), and the sides of the five frames at
+#: that h (0 held, 1 the new block, 2 across): none; inside the first
+#: frame; on a hop boundary, frame 2's start; past two whole frames
+SEAMS = {"none": lambda keep: 0, "first_frame": lambda keep: 100,
+         "hop": lambda keep: 2 * keep, "past_frames": lambda keep: 3 * keep + 37}
+SEAM_SIDES = {"none": [1] * 5, "first_frame": [2, 1, 1, 1, 1], "hop": [0, 2, 1, 1, 1],
+              "past_frames": [0, 0, 2, 2, 1]}
+
+
+def _strided_input(n_pol, n, n_chan, layout, seed, off=3):
+    """A (n_pol, n, n_chan) complex64 input ``off`` elements into a flat
+    buffer, time-major or channel-major: (emu_frame_load's (flat buffer,
+    shape, element strides), the same as a torch view)."""
+    strides = (n * n_chan, n_chan, 1) if layout == "time_major" else (n * n_chan, 1, n)
+    flat = _noise((off + n_pol * n * n_chan,), seed)
+    view = torch.as_strided(torch.as_tensor(flat), (n_pol, n, n_chan), strides, off)
+    return (flat[off:], (n_pol, n, n_chan), strides), view
+
+
 def _fused_digest(n_chan: int, with_elem: bool, device, as_row: bool = False) -> str:
     """sha256 of inversion_fused's output bytes at SKA-Low (2 pol x 8
     blocks, time-major) or a slab (8 streams x 3 blocks, channel-major) of
@@ -1983,18 +2036,91 @@ class TestInversionFused:
             n_chan, elem_seed=73 if with_elem else None, **kw)
         assert (roll, gain) == (96, 0.75)
         nb, ov = 2, g.input_overlap
-        if layout == "time_major":
-            x = _noise((2, 2 * ov + nb * keep + 3, n_chan), 74)[:, 3:]
-            x_tc = torch.as_tensor(x)
-        else:
-            x = _noise((2, n_chan, 2 * ov + nb * keep + 3), 74)[:, :, 3:].transpose(0, 2, 1)
-            x_tc = torch.as_tensor(np.ascontiguousarray(x.transpose(0, 2, 1))).transpose(1, 2)
+        x, x_tc = _strided_input(2, 2 * ov + nb * keep, n_chan, layout, 74)
         got, stores = emu_inversion_fused(x, *(t.numpy() for t in consts), elem, keep, kpos,
                                           nb, lo, roll, gain)
         assert (stores == 1).all()  # every kept sample written exactly once
         ref = inv.inversion_fused(x_tc, *consts, None if elem is None else torch.as_tensor(elem),
                                   keep, kpos, nb, lo, roll, gain).numpy()
         assert _rel_err(got, ref) < SYNTHESIS_TOL
+
+    @pytest.mark.parametrize("geom", sorted(FUSED_GEOMS))
+    @pytest.mark.parametrize("seam", sorted(SEAMS))
+    @pytest.mark.parametrize("layouts", [("time_major", "channel_major"),
+                                         ("channel_major", "time_major")])
+    def test_kernel_emulation_seam(self, geom, seam, layouts):
+        # frame_load across the seam of a stream's held samples and its new
+        # block, each with its own strides: the frames of the joined stream,
+        # each frame wholly on one side read from that side, and the
+        # kernel's output the plain version's on cat(held, x), which the
+        # CPU branch of the wrapper computes from the pair, bit for bit
+        n_chan, kw = FUSED_GEOMS[geom]
+        g, consts, keep, kpos, lo, roll, gain, elem = _low_inversion_args(
+            n_chan, elem_seed=95, **kw)
+        nb = 5
+        n_all = 2 * g.input_overlap + nb * keep
+        h = SEAMS[seam](keep)
+        held, held_t = _strided_input(2, h, n_chan, layouts[0], 96) if h else (None, None)
+        x, x_tc = _strided_input(2, n_all - h, n_chan, layouts[1], 97)
+        perm = consts[2].numpy()
+        frames, sides = emu_frame_load(x, held, perm, keep, nb, L)
+        assert sides == SEAM_SIDES[seam]
+        joined = x_tc if held_t is None else torch.cat([held_t, x_tc], dim=1)
+        flat = joined.contiguous().numpy().ravel()
+        want, _ = emu_frame_load((flat, tuple(joined.shape), (n_all * n_chan, n_chan, 1)), None,
+                                 perm, keep, nb, L)
+        assert np.array_equal(frames, want)
+        got, stores = emu_inversion_fused(x, *(t.numpy() for t in consts), elem, keep, kpos,
+                                          nb, lo, roll, gain, held=held)
+        assert (stores == 1).all()
+        e = torch.as_tensor(elem)
+        ref = inv.inversion_fused(joined, *consts, e, keep, kpos, nb, lo, roll, gain)
+        assert _rel_err(got, ref.numpy()) < SYNTHESIS_TOL
+        pair = inv.inversion_fused(x_tc, *consts, e, keep, kpos, nb, lo, roll, gain, held=held_t)
+        assert torch.equal(pair, ref)
+
+    @pytest.mark.parametrize("split", [False, True, "empty"])
+    def test_launch_arguments(self, split, monkeypatch):
+        # the wrapper's arguments to the C entry, on a fake library and meta
+        # tensors: one for each argtype, the new block's strides then the
+        # held samples' and the seam h (0 and none without them), the blocks
+        # fitted to the h + n samples of both, and each launch of a pair
+        # counted in split_launches; held samples of length 0 are a launch
+        # on the new block alone (h = 0), not counted
+        import contextlib
+        import types
+
+        from ska_pst_dsp_tpu_torch.ops import kernels
+
+        calls = []
+        lib = types.SimpleNamespace(inversion_fused_launch=lambda *a: calls.append(a) or 0)
+        monkeypatch.setattr(kernels._build, "library", lambda: lib)
+        monkeypatch.setattr(kernels, "on_card", lambda name, d: d)
+        monkeypatch.setattr(kernels, "stream_of", lambda t: 99)
+        monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+        g, consts, keep, kpos, lo, roll, gain, _ = _low_inversion_args(
+            216, monotonic=True)
+        nb, h = 3, 0 if split == "empty" else 200
+        n_all = 2 * g.input_overlap + nb * keep
+        x_tc = torch.empty((4, 216, n_all - h + 5), dtype=torch.complex64,
+                           device="meta")[:, :, 5:].transpose(1, 2)
+        held = torch.empty((4, h, 216), dtype=torch.complex64, device="meta") if split else None
+        consts = [t.to("meta") for t in consts]
+        before = inv.inversion_fused.launches, inv.inversion_fused.split_launches
+        if split is False:  # the new block alone holds too few samples for nb blocks
+            with pytest.raises(ValueError, match="do not fit"):
+                inv.inversion_fused(x_tc, *consts, None, keep, kpos, nb, lo, roll, gain)
+            x_tc = torch.empty((4, 216, n_all), dtype=torch.complex64,
+                               device="meta").transpose(1, 2)
+        out = inv.inversion_fused(x_tc, *consts, None, keep, kpos, nb, lo, roll, gain, held=held)
+        (args,) = calls
+        assert len(args) == len(kernels._build.SIGNATURES["inversion_fused_launch"])
+        assert args[13:16] == x_tc.stride() and args[-1] == 99
+        assert args[16:20] == ((*held.stride(), h) if split else (0, 0, 0, 0))
+        assert (args[1] is None) == (held is None)
+        assert args[20:23] == (4, 216, nb) and out.shape == (4, nb, 25_920)
+        assert (inv.inversion_fused.launches - before[0],
+                inv.inversion_fused.split_launches - before[1]) == (1, int(split is True))
 
     def test_frontend_lanes_on_time(self):
         # csrc/inversion_fused.cu on a stream whose nearest axis is time (the
@@ -2144,7 +2270,8 @@ class TestOnCard:
     def test_inversion_fused_full_slab(self, cuda, nb, with_elem):
         # the cascade's inverse at full size: 512 slabs (2 pol x 256 coarse
         # channels) of 216 monotonic channels, 9 or 18 blocks, read through
-        # the transposed view of the inverse carry's channel-major buffer
+        # the transposed view of a channel-major buffer, as the cascade's
+        # inverse hands its slabs over
         g, consts, keep, kpos, lo, roll, gain, elem = _low_inversion_args(
             216, elem_seed=81 if with_elem else None, monotonic=True)
         n_dat = 2 * OV + nb * keep
@@ -2222,6 +2349,47 @@ class TestOnCard:
             fn = tsynth.frontend(x, *consts, L, keep, kpos, nb)
             ref = tsynth.epilogue(fn.reshape(2, nb, N), e, lo, roll, gain, nb)
             assert _rel_err(got.cpu(), ref.cpu()) < 4.7e-7
+
+    @pytest.mark.parametrize("case", ["low", "low_elem", "slab216", "node216_table"])
+    @pytest.mark.parametrize("seam", sorted(SEAMS))
+    @pytest.mark.parametrize("layouts", [("channel_major", "channel_major"),
+                                         ("time_major", "channel_major")])
+    def test_inversion_fused_split_bits(self, cuda, case, seam, layouts):
+        # both instantiations read a stream's held samples and its new block
+        # across the seam: bit for bit the launch on the two joined, with
+        # no elem, an (N,) one, or a PST node's (256, 41472) chirp table
+        # over 512 streams; each such launch counted once in split_launches
+        n_chan = N_CHAN if case.startswith("low") else 216
+        kw = {} if n_chan == N_CHAN else {"monotonic": True}
+        if case == "node216_table":
+            kw.update(ov=64, taper_overlap=OV)
+        g, consts, keep, kpos, lo, roll, gain, elem = _low_inversion_args(
+            n_chan, elem_seed=98 if case == "low_elem" else None, **kw)
+        consts = [t.to(cuda) for t in consts]
+        e = None if elem is None else torch.as_tensor(elem, device=cuda)
+        n_pol = 2
+        if case == "node216_table":
+            n_pol = 512
+            e = torch.as_tensor(dedispersion.Dedispersion(2.64476, 150.0, 0.78125).table(
+                g.output_fft_length, 256, centred=True), device=cuda)
+        nb = 5
+        n_all = 2 * g.input_overlap + nb * keep
+        h = SEAMS[seam](keep)
+        gen = torch.Generator(device=cuda).manual_seed(99)
+
+        def part(n, layout):
+            shape = (n_pol, n + 3, n_chan) if layout == "time_major" else (n_pol, n_chan, n + 3)
+            buf = torch.randn(shape, dtype=torch.complex64, device=cuda, generator=gen)
+            return buf[:, 3:] if layout == "time_major" else buf[:, :, 3:].transpose(1, 2)
+
+        held = part(h, layouts[0]) if h else None
+        x = part(n_all - h, layouts[1])
+        joined = x if held is None else torch.cat([held, x], dim=1)
+        want = inv.inversion_fused(joined, *consts, e, keep, kpos, nb, lo, roll, gain)
+        before = inv.inversion_fused.split_launches
+        got = inv.inversion_fused(x, *consts, e, keep, kpos, nb, lo, roll, gain, held=held)
+        assert inv.inversion_fused.split_launches == before + (held is not None)
+        assert torch.equal(got, want)
 
     def test_low_forward_launches_the_fused_inversion(self, cuda):
         # one low forward: the analysis and the fused inversion once each,

@@ -41,7 +41,7 @@ from ska_pst_dsp_tpu_torch.ops.kernels import ifft_big, inversion_fused
 from ska_pst_dsp_tpu_torch.ops.kernels import synthesis_fused as tsf
 from ska_pst_dsp_tpu_torch.ops.kernels.synthesis_fused import fused_inversion
 from ska_pst_dsp_tpu_torch.ops.lowcbf import polyphase_analysis_lowcbf
-from ska_pst_dsp_tpu_torch.utils import geometry
+from ska_pst_dsp_tpu_torch.utils import geometry, profiling
 from ska_pst_dsp_tpu_torch.utils.config import load_config
 from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
@@ -217,6 +217,106 @@ class TestInverseFilterBank:
         _close(got, ref, STREAM_TOL)
         assert calls and all(shape[2] == 216 for shape in calls)
         assert fused_inversion.composed_epilogues == before
+
+
+#: streams through the split input (a config, its channels, its stage's
+#: arguments, the blocks, and the kinds of call among them: the first with
+#: nothing held, one that consumes no chunk, one that consumes less than it
+#: holds, one whose held samples are then a view of its block, one that
+#: consumes a double chunk)
+SPLIT_CASES = {
+    "small": (_cfg, 32, {}, [112, 90, 90, 90, 90, 200, 30, 60, 150],
+              {"first", "none", "short", "view", "double"}),
+    "small_offset": (_cfg, 32, {"sample_offset": 37}, [112, 90, 90, 90, 90, 200, 30, 60, 150],
+                     {"first", "short", "view", "double"}),
+    # a whole-chunk cycle, as an SKA-Low PST node's: the held samples grow
+    # by 128 a call until a call consumes two chunks
+    "slab216_cycle": (_lowcbf_cfg, 216, {"monotonic": True}, [448] * 6,
+                      {"first", "view", "double"}),
+    "slab216_ragged": (_lowcbf_cfg, 216, {"monotonic": True},
+                       [400, 200, 200, 100, 50, 60, 100, 300],
+                       {"first", "none", "short", "view", "double"}),
+}
+
+
+class TestSplitInput:
+    """InverseFilterBank hands its held samples and the new block to an
+    inversion that reads two inputs (the plain versions here) as they lie:
+    each call's output and carried state (held samples, consumed) are
+    bitwise the concatenating path's (the stage with ``_reads_split``
+    False), and ``carry_bytes`` grows only where the docstring says: by the
+    held samples and the block where a call consumes no chunk, by the
+    unconsumed held samples and the block where it consumes fewer than it
+    holds, by nothing where its held samples are then a view of its block.
+    ``inversion_fused_split`` counts launches: none on the CPU."""
+
+    @staticmethod
+    def _run(cfg, kw, x, chunks):
+        inv = streaming.InverseFilterBank(cfg, device="cpu", plain=True, **kw)
+        state, calls, pos = inv.init_state(), [], 0
+        for c in chunks:
+            before = profiling.counters()
+            h = 0 if state.buffer is None else state.buffer.shape[-1]
+            new, out = inv.execute(state, x[..., pos:pos + c])
+            after = profiling.counters()
+            calls.append({"out": out, "buffer": new.buffer, "consumed": new.consumed,
+                          "h": h, "pos": pos, "n": c, "ate": new.consumed - state.consumed,
+                          "first": state.buffer is None, "blocks": inv.chunk_blocks,
+                          **{k: after[k] - before[k] for k in ("carry_bytes",
+                                                               "inversion_fused_split")}})
+            state, pos = new, pos + c
+        return calls, inv
+
+    @pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+    def test_split_equals_joined(self, case, monkeypatch):
+        make, n_chan, kw, chunks, kinds = SPLIT_CASES[case]
+        cfg = make()
+        x = torch.as_tensor(_noise((2, n_chan, sum(chunks)), 9))
+        split, inv = self._run(cfg, kw, x, chunks)
+        monkeypatch.setattr(streaming.InverseFilterBank, "_reads_split", lambda self, n: False)
+        joined, _ = self._run(cfg, kw, x, chunks)
+        keep = inv.n_fft - 2 * inv.overlap
+        per = 8 * 2 * n_chan  # complex64 bytes of a sample of every stream
+        seen = set()
+        for s, j in zip(split, joined):
+            h, n, ate = s["h"], s["n"], s["ate"]
+            assert torch.equal(s["out"], j["out"]) and (s["out"].shape[-1] > 0) == (ate > 0)
+            assert torch.equal(s["buffer"], j["buffer"]) and s["consumed"] == j["consumed"]
+            kind = ("first" if s["first"] else "none" if ate == 0
+                    else "short" if ate < h else "view")
+            seen |= {kind} | ({"double"} if ate >= 2 * s["blocks"] * keep else set())
+            want = {"first": 0, "none": h + n, "short": h - ate + n, "view": 0}[kind]
+            assert s["carry_bytes"] == per * want
+            assert j["carry_bytes"] == (per * (h + n) if h else 0)
+            assert s["inversion_fused_split"] == j["inversion_fused_split"] == 0
+            if kind == "view":  # the held samples: the tail of the caller's block
+                assert s["buffer"].data_ptr() == x[..., s["pos"] + ate - h:].data_ptr()
+        assert seen == kinds
+
+    def test_the_caller_keeps_its_block_until_the_next_call(self):
+        # the contract of execute's docstring: where the consumed samples
+        # cover the held ones, the held samples are a view of the caller's
+        # block, so a block written to before the next call changes that
+        # call's output (a caller that reuses its buffer hands over a copy)
+        cfg = _cfg()
+        x = torch.as_tensor(_noise((2, 32, 112 + 96 + 96), 9))
+        outs = []
+        for overwrite in (False, True):
+            inv = streaming.InverseFilterBank(cfg, device="cpu", plain=True)
+            blocks = [x[..., :112].clone(), x[..., 112:208].clone(), x[..., 208:].clone()]
+            state = inv.init_state()
+            state, _ = inv.execute(state, blocks[0])
+            h = state.buffer.shape[-1]
+            consumed = state.consumed
+            state, _ = inv.execute(state, blocks[1])
+            assert state.consumed - consumed >= h and state.buffer.shape[-1] > 0
+            assert (state.buffer.untyped_storage().data_ptr()
+                    == blocks[1].untyped_storage().data_ptr())
+            if overwrite:
+                blocks[1].zero_()
+            outs.append(inv.execute(state, blocks[2])[1])
+        assert outs[0].shape == outs[1].shape and outs[0].shape[-1] > 0
+        assert not torch.equal(outs[0], outs[1])
 
 
 class TestPipeline:

@@ -11,10 +11,13 @@
   trip and the stream) is the fused wrapper alone, with no dispatch.
 * Outputs are bitwise the same with the profiler on and off.
 * ``carry_bytes`` counts the bytes of every carry's ``torch.cat`` output,
-  reckoned here from the sizes of the carried buffers and the blocks.
+  reckoned here from the sizes of the carried buffers and the blocks: in
+  the low stream the analysis's alone, since the inversion reads its held
+  samples and each block where they lie.
 * :func:`counters` holds every wrapper's launches, the analysis's
-  channel-major launches, the composed epilogues, the carry's bytes and
-  the cascades' corner-turn bytes.
+  channel-major launches, the fused inversion's launches on two inputs,
+  the composed epilogues, the carry's bytes and the cascades' corner-turn
+  bytes.
 * A cascade (a 16-channel stage 1 into the LowCBF firmware filterbank,
   then each coarse channel's inversion, oversampled and critical) emits
   ``two_stage.filterbank`` and ``two_stage.inverse_filterbank`` around its
@@ -161,8 +164,8 @@ def cases(low_filt):
 
 def run_stream(filt, x, shapes=None, device="cpu"):
     """``x`` through a fresh FilterBank then InverseFilterBank in blocks of
-    BLOCK; before each call that has a carried buffer, (its shape, the
-    block's shape) is appended to ``shapes``."""
+    BLOCK; before each call that has a carried buffer, (the stage's span,
+    the buffer's shape, the block's shape) is appended to ``shapes``."""
     cfg = LowConfig(filt)
     fb = streaming.FilterBank(cfg, device=device)
     inv = streaming.InverseFilterBank(cfg, device=device)
@@ -171,10 +174,10 @@ def run_stream(filt, x, shapes=None, device="cpu"):
     for a in range(0, x.shape[-1], BLOCK):
         block = x[:, a:a + BLOCK]
         if shapes is not None and s_fb.buffer is not None:
-            shapes.append((s_fb.buffer.shape, block.shape))
+            shapes.append(("filterbank", s_fb.buffer.shape, block.shape))
         s_fb, y = fb.execute(s_fb, block)
         if shapes is not None and s_inv.buffer is not None:
-            shapes.append((s_inv.buffer.shape, y.shape))
+            shapes.append(("inverse_filterbank", s_inv.buffer.shape, y.shape))
         s_inv, z = inv.execute(s_inv, y)
         outs += [y, z]
     return outs
@@ -262,7 +265,8 @@ def test_spans_nest_by_layer(cases, case):
     counts = {n: sum(1 for s in spans if s[0] == n) for n in want}
     if case == "stream":
         assert counts["filterbank"] == counts["inverse_filterbank"] == BLOCKS
-        assert counts["carry"] == 2 * BLOCKS - 2  # the first call of each has none
+        # the analysis's, from its second call: the inversion joins nothing
+        assert counts["carry"] == BLOCKS - 1
     else:
         assert set(counts.values()) == {1}
     # where a dispatch chooses, the chosen epilogue runs after it (on the
@@ -299,17 +303,19 @@ def test_carry_bytes_counts_the_cat_outputs(low_filt):
     before = streaming.carry.bytes
     run_stream(low_filt, _noise((2, 6 * BLOCK), 4), shapes)
     counted = streaming.carry.bytes - before
-    # every carried buffer is joined to the block after it: complex64 bytes
-    # of a buffer of n samples and a block of m, per polarisation and channel
+    # every buffer the analysis carries is joined to the block after it:
+    # complex64 bytes of a buffer of n samples and a block of m, per
+    # polarisation and channel; the inversion reads its held samples and
+    # the block where they lie, and holds a view of the block after
     want = sum(8 * int(np.prod(buf[:-1])) * (buf[-1] + blk[-1])
-               for buf, blk in shapes if buf[-1] > 0)
+               for stage, buf, blk in shapes if stage == "filterbank" and buf[-1] > 0)
     assert len(shapes) == 2 * 6 - 2 and counted == want > 0
 
 
 def test_counters_hold_every_counter(cases):
     before = profiling.counters()
-    assert set(before) == {*wrappers(), "analysis_fused_channel_major", "composed_epilogues",
-                           "carry_bytes", "corner_turn_bytes"}
+    assert set(before) == {*wrappers(), "analysis_fused_channel_major", "inversion_fused_split",
+                           "composed_epilogues", "carry_bytes", "corner_turn_bytes"}
     assert all(isinstance(v, int) for v in before.values())
     cases["stream"]()
     after = profiling.counters()
@@ -317,6 +323,7 @@ def test_counters_hold_every_counter(cases):
     assert after["carry_bytes"] > before["carry_bytes"]
     assert {k: after[k] - before[k] for k in wrappers()} == dict.fromkeys(wrappers(), 0)
     assert after["analysis_fused_channel_major"] == before["analysis_fused_channel_major"]
+    assert after["inversion_fused_split"] == before["inversion_fused_split"]
 
 
 @pytest.mark.parametrize("critical", [False, True])
@@ -388,6 +395,10 @@ def test_card_spans_nest_and_match_the_launches(low_filt, case):
     launched = {k: after[k] - before[k] for k in wrappers()}
     assert launched == {k: sum(1 for s in spans if s[0] == f"kernel.{k}") for k in wrappers()}
     assert after["composed_epilogues"] == before["composed_epilogues"]
+    # the stream's inversions after the first read their held samples and
+    # the block as two inputs
+    split = after["inversion_fused_split"] - before["inversion_fused_split"]
+    assert split == (BLOCKS - 1 if case == "stream" else 0)
 
 
 @pytest.mark.cuda
