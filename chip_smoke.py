@@ -119,6 +119,15 @@ Phases (one line each; any failure raises and the exit code is non-zero):
     samples and the new block as two inputs (bitwise the one-input launch,
     timed beside it); the node over the cell's cycle of requests, its state
     carried, against its plain chain (``run_pst_node``).
+12c. pst-long: the fused inversion's plan at L 512 (216 channels, 82,944 =
+    216 * 384 points, one block an SM) at the lowpst1909.dedisp cell's
+    shapes: 512 slabs of 4 and 8 blocks with the (256, 82,944) chirp table
+    of PSR J1909-3744 (DM 10.3919, discard 100 a side, hop 312) against its
+    plain version, ms a call and device ms; two inputs bitwise the launch on
+    their join; each plan's registers and spills; then the J1909-3744 node
+    over the cell's requests at L 512 and at the upstream L 256 (PsiPlan,
+    hop 56), ms a request, which is what the frame length buys
+    (``run_pst_long``).
 13. data_gen: the file-level tools on the card, in a temporary directory,
     with the plain versions and torch.fft patched to raise: at low a
     complex sinusoid of 2 pol x 2^23 through generate_test_vector ->
@@ -230,6 +239,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -933,6 +943,9 @@ def main() -> int:
     run_dedispersion(torch, dev, smi)
     torch.cuda.empty_cache()
     run_pst_node(torch, dev, smi)
+    torch.cuda.empty_cache()
+    run_pst_long(torch, dev, smi)
+    torch.cuda.empty_cache()
 
     # 13-14. the file-level data_gen tools and the CLI drivers
     for phase, run in (("data_gen", lambda: run_data_gen(torch, dev, smi)),
@@ -2082,6 +2095,163 @@ def run_pst_node(torch, dev, smi):
         f"{inv.inversion_fused.split_launches} of them on two inputs, nothing joined; "
         f"against the plain chain carried alike max|err|/scale {worst:.3g} "
         f"(tol {SYNTHESIS_TOL}) ({smi})")
+    del stream
+
+
+#: PSR J1909-3744's DM, and the coarse channels' plan of the PST node cells
+J1909_DM, FIRST_MHZ, COARSE_MHZ = 10.3919, 150.0, 0.78125
+
+
+def pst1909_stage(length):
+    """The lowpst1909 configuration's LowCBF stage at frame length
+    ``length`` (512 as the cell has it; 256 as upstream's lowpsi), as the
+    benchmark's kind builds it."""
+    from pstbench import design, run, system
+
+    cfg = run.load_json(run.HERE / "configs" / "lowpst1909.json")
+    stage = system.PortConfig({**cfg, "input_fft_length": length}, design.prototype_filter(cfg))
+    stage.kept_channels = cfg["kept_channels"]
+    return stage
+
+
+def run_pst_long(torch, dev, smi):
+    """Phase 12c: the fused inversion's third plan, a LowCBF PST slab at
+    L 512 (Psi512Plan: 216 channels, 82,944 = 216 * 384 points, 188 KiB of
+    shared memory a block, one block an SM), at the lowpst1909.dedisp cell's
+    shapes: 512 slabs (2 pol x 256 coarse channels) of 4 and 8 blocks
+    through the transposed channel-major view, stream p reading row p % 256
+    of the (256, 82,944) chirp table of PSR J1909-3744, each frame
+    discarding 100 a side (the taper's 48 and the chirp's reach), against
+    its plain version within SYNTHESIS_TOL, ms a call and device ms; the
+    same launch on held samples and a new block (the seam inside a frame
+    and on a hop) bitwise the one-input launch; the three plans' registers
+    and spills from ptxas; then the J1909-3744 node,
+    ``TwoStageInverseFilterBank(..., dedispersion=...)``, over 8 requests of
+    the cell's 2 x 256 x 216 x 1,600 fine samples, its state carried, at
+    L 512 and at the upstream L 256 (on PsiPlan, hop 56), each launching
+    inversion_fused once a request and nothing else (on two inputs after the
+    first request), each request's ms and
+    the median ns an output sample side by side: the frame length's gain."""
+    from ska_pst_dsp_tpu_torch.models.two_stage import TwoStageInverseFilterBank
+    from ska_pst_dsp_tpu_torch.ops import synthesis as ps
+    from ska_pst_dsp_tpu_torch.ops.dedispersion import Dedispersion
+    from ska_pst_dsp_tpu_torch.ops.kernels import inversion_fused as inv
+
+    band = Dedispersion(J1909_DM, FIRST_MHZ, COARSE_MHZ)
+    stage = pst1909_stage(512)
+    node = TwoStageInverseFilterBank(stage, nch2=216, device=dev, dedispersion=band)
+    node.init_state()
+    g = node._geom
+    n_chan, L, os_f = 216, 512, node._inv.os_factor
+    check((g.input_overlap, g.input_keep, g.output_fft_length, g.output_overlap)
+          == (100, 312, 82944, 16200), f"pst-long: geometry {g}")
+    check(inv.takes(L, n_chan, g.output_fft_length, g.output_overlap),
+          "inversion_fused does not take the L 512 node's geometry")
+    c = ps.synthesis_constants(n_chan, L, os_f, g.input_overlap,
+                               deripple_coeff=stage.load_fir_filter_coeff(),
+                               temporal_taper="tukey", monotonic=True,
+                               spectral_filter=band.table(g.output_fft_length, 256, centred=True),
+                               taper_overlap=stage.input_overlap)
+    consts = [torch.as_tensor(c[k], device=dev) for k in ("t_taper", "dr", "perm", "elem")]
+    keep, kpos = g.input_keep, (L // 2 + g.discard) % L
+    n, lo, roll, gain = g.output_fft_length, g.output_overlap, g.fn_width // 2, os_f.de / os_f.nu
+    clusters = inv.active_clusters(n_chan, L)
+    log("pst-long", f"Psi512Plan: {clusters} clusters of 8 resident (PsiPlan "
+        f"{inv.active_clusters(n_chan, 256)}, LowPlan {inv.active_clusters()})")
+    plans = RESOURCES.get("inversion_fused", {})
+    log("pst-long", "registers and spills: " + "; ".join(
+        f"{k} {v['registers']} registers, {v['spill_stores']} / {v['spill_loads']} B "
+        f"spilled" for k, v in sorted(plans.items())))
+    gen = torch.Generator(device=dev)
+    for nb in (4, 8):
+        n_dat = 2 * g.input_overlap + nb * keep
+        gen.manual_seed(SEED + 25 + nb)
+        x = torch.randn((512, n_chan, n_dat + 64), dtype=torch.complex64, device=dev,
+                        generator=gen)[:, :, :n_dat].transpose(1, 2)
+
+        def fused(x=x, held=None):
+            return inv.inversion_fused(x, *consts, keep, kpos, nb, lo, roll, gain, held=held)
+
+        def plain():
+            fn = ps.frontend(x, *consts[:3], L, keep, kpos, nb)
+            return ps.epilogue(fn.reshape(512, nb, n), consts[3], lo, roll, gain, nb)
+
+        want, ref = fused(), plain()
+        err = rel_err(want, ref)
+        check(err[1] <= SYNTHESIS_TOL, f"pst-long: 512 x {nb} blocks: {err[1]:.3g}")
+        dms = device_ms(torch, fused, "inversion_fused_kernel")
+        one_ms = time_ms(torch, fused)
+        log("pst-long", f"inversion_fused at L 512 with the (256, {n}) chirp table, 512 x {nb} "
+            f"blocks (discard {lo} a side): max|err|/scale {err[1]:.3g} (tol {SYNTHESIS_TOL}); "
+            f"kernel {one_ms:.4f} ms a call, device "
+            + (", ".join(f"{k} {v:.4f} ms" for k, v in dms.items()) or "not measured")
+            + f" ({smi})")
+        for where, h in (("inside a frame", 150), ("on a hop", 2 * keep)):
+            count = inv.inversion_fused.split_launches
+            got = fused(x[:, h:], x[:, :h])
+            check(inv.inversion_fused.split_launches == count + 1,
+                  "pst-long: a launch on two inputs not counted")
+            check(torch.equal(got, want),
+                  f"pst-long: two inputs, seam {h} ({where}), {nb} blocks: not the joined bits")
+            log("pst-long", f"two inputs, seam {h} ({where}), 512 x {nb} blocks: bitwise the "
+                f"launch on their join")
+        del x, want, ref
+        torch.cuda.empty_cache()
+
+    # the J1909-3744 node over the cell's requests, at L 512 and at L 256
+    block, reqs = 1600, 8
+    gen.manual_seed(SEED + 26)
+    stream = torch.randn((2, 256 * n_chan, reqs * block), dtype=torch.complex64, device=dev,
+                         generator=gen)
+    rows = {}
+    for length in (512, 256):
+        nd = TwoStageInverseFilterBank(pst1909_stage(length), nch2=216, device=dev,
+                                       dedispersion=band)
+        times, outs, emitted, counts = [], [], 0, None
+        for rnd in range(2):  # the first round warms up
+            state = nd.init_state()
+            ws = reset_counts()
+            retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+            collections = gc.get_stats()[2]["collections"]
+            split = inv.inversion_fused.split_launches
+            for i in range(reqs):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                with plain_versions_raise(torch):
+                    state, out = nd.execute(state, stream[:, :, i * block:(i + 1) * block])
+                end.record()
+                end.synchronize()
+                if rnd:
+                    times.append(start.elapsed_time(end))
+                    outs.append(out.shape[-1])
+                    emitted += out.shape[-1]
+                del out
+            counts = read_counts(torch, ws)
+            check(inv.inversion_fused.split_launches == split + reqs - 1,
+                  f"pst-long node at L {length}: not one launch on two inputs a request after "
+                  f"the first")
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+        collections = gc.get_stats()[2]["collections"] - collections
+        expect_launches(f"pst-long node at L {length}", counts, ("inversion_fused",),
+                        composed=False)
+        check(counts["inversion_fused"] == reqs,
+              f"pst-long node at L {length}: {counts['inversion_fused']} launches")
+        ng = nd._geom
+        # ns an output sample, each request's time over what it emitted
+        rows[length] = statistics.median(t * 1e6 / o for t, o in zip(times, outs) if o)
+        log("pst-long", f"J1909-3744 node at L {length} (hop {ng.input_keep}, discard "
+            f"{ng.input_overlap} a side): {reqs} requests of 2 x 256 x 216 x {block}, ms "
+            + " ".join(f"{t:.3f}" for t in times) + f" ({retries} allocator retries, "
+            f"{collections} full garbage collections); "
+            f"{emitted / reqs:.0f} output samples a "
+            f"request, median {rows[length]:.4f} ns a stream's output sample, "
+            f"{ng.output_fft_length / ng.output_keep:.3f} transform points an output sample "
+            f"({smi})")
+        del nd, state
+        torch.cuda.empty_cache()
+    log("pst-long", f"L 256 over L 512: {rows[256] / rows[512]:.2f}x the time an output sample "
+        f"({smi})")
     del stream
 
 

@@ -10,24 +10,26 @@
 //   (csrc/synthesis_fused.cu) and
 //   ska_pst_dsp_tpu/ops/pallas/ifft_fused.py::fused_big_ifft
 //   (csrc/ifft_fused.cu, the cluster route; elsewhere the composed epilogue)
-// at the two geometries where the epilogue's cluster can hold a block and
-// the frontend's tiles fill its thread blocks, L = 256, FN_width = 192
-// (InvPlan):
-//   * SKA-Low: 256 channels, N = 49152 = 128 * 384 (LowPlan);
+// at the three geometries where the epilogue's cluster can hold a block and
+// the frontend's tiles fill its thread blocks, FN_width = 3L/4 (InvPlan):
+//   * SKA-Low: L = 256, 256 channels, N = 49152 = 128 * 384 (LowPlan);
 //   * a LowCBF PST slab, the 216 kept channels of one coarse channel of the
-//     SKA-Low PST cascade: N = 41472 = 216 * 192 (PsiPlan). Neither package
-//     has an epilogue plan at this length (41472 = 2^9 * 3^4: no split with
-//     n2 a multiple of 128 and n1 a multiple of 8), so without this kernel
-//     it runs the frontend kernel and the composed epilogue (cuFFT, roll,
-//     scale, a strided copy). It computes
+//     SKA-Low PST cascade: L = 256, N = 41472 = 216 * 192 (PsiPlan). Neither
+//     package has an epilogue plan at this length (41472 = 2^9 * 3^4: no
+//     split with n2 a multiple of 128 and n1 a multiple of 8), so without
+//     this kernel it runs the frontend kernel and the composed epilogue
+//     (cuFFT, roll, scale, a strided copy);
+//   * the same slab at L = 512, the frame a PST node takes where the
+//     chirp's reach leaves too little of a 256-sample frame: N = 82944 =
+//     216 * 384 (Psi512Plan), no epilogue plan either. It computes
 //
-//   X[p, b, 192*c + j] = dr[j] * sum_t taper[t] * x[p, b*keep + t, perm[c]]
+//   X[p, b, FNW*c + j] = dr[j] * sum_t taper[t] * x[p, b*keep + t, perm[c]]
 //                               * w_L^(t * ((kpos + j) mod L))
 //   y[p, b, t - lo]    = IFFT(roll(X[p, b] * elem[p % rows], -roll))[t] * gain,
 //                        t in [lo, N - lo)
 //
 // as synthesis_fused followed by the epilogue computes it; the frontend's
-// DFT runs as 16 * 16. elem is a (rows, N) table (rows = 1: one factor for
+// DFT runs as 16 * (L / 16). elem is a (rows, N) table (rows = 1: one factor for
 // every stream; an SKA-Low PST node's chirps, one a coarse channel, with
 // the streams laid out (pol, coarse channel): rows = the coarse channels).
 //
@@ -45,20 +47,21 @@
 //
 // Design: one persistent cluster of eight 256-thread blocks per resident
 // slot walks over the (pol, block) transforms (eight: the largest portable
-// cluster), two blocks an SM. For each transform, with the four-step split
+// cluster), two blocks an SM where a block's shared memory allows (one at
+// L = 512). For each transform, with the four-step split
 // N = n2 * n1, input k = n1*m2 + m1, output t = k2 + n2*k1:
 //   * block r is the frontend of channels [C*r, C*r + C) (C = 32, or 27 in
 //     the cascade's slab), in two halves of up to 16 (16 + 16, 16 + 11: a
 //     short half's spare threads load and store nothing). The thread of (channel c,
-//     j) loads its 16 frame samples t = j + 16*m from device memory into
+//     j) loads its M = L/16 frame samples t = j + 16*m from device memory into
 //     registers (strides are arguments: a channel-major stream or a
 //     sample_offset view needs no copy; a stream's carried samples and its
 //     new block are two inputs with a seam between them, Src, so the
 //     streaming inversion joins nothing), tapers them there, runs the
-//     16-point DFT over m and the twiddle w_L^(j*d) and stores them in a row
-//     of 257 points (odd: 16 channels at one offset hit 16 banks); the
-//     thread of (c, d) then runs the 16-point DFT over j of bins
-//     k = d + 16*e in registers. The lanes of the first pass lie on
+//     M-point DFT over m and the twiddle w_L^(j*d) and stores them in a row
+//     of L + 1 points (odd: 16 channels at one offset hit 16 banks); the
+//     thread of (c, d), for each of its M/16 values of d, then runs the
+//     16-point DFT over j of bins k = d + M*e in registers. The lanes of the first pass lie on
 //     channels (16 channels of one time row are 128 contiguous bytes of the
 //     time-major stream the one-shot round trip hands over); the slab's
 //     kernel puts them on time, for the channel-major slabs the cascade's
@@ -69,7 +72,7 @@
 //     second half's samples load during the first half's passes;
 //   * the epilogue's roll is a circular shift of its input, and its gain a
 //     factor: each kept bin j' of channel c, times dr[j'] * gain/N, goes to
-//     k' = (192*c + j' - roll) mod N, row m2 = k' / n1 and column
+//     k' = (FNW*c + j' - roll) mod N, row m2 = k' / n1 and column
 //     m1 = k' % n1, straight into the column buffer of the block that owns
 //     m1 (map_shared_rank: block r owns m1 in [r*n1/8, (r+1)*n1/8)): the
 //     assembled block never leaves the cluster, and the output needs no
@@ -100,14 +103,24 @@
 // Eight blocks of 27 channels, 24 columns and 27 rows keep the 256-channel
 // kernel's cluster, threads and frontend halves; 216 = 9 * 24 would need a
 // non-portable cluster of nine.
+// The slab at L = 512, 216 * 384: FN_width = 384 = n1, so again each
+// channel's bins fill one row; the output overlap of a PST node's discard
+// is whole rows (16200 = 75 * 216 at PSR J1909-3744's DM), the columns are
+// the slab's radix-6 passes and the rows SKA-Low's 3 * 128 (G = 16). The
+// frontend runs 16 * 32: 32 samples a thread and a 32-point DFT (dft32) in
+// registers, two bins d a thread in the second pass. Its block needs 188
+// KiB (columns 81 KiB, rows 81 KiB, twiddles 16 KiB): one block an SM, so
+// its launch bounds allow 255 registers. At L = 1024 the columns and rows
+// alone would need twice 648 KiB over the cluster's eight blocks, more
+// than an SM holds.
 // Why 256 threads and two blocks an SM: with one 512-thread block an SM
 // (the first version) every warp of the SM waited at the same barriers; a
 // transform took ~11 us a cluster against ~3.5 us of shared-memory traffic,
 // no faster than the two kernels. Two blocks of two clusters interleave
 // their phases. Shared memory per block (SKA-Low 110 KiB, the slab 95 KiB,
-// under half the SM's 228 KB): the columns, the rows (whose first 32 KiB
-// also hold the frontend's 16 rows of a half) and the tables; w_n1 is read
-// through L1. fp32 SIMT arithmetic throughout. The two-kernel route stays
+// under half the SM's 228 KB; the slab at L = 512 188 KiB): the columns,
+// the rows (whose first 32 or 64 KiB also hold the frontend's 16 rows of a
+// half) and the tables; w_n1 is read through L1. fp32 SIMT arithmetic throughout. The two-kernel route stays
 // for every other geometry (SKA-Mid, the other cluster splits, the critical
 // cascades).
 #include <cooperative_groups.h>
@@ -120,21 +133,23 @@ namespace cg = cooperative_groups;
 constexpr int kThreads = 256;
 constexpr int kCl = 8;                 // thread blocks of a cluster
 constexpr int kHalf = 16;              // channels of a full frontend half
-constexpr int kFnw = 192;              // kept bins per channel
-constexpr int kL = 256;                // the frame length L
-constexpr int kR = 16;                 // L = 16 * 16: two passes of 16 points
-constexpr int kLd = kL + 1;            // frontend row stride (odd)
-static_assert(kR * kR == kL && kHalf * kR == kThreads, "inversion: frontend tiling");
+constexpr int kR = 16;                 // the frontend's second pass: 16 points over j
+static_assert(kHalf * kR == kThreads, "inversion: frontend tiling");
 
-// One instantiation: NCHAN channels, N = NCHAN * 192 = N2 * N1 with
-// N1 = R1 * Q1 (Q1 = 8 * G); the column transform N2 is 128 = 8 * 16 or
-// 216 = 6 * 6 * 6; CM: the frontend's first-pass lanes on time (see
-// lane_chan).
-template <int NCHAN, int N2, int R1, int Q1, bool CM>
+// One instantiation: frame length L (FN_width = 3L/4 kept bins a channel),
+// NCHAN channels, N = NCHAN * FN_width = N2 * N1 with N1 = R1 * Q1
+// (Q1 = 8 * G); the column transform N2 is 128 = 8 * 16 or 216 = 6 * 6 * 6;
+// CM: the frontend's first-pass lanes on time (see lane_chan).
+template <int NCHAN, int N2, int R1, int Q1, bool CM, int L>
 struct InvPlan {
   static constexpr bool kCm = CM;
-  static constexpr int kChan = NCHAN / kCl;         // channels per block
-  static constexpr int kHalf1 = kChan - kHalf;      // channels of the second half
+  static constexpr int kL = L;
+  static constexpr int kFnw = 3 * L / 4;             // kept bins per channel
+  static constexpr int kM = L / kR;                  // L = 16 * M: M samples a thread
+  static constexpr int kDpt = kM / kR;               // second-pass bins d a thread
+  static constexpr int kLd = L + 1;                  // frontend row stride (odd)
+  static constexpr int kChan = NCHAN / kCl;          // channels per block
+  static constexpr int kHalf1 = kChan - kHalf;       // channels of the second half
   static constexpr int kN2 = N2, kR1 = R1, kQ1 = Q1, kN1 = R1 * Q1, kG = Q1 / 8;
   static constexpr int kN = N2 * kN1;
   static constexpr int kCpc = kN1 / kCl;            // columns m1 per block
@@ -158,6 +173,9 @@ struct InvPlan {
   static constexpr int kF2 = kCol + kRecv + kL + kTwC + kTwR + kTab;
   static constexpr size_t kSmem = static_cast<size_t>(kF2) * sizeof(float2) +
                                   static_cast<size_t>(kL + kFnw) * sizeof(float);
+  // blocks an SM: 228 KB, less 1 KB each for the system; two where they fit
+  static constexpr int kBlocksPerSm = 2 * (kSmem + 1024) <= 228 * 1024 ? 2 : 1;
+  static_assert(kM * kR == L && (kM == 16 || kM == 32), "inversion: L = 16 * 16 or 16 * 32");
   static_assert(kChan * kCl == NCHAN && kHalf1 > 0 && kHalf1 <= kHalf,
                 "inversion: two frontend halves a block");
   static_assert(NCHAN * kFnw == kN && kCpc * kCl == kN1 && kRows * kCl == N2,
@@ -165,16 +183,20 @@ struct InvPlan {
   static_assert((N2 == 128 || N2 == 216) && (Q1 == 64 || Q1 == 128) && R1 == 3,
                 "inversion: the instantiated transforms");
   static_assert(kBuf <= kRecv, "inversion: frontend rows inside the receive buffer");
-  // two blocks an SM: 228 KB, less 1 KB each for the system
-  static_assert(2 * (kSmem + 1024) <= 228 * 1024, "inversion: two blocks an SM");
+  static_assert(kSmem + 1024 <= 228 * 1024, "inversion: one block an SM");
 };
 
 // SKA-Low: 49152 = 128 * 384, lanes on channels (the one-shot round trip
 // hands the analysis' time-major channels over)
-using LowPlan = InvPlan<256, 128, 3, 128, false>;
+using LowPlan = InvPlan<256, 128, 3, 128, false, 256>;
 // a LowCBF PST slab: 41472 = 216 * 192, lanes on time (the cascade's
 // inverse hands channel-major slabs over)
-using PsiPlan = InvPlan<216, 216, 3, 64, true>;
+using PsiPlan = InvPlan<216, 216, 3, 64, true, 256>;
+// the slab at L = 512: 82944 = 216 * 384, lanes on time (a PST node's
+// channel-major beam at a frame its DM needs)
+using Psi512Plan = InvPlan<216, 216, 3, 128, true, 512>;
+static_assert(LowPlan::kBlocksPerSm == 2 && PsiPlan::kBlocksPerSm == 2 &&
+              Psi512Plan::kBlocksPerSm == 1, "inversion: the plans' blocks an SM");
 
 // The thread of (channel c, j) in the frontend's first pass: lanes on
 // channels, (tid % 16, tid / 16), which suits a time-major stream; lanes on
@@ -201,14 +223,15 @@ struct Src {
 };
 
 // The first-pass samples of thread (c, j), channel ch0 + c, for transform
-// tr: v[m] = stream[pol, b*keep + j + 16*m, perm[ch0 + c]]. A frame wholly
-// on one side of the seam picks its input and stride once, and only a frame
-// across it picks each sample's side. In a half of NC < 16 channels the
-// spare threads (c >= NC) load nothing: their rows are never read.
+// tr: v[m] = stream[pol, b*keep + j + 16*m, perm[ch0 + c]], m < M. A frame
+// wholly on one side of the seam picks its input and stride once, and only
+// a frame across it picks each sample's side. In a half of NC < 16 channels
+// the spare threads (c >= NC) load nothing: their rows are never read.
 template <class P, int NC>
-__device__ __forceinline__ void frame_load(float2 (&v)[kR], const Src& s, const int* perm,
+__device__ __forceinline__ void frame_load(float2 (&v)[P::kM], const Src& s, const int* perm,
                                            int n_blocks, int keep, int tr, int ch0) {
   constexpr bool CM = P::kCm;
+  constexpr int kM = P::kM;
   const int pol = tr / n_blocks;
   const int b = tr - pol * n_blocks;
   const int c = lane_chan<CM>();
@@ -217,58 +240,100 @@ __device__ __forceinline__ void frame_load(float2 (&v)[kR], const Src& s, const 
   const long long ch = __ldg(perm + ch0 + c);
   const long long t0 = static_cast<long long>(b) * keep + j;  // the thread's first sample
   const long long f0 = t0 - j;                                 // the frame's
-  const bool in_held = f0 + kL <= s.h;
+  const bool in_held = f0 + P::kL <= s.h;
   if (in_held || f0 >= s.h) {
     const long long st = in_held ? s.ht : s.st;
     const float2* xb = in_held ? s.held + pol * s.hp + t0 * s.ht + ch * s.hc
                                : s.x + pol * s.sp + (t0 - s.h) * s.st + ch * s.sc;
 #pragma unroll
-    for (int m = 0; m < kR; ++m) v[m] = xb[static_cast<long long>(kR * m) * st];
+    for (int m = 0; m < kM; ++m) v[m] = xb[static_cast<long long>(kR * m) * st];
   } else {
     const float2* hb = s.held + pol * s.hp + ch * s.hc;
     const float2* xb = s.x + pol * s.sp + ch * s.sc;
 #pragma unroll
-    for (int m = 0; m < kR; ++m) {
+    for (int m = 0; m < kM; ++m) {
       const long long t = t0 + kR * m;
       v[m] = t < s.h ? hb[t * s.ht] : xb[(t - s.h) * s.st];
     }
   }
 }
 
+// cos(2*pi*m/32); called with constants after unrolling, so it folds into
+// an immediate
+__device__ __forceinline__ float w32_cos(int m) {
+  switch (m & 31) {
+    case 1: case 31: return 0.98078528040323044913f;
+    case 3: case 29: return 0.83146961230254523708f;
+    case 5: case 27: return 0.55557023301960222474f;
+    case 7: case 25: return 0.19509032201612826785f;
+    case 9: case 23: return -0.19509032201612826785f;
+    case 11: case 21: return -0.55557023301960222474f;
+    case 13: case 19: return -0.83146961230254523708f;
+    case 15: case 17: return -0.98078528040323044913f;
+    default: return w16_cos((m & 31) >> 1);
+  }
+}
+
+// In-register 32-point DFT y[k] = sum_m v[m] * exp(SIGN*2*pi*i*m*k/32),
+// natural order: the 16-point DFTs of the even and the odd samples and one
+// radix-2 layer, y[d] = E[d] + w32^d O[d], y[d + 16] = E[d] - w32^d O[d].
+template <int SIGN>
+__device__ __forceinline__ void dft32(float2 (&v)[32]) {
+  float2 e[16], o[16];
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    e[m] = v[2 * m];
+    o[m] = v[2 * m + 1];
+  }
+  dft16<SIGN>(e);
+  dft16<SIGN>(o);
+#pragma unroll
+  for (int d = 0; d < 16; ++d) {
+    const float c = w32_cos(d), s = SIGN * w32_cos(d + 24);  // sin x = cos(x - pi/2)
+    const float2 t = d == 0 ? o[d] : make_float2(o[d].x * c - o[d].y * s,
+                                                 o[d].x * s + o[d].y * c);
+    v[d] = c_add(e[d], t);
+    v[d + 16] = c_sub(e[d], t);
+  }
+}
+
 // One half of the frontend: the L-point DFTs of NC channels from ch0,
-// L = 16 * 16 with t = j + 16*m and bin k = d + 16*e, whose first-pass
+// L = 16 * M with t = j + 16*m and bin k = d + M*e, whose first-pass
 // samples are in v; the next half's (NN channels from ch_next, transform
 // tr_next; none where tr_next < 0) are loaded into v after the first pass.
-// The first pass (the thread of (c, j)): taper, the 16-point DFT over m in
-// registers, times w_L^(j*d), into row c at 16*j + d (with lanes on time at
-// 16*j + (d + j) % 16: a half-warp's 16 j at one d hit 16 banks). The
-// second (the thread of (c, d), c < NC): the 16-point DFT over j in
-// registers; each kept bin, j' = (k - kpos) mod L < FN_width, times
-// dr[j'] * gain/N, at k' = (192*c + j' - roll) mod N of the assembled block
-// (the epilogue's roll, as a shift of its input): row m2 = k' / n1, column
-// m1 = k' % n1, in the shared memory of the block that owns m1. Ends with
-// every thread past its reads of buf. With lanes on time a warp's two rows
-// are its own in both passes, so a warp barrier orders them.
+// The first pass (the thread of (c, j)): taper, the M-point DFT over m in
+// registers, times w_L^(j*d), into row c at M*j + d (with lanes on time at
+// M*j + (d + j) % M: a half-warp's 16 j at one d hit 16 banks). The
+// second (the thread of (c, d) for its M/16 values of d, c < NC): the
+// 16-point DFT over j in registers; each kept bin, j' = (k - kpos) mod L <
+// FN_width, times dr[j'] * gain/N, at k' = (FNW*c + j' - roll) mod N of the
+// assembled block (the epilogue's roll, as a shift of its input): row
+// m2 = k' / n1, column m1 = k' % n1, in the shared memory of the block that
+// owns m1. Ends with every thread past its reads of buf. With lanes on time
+// a warp's two rows are its own in both passes, so a warp barrier orders
+// them.
 template <class P, int NC, int NN>
-__device__ __forceinline__ void frontend_half(float2 (&v)[kR], float2* buf, float2* col,
+__device__ __forceinline__ void frontend_half(float2 (&v)[P::kM], float2* buf, float2* col,
                                               const float2* twf, const float* tap,
                                               const float* drs, int ch0, int kpos, int roll,
                                               const Src& src, const int* perm, int n_blocks,
                                               int keep, int tr_next, int ch_next,
                                               cg::cluster_group& cluster) {
   constexpr bool CM = P::kCm;
+  constexpr int kM = P::kM, kL = P::kL, kLd = P::kLd, kFnw = P::kFnw;
   const int tid = threadIdx.x;
   const int cf = lane_chan<CM>();
   if (NC == kHalf || cf < NC) {
     const int j = CM ? tid & 15 : tid >> 4;
 #pragma unroll
-    for (int m = 0; m < kR; ++m) v[m] = c_scale(v[m], tap[j + kR * m]);
-    dft16<-1>(v);
-    float2* row = buf + cf * kLd + kR * j;
+    for (int m = 0; m < kM; ++m) v[m] = c_scale(v[m], tap[j + kR * m]);
+    if constexpr (kM == 16) dft16<-1>(v);
+    else dft32<-1>(v);
+    float2* row = buf + cf * kLd + kM * j;
     row[CM ? j : 0] = v[0];
 #pragma unroll
-    for (int d = 1; d < kR; ++d) {
-      row[CM ? (d + j) & 15 : d] = j == 0 ? v[d] : c_mul(v[d], twf[j * d]);
+    for (int d = 1; d < kM; ++d) {
+      row[CM ? (d + j) & (kM - 1) : d] = j == 0 ? v[d] : c_mul(v[d], twf[j * d]);
     }
   }
   if (tr_next >= 0) frame_load<P, NN>(v, src, perm, n_blocks, keep, tr_next, ch_next);
@@ -276,26 +341,29 @@ __device__ __forceinline__ void frontend_half(float2 (&v)[kR], float2* buf, floa
   else __syncthreads();
 
   const int c = tid >> 4;
-  const int d = tid & 15;
   if (NC == kHalf || c < NC) {
-    float2 w[kR];
     const float2* row = buf + c * kLd;
-#pragma unroll
-    for (int j = 0; j < kR; ++j) w[j] = row[kR * j + (CM ? (d + j) & 15 : d)];
-    dft16<-1>(w);
     const int k_ch = (ch0 + c) * kFnw - roll;
 #pragma unroll
-    for (int e = 0; e < kR; ++e) {
-      int j = d + kR * e - kpos;
-      if (j < 0) j += kL;
-      if (j < kFnw) {
-        int k = k_ch + j;
-        if (k < 0) k += P::kN;
-        const int m2 = k / P::kN1;
-        const int m1 = k - m2 * P::kN1;
-        const int owner = m1 / P::kCpc;
-        float2* dst = cluster.map_shared_rank(col, owner);
-        dst[m2 * P::kCpc + m1 - owner * P::kCpc] = c_scale(w[e], drs[j]);
+    for (int q = 0; q < P::kDpt; ++q) {
+      const int d = (tid & 15) + kR * q;
+      float2 w[kR];
+#pragma unroll
+      for (int j = 0; j < kR; ++j) w[j] = row[kM * j + (CM ? (d + j) & (kM - 1) : d)];
+      dft16<-1>(w);
+#pragma unroll
+      for (int e = 0; e < kR; ++e) {
+        int j = d + kM * e - kpos;
+        if (j < 0) j += kL;
+        if (j < kFnw) {
+          int k = k_ch + j;
+          if (k < 0) k += P::kN;
+          const int m2 = k / P::kN1;
+          const int m1 = k - m2 * P::kN1;
+          const int owner = m1 / P::kCpc;
+          float2* dst = cluster.map_shared_rank(col, owner);
+          dst[m2 * P::kCpc + m1 - owner * P::kCpc] = c_scale(w[e], drs[j]);
+        }
       }
     }
   }
@@ -321,7 +389,7 @@ __device__ __forceinline__ void dft6(float2 (&v)[6]) {
 }
 
 template <class P>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, P::kBlocksPerSm)
 inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ held,
                        const float2* __restrict__ elem,
                        float2* __restrict__ out, const float* __restrict__ taper,
@@ -334,6 +402,7 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
                        int kpos, int roll, int k1_lo, int n1_keep, float scale) {
   constexpr int kN = P::kN, kN1 = P::kN1, kN2 = P::kN2, kCpc = P::kCpc, kRows = P::kRows;
   constexpr int kLdr = P::kLdr, kR1 = P::kR1, kQ1 = P::kQ1, kG = P::kG, kTwA = P::kTwA;
+  constexpr int kL = P::kL;
   constexpr int TS = 16 / kG;  // w_Q1^(j*d) = w_128^(TS*j*d) = twr[(d - 1)*16 + TS*j]
   extern __shared__ __align__(16) float2 smem[];
   float2* col = smem;               // [m2][kCpc]: this block's columns of the block
@@ -356,7 +425,7 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
   const Src src = {x, held, sp, st, sc, hp, ht, hc, h};
 
   int tr = blockIdx.x / kCl;
-  float2 v[kR];
+  float2 v[P::kM];
   if (tr < n_tr) frame_load<P, kHalf>(v, src, perm, n_blocks, keep, tr, ch0);
   for (int i = tid; i < kL; i += kThreads) twf[i] = tw_l[i];
   for (int i = tid; i < P::kTwC; i += kThreads) tw[i] = tw_pass[i];
@@ -367,7 +436,7 @@ inversion_fused_kernel(const float2* __restrict__ x, const float2* __restrict__ 
     tab[i] = row < kTwA ? tw_a[row * kN1 + c0 + c] : tw_b[(row - kTwA) * kN1 + c0 + c];
   }
   for (int i = tid; i < kL; i += kThreads) tap[i] = taper[i];
-  for (int i = tid; i < kFnw; i += kThreads) drs[i] = dr[i] * scale;
+  for (int i = tid; i < P::kFnw; i += kThreads) drs[i] = dr[i] * scale;
   __syncthreads();
   // every block of the cluster has started before any writes into another
   cluster_arrive();
@@ -663,20 +732,21 @@ static cudaError_t inversion_entry(const InvArgs* a, int* clusters) {
   return cudaGetLastError();
 }
 
-// channels -> the instantiation: 256 (SKA-Low) and 216 (a LowCBF PST slab)
+// (frame length, channels) -> the instantiation: (256, 256) SKA-Low,
+// (256, 216) a LowCBF PST slab, (512, 216) that slab at L = 512
 // (ops/kernels/inversion_fused.py GEOMETRIES)
-static cudaError_t inversion_dispatch(int n_chan, const InvArgs* a, int* clusters) {
-  switch (n_chan) {
-    case 256: return inversion_entry<LowPlan>(a, clusters);
-    case 216: return inversion_entry<PsiPlan>(a, clusters);
-    default: return cudaErrorInvalidValue;
-  }
+static cudaError_t inversion_dispatch(int L, int n_chan, const InvArgs* a, int* clusters) {
+  if (L == 256 && n_chan == 256) return inversion_entry<LowPlan>(a, clusters);
+  if (L == 256 && n_chan == 216) return inversion_entry<PsiPlan>(a, clusters);
+  if (L == 512 && n_chan == 216) return inversion_entry<Psi512Plan>(a, clusters);
+  return cudaErrorInvalidValue;
 }
 
-// Clusters of the n_chan-channel kernel resident on the current card at
-// once (the persistent grid's size), or an error where the card refuses it.
-extern "C" int inversion_fused_clusters(int n_chan, int* clusters) {
-  return inversion_dispatch(n_chan, nullptr, clusters);
+// Clusters of the kernel of frame length L and n_chan channels resident on
+// the current card at once (the persistent grid's size), or an error where
+// the card refuses it.
+extern "C" int inversion_fused_clusters(int L, int n_chan, int* clusters) {
+  return inversion_dispatch(L, n_chan, nullptr, clusters);
 }
 
 // x: complex64 stream with element strides (sp, st, sc) over (pol, time,
@@ -691,8 +761,9 @@ extern "C" int inversion_fused_clusters(int n_chan, int* clusters) {
 // tw_n1: (n1,) w_n1^m; tw_a, tw_b: (n2 / S, n1) w_N^(S*a*m1), (S, n1)
 // w_N^(b*m1); tw_row: the 128-point per-pass table (read at 216 channels);
 // all backward (ops/kernels/inversion_fused.py kernel_tables); roll in
-// [0, N); scale = gain / N. Takes L = 256, FN_width = 192 and 256 channels
-// (N = 49152 = 128 * 384) or 216 (N = 41472 = 216 * 192) only.
+// [0, N); scale = gain / N. Takes FN_width = 3L/4 and (L, channels) (256,
+// 256) (N = 49152 = 128 * 384), (256, 216) (N = 41472 = 216 * 192) or
+// (512, 216) (N = 82944 = 216 * 384) only.
 extern "C" int inversion_fused_launch(const void* x, const void* held, const void* elem,
                                       void* out, const void* taper, const void* dr,
                                       const void* perm, const void* tw_l, const void* tw_pass,
@@ -703,8 +774,8 @@ extern "C" int inversion_fused_launch(const void* x, const void* held, const voi
                                       int rows, int keep, int kpos, int roll, int fnw,
                                       int k1_lo, int n1_keep, float scale, void* stream) {
   const long long n_tr = static_cast<long long>(n_pol) * n_blocks;
-  if (L != kL || fnw != kFnw || n_pol <= 0 || n_blocks <= 0 || n_tr > (1LL << 30) ||
-      rows <= 0 || n_pol % rows || keep <= 0 || kpos < 0 || kpos >= kL || h < 0 ||
+  if (4 * fnw != 3 * L || n_pol <= 0 || n_blocks <= 0 || n_tr > (1LL << 30) ||
+      rows <= 0 || n_pol % rows || keep <= 0 || kpos < 0 || kpos >= L || h < 0 ||
       (h > 0 && held == nullptr)) {
     return cudaErrorInvalidValue;
   }
@@ -719,5 +790,5 @@ extern "C" int inversion_fused_launch(const void* x, const void* held, const voi
       sp, st, sc, hp, ht, hc, h, n_blocks, static_cast<int>(n_tr), rows, keep, kpos, roll, k1_lo,
       n1_keep, scale, static_cast<cudaStream_t>(stream)};
   int clusters = 0;
-  return inversion_dispatch(n_chan, &a, &clusters);
+  return inversion_dispatch(L, n_chan, &a, &clusters);
 }

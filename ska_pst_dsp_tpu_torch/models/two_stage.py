@@ -52,6 +52,7 @@ from ska_pst_dsp_tpu_torch.utils.profiling import span, spanned
 from ska_pst_dsp_tpu_torch.utils.rational import Rational
 
 from ..ops.dedispersion import Dedispersion
+from ..ops.kernels.inversion_fused import frame_lengths
 from .streaming import (
     LOWCBF, FilterBank, FilterBankState, InverseFilterBank, InverseFilterBankState, as_tensor,
 )
@@ -237,7 +238,9 @@ class TwoStageInverseFilterBank(nn.Module):
         plus the chirp's reach of the lowest coarse channel (the band's
         widest) in whole input samples, rounded up to a multiple of nu so
         that the output discard is whole output samples. ValueError where
-        that leaves nothing of a frame to keep."""
+        that leaves nothing of a frame to keep, naming the frame lengths the
+        fused inversion has plans for at this channel count and what each
+        would keep."""
         d, c = self.dedispersion, self.config2
         os = Rational.coerce(c.os_factor)
         taper, frame = c.input_overlap, c.input_fft_length
@@ -245,11 +248,16 @@ class TwoStageInverseFilterBank(nn.Module):
         need = taper + math.ceil(d.reach() / per)
         need = -(-need // os.nu) * os.nu
         if 2 * need >= frame:
+            n_chan = self.nch2 * self.combine
+            plans = "; ".join(f"L {L}, which would keep {max(L - 2 * need, 0)} of each frame"
+                              for L in frame_lengths(n_chan))
             raise ValueError(
                 f"DM {d.dm}: the chirp of the {d.first_centre_mhz} MHz coarse channel reaches "
                 f"{d.reach():.0f} samples; beside the temporal taper's {taper * per:.0f} the "
                 f"inversion would discard an input overlap of {need} a side, which leaves "
-                f"nothing of its {frame}-sample frames: it needs a longer inversion")
+                f"nothing of its {frame}-sample frames: it needs a longer inversion ("
+                + (f"the fused inversion of {n_chan} channels takes {plans})" if plans else
+                   f"the fused inversion has no plan for {n_chan} channels)"))
         return need
 
     @spanned("two_stage.inverse_filterbank")

@@ -53,7 +53,7 @@ SIGNATURES = {
     "ifft_big_inner_launch": [_P] * 4 + [_L] * 2 + [_I] * 6 + [_P],
     "ifft_big_outer_launch": [_P] * 7 + [_I] * 7 + [_F, _P],
     "inversion_fused_launch": [_P] * 13 + [_L] * 7 + [_I] * 11 + [_F, _P],
-    "inversion_fused_clusters": [_I, _P],
+    "inversion_fused_clusters": [_I, _I, _P],
 }
 
 

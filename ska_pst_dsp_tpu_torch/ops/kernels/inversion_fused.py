@@ -1,9 +1,10 @@
 """Fused Golden inversion: frontend and epilogue in one kernel.
 
-At the two geometries it is instantiated for (:data:`GEOMETRIES`: L = 256,
-FN_width = 192, SKA-Low's 256 channels and a LowCBF PST slab's 216 kept
-channels; any output overlap of whole rows of the split, such as the wider
-discard a coherently dedispersing PST node takes) the CUDA kernel
+At the three geometries it is instantiated for (:data:`GEOMETRIES`:
+FN_width = 3L/4; SKA-Low's 256 channels at L = 256 and a LowCBF PST slab's
+216 kept channels at L = 256 and 512; any output overlap of whole rows of
+the split, such as the wider discard a coherently dedispersing PST node
+takes) the CUDA kernel
 (``csrc/inversion_fused.cu``) runs :mod:`.synthesis_fused`'s frontend and
 the epilogue together: a cluster of eight thread blocks, each the frontend
 of an eighth of the channels, stores each assembled block's bins straight
@@ -31,10 +32,11 @@ from . import cluster_twiddles, kernel, launch, pass_twiddles, query, require, t
 
 #: (frame length L, channels, points N of an assembled block) -> the
 #: (n2, n1) split of the block: the geometries the kernel is instantiated
-#: for (csrc/inversion_fused.cu InvPlan), FN_width = 192
+#: for (csrc/inversion_fused.cu InvPlan), FN_width = 3L/4
 GEOMETRIES = {
     (256, 256, 49152): (128, 384),  # SKA-Low
     (256, 216, 41472): (216, 192),  # a LowCBF PST slab: 216 kept channels
+    (512, 216, 82944): (216, 384),  # the slab at L 512, a PST node's longer frame
 }
 #: n2 -> S of the N-level twiddle w_N^(m1*k2) = tw_a[k2 // S, m1] * tw_b[k2 % S, m1]
 TW_SPLIT = {128: 16, 216: 36}
@@ -87,10 +89,18 @@ def _device_tables(n: int, n2: int, n1: int, device: torch.device) -> Dict[str, 
     return {k: torch.as_tensor(v, device=device) for k, v in kernel_tables(n, n2, n1).items()}
 
 
-def active_clusters(n_chan: int = 256) -> int:
-    """Clusters of eight blocks of the n_chan-channel kernel resident on
-    the current card at once (the persistent grid's size)."""
-    return query("inversion_fused_clusters", torch.device("cuda"), n_chan)
+def frame_lengths(n_chan: int) -> Dict[int, int]:
+    """Frame length L -> points N of the kernel's plans for n_chan
+    channels (none for a channel count it has no plan for)."""
+    return {L: n for L, c, n in sorted(GEOMETRIES) if c == n_chan}
+
+
+def active_clusters(n_chan: int = 256, L: int = 256) -> int:
+    """Clusters of eight blocks of the kernel of frame length L and n_chan
+    channels resident on the current card at once (the persistent grid's
+    size): a plan's own, as its shared memory allows two blocks an SM or
+    one."""
+    return query("inversion_fused_clusters", torch.device("cuda"), L, n_chan)
 
 
 @kernel("inversion_fused")

@@ -177,7 +177,9 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     or None. Returns (n_pol, 1, n_blocks * output_keep) complex64. On the
     card a frame length or a split no kernel takes raises ValueError; so
     does a (rows, N) table on the cluster epilogue or the out-of-core
-    pair."""
+    pair. Each call counts its transforms' points in
+    ``fused_inversion.transform_points`` and its kept output samples in
+    ``fused_inversion.output_samples``, whichever route runs them."""
     n_pol, n_dat, n_chan = x_tc.shape
     L = geom.input_fft_length
     n_dat += 0 if held is None else held.shape[1]
@@ -193,6 +195,7 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
             x_tc, t_taper, dr, perm, elem, geom.input_keep, kpos, n_blocks, lo,
             *_roll_gain(geom, spans_nyquist), held=held,
         )
+        _count(n_pol * n_blocks, n, lo)
         return out.reshape(n_pol, 1, -1)
     if held is not None:
         raise ValueError(f"only the fused inversion reads held samples; {n_chan} channels "
@@ -201,13 +204,25 @@ def fused_inversion(x_tc: torch.Tensor, t_taper: torch.Tensor, dr: torch.Tensor,
     flat = fn.reshape(n_pol, n_blocks, n)
     out = epilogue_dispatch(flat, elem, geom, spans_nyquist=spans_nyquist,
                             n_valid=n_blocks)
+    _count(n_pol * n_blocks, n, lo)
     return out.reshape(n_pol, 1, -1)
+
+
+def _count(transforms: int, n: int, lo: int) -> None:
+    """Counts ``transforms`` inversion transforms of n points, each keeping
+    n - 2*lo output samples."""
+    fused_inversion.transform_points += transforms * n
+    fused_inversion.output_samples += transforms * (n - 2 * lo)
 
 
 #: epilogues :func:`epilogue_dispatch` ran composed because neither package
 #: has a plan for their length (the critical cascade's 36864 points, say):
 #: the reference's own dispatch, counted so that it shows
 fused_inversion.composed_epilogues = 0
+#: points of every inversion transform run, on every route, and the output
+#: samples they kept: what a frame length costs, as their ratio
+fused_inversion.transform_points = 0
+fused_inversion.output_samples = 0
 
 
 def polyphase_synthesis_fused(

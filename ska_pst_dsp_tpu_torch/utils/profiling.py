@@ -100,6 +100,9 @@ def counters() -> Dict[str, int]:
     input lay in two tensors (``inversion_fused.split_launches``) as
     ``inversion_fused_split``,
     ``fused_inversion.composed_epilogues`` as ``composed_epilogues``, the
+    points of every inversion transform and the output samples they kept
+    (``fused_inversion.transform_points``, ``fused_inversion.output_samples``)
+    as ``inversion_transform_points`` and ``inversion_output_samples``, the
     bytes the streaming stages' carries have written
     (``models.streaming.carry.bytes``) as ``carry_bytes``, and the bytes
     the cascades' corner turns have copied
@@ -115,6 +118,8 @@ def counters() -> Dict[str, int]:
     out["analysis_fused_channel_major"] = analysis_fused.channel_major_launches
     out["inversion_fused_split"] = inversion_fused.split_launches
     out["composed_epilogues"] = fused_inversion.composed_epilogues
+    out["inversion_transform_points"] = fused_inversion.transform_points
+    out["inversion_output_samples"] = fused_inversion.output_samples
     out["carry_bytes"] = streaming.carry.bytes
     out["corner_turn_bytes"] = two_stage.corner_turn.bytes
     return out

@@ -1973,7 +1973,7 @@ class TestInversionFused:
         ((256, 216, 41_472, 7_776 + 108), False),             # its neighbours: overlap,
         ((256, 224, 43_008, 8_064), False),                   # channels either side
         ((256, 208, 39_936, 7_488), False),
-        ((512, 216, 82_944, 15_552), False),                  # another frame length
+        ((1024, 216, 165_888, 31_104), False),                # another frame length
         ((512, 4096, 1_835_008, 458_752), False),             # SKA-Mid
         ((256, 512, 98_304, 18_432), False),                  # 512 channels at 4/3
         ((256, 128, 24_576, 4_608), False),                   # 128 channels: n1 = 192

@@ -315,7 +315,8 @@ def test_carry_bytes_counts_the_cat_outputs(low_filt):
 def test_counters_hold_every_counter(cases):
     before = profiling.counters()
     assert set(before) == {*wrappers(), "analysis_fused_channel_major", "inversion_fused_split",
-                           "composed_epilogues", "carry_bytes", "corner_turn_bytes"}
+                           "composed_epilogues", "inversion_transform_points",
+                           "inversion_output_samples", "carry_bytes", "corner_turn_bytes"}
     assert all(isinstance(v, int) for v in before.values())
     cases["stream"]()
     after = profiling.counters()
@@ -324,6 +325,10 @@ def test_counters_hold_every_counter(cases):
     assert {k: after[k] - before[k] for k in wrappers()} == dict.fromkeys(wrappers(), 0)
     assert after["analysis_fused_channel_major"] == before["analysis_fused_channel_major"]
     assert after["inversion_fused_split"] == before["inversion_fused_split"]
+    # the plain inversion counts its transforms and what they kept too
+    points = after["inversion_transform_points"] - before["inversion_transform_points"]
+    kept = after["inversion_output_samples"] - before["inversion_output_samples"]
+    assert points > kept > 0
 
 
 @pytest.mark.parametrize("critical", [False, True])
